@@ -1,0 +1,22 @@
+"""Device resolution for the port's entry points.
+
+Every entry point takes ``device`` and defaults to ``"cuda"``. A machine
+without CUDA raises here instead of silently running on the CPU; the CPU is
+used only when the caller asks for it (``device="cpu"``), as the tests do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The ``torch.device`` for ``device``; raises if it is CUDA and CUDA is absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
