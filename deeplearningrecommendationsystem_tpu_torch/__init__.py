@@ -10,8 +10,11 @@ Device rule: entry points default to ``device="cuda"`` and raise when CUDA is
 absent, unless the caller passes ``device="cpu"``. Nothing falls back to the
 CPU on its own.
 
-Ported so far: serving of the MF model (data loader, model, ``Recommender``,
-``RecommenderServer`` and the two serving top-k kernels).
+Ported so far, for the MF preset: serving (data loader, model, ``Recommender``,
+``RecommenderServer`` and the two serving top-k kernels) and training (the
+negative sampler, ``Trainer``, the pointwise and ranking metrics,
+``experiments.run_experiment``, ``cli/serve.py``, the embedding gather and its
+backward, and the fused MF trainer behind ``MatrixFactorization.fast_fit``).
 """
 
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device

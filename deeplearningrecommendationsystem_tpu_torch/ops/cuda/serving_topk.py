@@ -18,14 +18,19 @@ import functools
 import torch
 
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import build
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda.launch import (
+    I as _I,
+    P as _P,
+    check as _check,
+    raise_on,
+    require_cuda,
+    stream,
+)
 
 SOURCE = "serving_topk.cu"
 MAX_K = 128  # kMaxK in the source
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper
 _SEEN_DTYPES = (torch.bool, torch.int8, torch.uint8)
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 @functools.cache
@@ -46,26 +51,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, dtypes, ndim: int, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {ndim} dims")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_k(k: int, num_items: int) -> None:
     if not 1 <= k <= min(MAX_K, num_items):
         raise ValueError(f"k={k} must lie in [1, min({MAX_K}, num_items={num_items})]")
-
-
-def _raise_on(lib: ctypes.CDLL, code: int, name: str) -> None:
-    if code != 0:
-        msg = lib.serving_topk_error_string(code).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
 
 
 def _outputs(U: int, k: int, device: torch.device):
@@ -79,8 +67,7 @@ def topk_serve_matmul(P: torch.Tensor, Q: torch.Tensor, seen: torch.Tensor, k: i
     """Launch ``matmul_topk_kernel``: P [U, D] f32, Q [I, D] f32, seen [U, I]
     (bool/int8/uint8, nonzero = exclude) -> (values [U, k] f32, ids [U, k] int32)."""
     device = P.device
-    if device.type != "cuda":
-        raise ValueError(f"topk_serve_matmul launches on CUDA tensors, got {device}")
+    require_cuda("topk_serve_matmul", device)
     _check("P", P, (torch.float32,), 2, device)
     _check("Q", Q, (torch.float32,), 2, device)
     _check("seen", seen, _SEEN_DTYPES, 2, device)
@@ -93,12 +80,11 @@ def topk_serve_matmul(P: torch.Tensor, Q: torch.Tensor, seen: torch.Tensor, k: i
         raise ValueError(f"embedding dim D={D} needs more shared memory than a block has")
     out_v, out_i = _outputs(U, k, device)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.serving_topk_matmul_f32(
             P.data_ptr(), Q.data_ptr(), seen.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-            U, I, D, k, stream,
+            U, I, D, k, stream(device),
         )
-    _raise_on(lib, code, "topk_serve_matmul")
+    raise_on(lib.serving_topk_error_string, code, "topk_serve_matmul")
     topk_serve_matmul.launches += 1
     return out_v, out_i
 
@@ -107,8 +93,7 @@ def topk_scores(scores: torch.Tensor, seen: torch.Tensor, k: int):
     """Launch ``scores_topk_kernel``: scores [U, I] f32, seen [U, I] ->
     (values [U, k] f32, ids [U, k] int32)."""
     device = scores.device
-    if device.type != "cuda":
-        raise ValueError(f"topk_scores launches on CUDA tensors, got {device}")
+    require_cuda("topk_scores", device)
     _check("scores", scores, (torch.float32,), 2, device)
     _check("seen", seen, _SEEN_DTYPES, 2, device)
     U, I = scores.shape
@@ -118,12 +103,11 @@ def topk_scores(scores: torch.Tensor, seen: torch.Tensor, k: int):
     lib = _lib()
     out_v, out_i = _outputs(U, k, device)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.serving_topk_scores_f32(
             scores.data_ptr(), seen.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-            U, I, k, stream,
+            U, I, k, stream(device),
         )
-    _raise_on(lib, code, "topk_scores")
+    raise_on(lib.serving_topk_error_string, code, "topk_scores")
     topk_scores.launches += 1
     return out_v, out_i
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from deeplearningrecommendationsystem_tpu_torch.device import on_cpu as _on_cpu
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as _cuda
 
 NEG_INF = -1e30
@@ -38,17 +39,6 @@ def stable_top_k(x: torch.Tensor, k: int):
     values the lowest index comes first (``lax.top_k``'s order)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
-
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True if every tensor is on the CPU, False if the first one is on CUDA
-    (the launcher then checks the rest); raises for any other device."""
-    dev = tensors[0].device.type
-    if dev == "cuda":
-        return False
-    if all(t.device.type == "cpu" for t in tensors):
-        return True
-    raise ValueError(f"tensors on {[str(t.device) for t in tensors]}: need all on cpu or cuda")
 
 
 def topk_serve_matmul_plain(P: torch.Tensor, Q: torch.Tensor, seen: torch.Tensor, k: int = 50):

@@ -1,5 +1,6 @@
-"""The serving top-k CUDA kernels against their plain PyTorch versions, on the
-card. Every test here needs an NVIDIA GPU with nvcc and skips elsewhere; run
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+serving top-k kernels, the embedding gather and its backward, and the fused MF
+trainer. Every test here needs an NVIDIA GPU with nvcc and skips elsewhere; run
 them on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -9,14 +10,23 @@ them on the card with
 machine need not have; this file imports neither JAX nor the JAX package.)
 
 Integer-valued inputs make every score exact, so kernel and plain version must
-agree bit for bit, ties and the slots past a user's unseen items included.
+agree bit for bit, ties and the slots past a user's unseen items included. A
+gather moves values and must agree bit for bit on any input; ``onehot_grad``
+sums with atomics in an order that changes between runs, so it is exact on
+integer-valued cotangents and, on normal ones, within the float32 bound of
+recursive summation of the exact (float64) sums.
 """
 
 import pytest
 import torch
 
+from deeplearningrecommendationsystem_tpu_torch.ops import gather as gat
+from deeplearningrecommendationsystem_tpu_torch.ops import mf_epoch as mfe
 from deeplearningrecommendationsystem_tpu_torch.ops import serving_topk as topk
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_gather
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mfe
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as cuda_topk
+from deeplearningrecommendationsystem_tpu_torch.ops.embedding import gather_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +112,127 @@ def test_launchers_check_their_inputs(cuda):
             cuda_topk.topk_serve_matmul(*args, **kwargs)
     with pytest.raises(ValueError):
         cuda_topk.topk_scores(P @ Q.T, seen, k=0)
+
+
+# ---- the embedding gather and its backward (csrc/gather.cu)
+
+# (V, D, B): the MF tables at a ragged batch, one id, a bias table, an odd
+# width (4-byte copies), a narrow bf16 row (2-byte copies)
+GATHER_SHAPES = [(943, 64, 2297), (1682, 64, 1), (37, 1, 77), (50, 7, 300), (100, 16, 1000)]
+
+
+@pytest.mark.parametrize("V,D,B", GATHER_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_gather_rows_equals_plain(cuda, V, D, B, dtype, id_dtype):
+    g = torch.Generator(device=cuda).manual_seed(V + B)
+    table = torch.randn((V, D), generator=g, device=cuda).to(dtype)
+    ids = torch.randint(-V - 3, V + 3, (B,), generator=g, device=cuda).to(id_dtype)  # out of range too
+    got = gat.gather_rows_kernel(table, ids)
+    assert got.dtype == dtype and got.shape == (B, D)
+    assert torch.equal(got, gat.gather_rows_kernel_plain(table, ids))
+
+
+@pytest.mark.parametrize("N,V,D", [(229_700, 943, 64), (530, 1682, 16), (256, 943, 1), (300, 50, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onehot_grad_integer_cotangents_exact(cuda, N, V, D, dtype):
+    g = torch.Generator(device=cuda).manual_seed(N + D)
+    ids = torch.sort(torch.randint(-2, V + 2, (N,), generator=g, device=cuda)).values.to(torch.int32)
+    ids[::3] = torch.randint(0, V, (len(ids[::3]),), generator=g, device=cuda).to(torch.int32)
+    cot = torch.randint(-8, 9, (N, D), generator=g, device=cuda).to(dtype)
+    got = gat.onehot_grad(ids, cot, V)
+    assert got.dtype == torch.float32 and got.shape == (V, D)
+    assert torch.equal(got, gat.onehot_grad_plain(ids, cot, V))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onehot_grad_normal_cotangents_close(cuda, dtype):
+    """Each sum within the float32 bound of recursive summation in any order,
+    n u sum|g| (n the row's count, u = 2^-24), of the float64 sum."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ids = torch.randint(0, 1682, (50_000,), generator=g, device=cuda)
+    cot = torch.randn((50_000, 64), generator=g, device=cuda).to(dtype)
+    ref = torch.zeros((1682, 64), dtype=torch.float64, device=cuda).index_add_(0, ids, cot.double())
+    mass = torch.zeros_like(ref).index_add_(0, ids, cot.double().abs())
+    bound = torch.bincount(ids, minlength=1682).double()[:, None] * 2.0 ** -24 * mass
+    for got in (gat.onehot_grad(ids, cot, 1682), gat.onehot_grad_plain(ids, cot, 1682)):
+        assert bool(((got.double() - ref).abs() <= bound).all())
+
+
+def test_gather_rows_autograd_on_the_card(cuda):
+    """GatherRows on CUDA tensors: one launch of each kernel, and the table's
+    gradient equals the CPU plain versions' on integer cotangent rows."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    table = torch.randn((943, 64), generator=g, device=cuda, requires_grad=True)
+    ids = torch.randint(0, 943, (4000, 2), generator=g, device=cuda)
+    w = torch.randint(-3, 4, (4000, 2, 64), generator=g, device=cuda).float()
+    before = cuda_gather.gather_rows.launches, cuda_gather.onehot_grad.launches
+    (gather_rows(table, ids) * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (cuda_gather.gather_rows.launches, cuda_gather.onehot_grad.launches) == (
+        before[0] + 1, before[1] + 1)
+    cpu_table = table.detach().cpu().requires_grad_(True)
+    (gather_rows(cpu_table, ids.cpu()) * w.cpu()).sum().backward()
+    assert torch.equal(table.grad.cpu(), cpu_table.grad)
+
+
+def test_gather_launchers_check_their_inputs(cuda):
+    table = torch.randn((10, 8), device=cuda)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    for args, err in [((table.double(), ids), TypeError), ((table, ids.float()), TypeError),
+                      ((table.T, ids), ValueError), ((table, ids[None]), ValueError),
+                      ((table, ids.cpu()), ValueError)]:
+        with pytest.raises(err):
+            cuda_gather.gather_rows(*args)
+    with pytest.raises(ValueError):
+        cuda_gather.onehot_grad(ids, torch.randn((5, 8), device=cuda), 10)
+
+
+# ---- the fused MF trainer (csrc/mf_epoch.cu)
+
+def _mf_inputs(cuda, U, I, D, B, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    uid = torch.sort(torch.randint(0, U, (B,), generator=g, device=cuda)).values.to(torch.int32)
+    iid = torch.randint(0, I, (B,), generator=g, device=cuda).to(torch.int32)
+    y = (torch.rand((B,), generator=g, device=cuda) < 0.3).float()
+    pu = 0.1 * torch.randn((U, D), generator=g, device=cuda)
+    pi = 0.1 * torch.randn((I, D), generator=g, device=cuda)
+    return uid, iid, y, pu, pi
+
+
+# float32: sums in another order, carried through Adam's normalised steps;
+# bfloat16: a gradient row may round to the other bf16 neighbour
+MF_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-3, 2e-3)}  # (loss rtol, table atol)
+
+
+@pytest.mark.parametrize("U,I,D,B", [(50, 81, 16, 300), (943, 1682, 64, 20_000), (7, 9, 100, 33)])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_mf_fullbatch_train_matches_plain(cuda, U, I, D, B, compute_dtype):
+    args = _mf_inputs(cuda, U, I, D, B, seed=U + B)
+    before = cuda_mfe.mf_fullbatch_train.launches
+    pu, pi, losses = mfe.mf_fullbatch_train(*args, 6, 0.01, 1e-5, compute_dtype)
+    torch.cuda.synchronize()
+    assert cuda_mfe.mf_fullbatch_train.launches == before + 12  # two launches an epoch
+    want_pu, want_pi, want_losses = mfe.mf_fullbatch_train_plain(*args, 6, 0.01, 1e-5,
+                                                                 compute_dtype)
+    rtol, atol = MF_TOL[compute_dtype]
+    torch.testing.assert_close(losses, want_losses, rtol=rtol, atol=0)
+    torch.testing.assert_close(pu, want_pu, rtol=0, atol=atol)
+    torch.testing.assert_close(pi, want_pi, rtol=0, atol=atol)
+
+
+def test_mf_launcher_checks_its_inputs(cuda):
+    uid, iid, y, pu, pi = _mf_inputs(cuda, 5, 6, 8, 20, seed=0)
+    bad = [
+        ((uid.float(), iid, y, pu, pi), TypeError),
+        ((uid, iid.long(), y, pu, pi), TypeError),  # ids of two dtypes
+        ((uid, iid, y[:5], pu, pi), ValueError),
+        ((uid, iid, y, pu, pi[:, :4].contiguous()), ValueError),
+        ((uid, iid, y, torch.zeros((5, 129), device=cuda), torch.zeros((6, 129), device=cuda)),
+         ValueError),
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            cuda_mfe.mf_fullbatch_train(*args, 2, 0.01)
+    with pytest.raises(ValueError):
+        cuda_mfe.mf_fullbatch_train(uid, iid, y, pu, pi, 2, 0.01, compute_dtype="float16")
