@@ -26,9 +26,22 @@ no result line.
    HTTP on the card; each answer is held against the plain top-k of the
    trained factors;
 6. slice   -- the MF serving path of slice 1 (a seeded random model) over
-   HTTP, through both top-k kernels.
+   HTTP, through both top-k kernels;
+7. lr      -- the feature family's LR (slice 3): ``run_experiment(PRESETS["lr"])``
+   for 20 epochs at full width, then ``LogisticRegression.fast_fit`` in both
+   modes on the same batch; the losses match the same run on the CPU and the
+   Trainer's, and the loss falls;
+8. afm     -- ``run_experiment(PRESETS["afm"])`` at full width (embedding 128,
+   attention 64) for AFM_EPOCHS epochs. The CPU reference is slow at this
+   width (about 65 GFLOP an epoch and 390 GFLOP for the catalog in its plain
+   path), so the card's history is held against a CPU ``Trainer.fit`` over
+   the same batches, and its catalog scores against the CPU's for one tile of
+   64 users under the same trained weights;
+9. serve_lr, serve_afm -- ``cli/serve.py::build_server`` trains each and
+   serves it over HTTP: LR through its rank-2 factors (``topk_serve_matmul``
+   at D = 2), AFM through its masked catalog scores and the plain top-k.
 
-Phases 4-6 are the main paths: each sets the launch counts to 0 just before
+Phases 4-9 are the main paths: each sets the launch counts to 0 just before
 it and reads them just after. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the line before that the ``kernels`` line.
@@ -52,18 +65,27 @@ from torch import nn
 from deeplearningrecommendationsystem_tpu_torch.cli import serve as serve_cli
 from deeplearningrecommendationsystem_tpu_torch.configs import PRESETS
 from deeplearningrecommendationsystem_tpu_torch.data import MovieLens100K, write_ml100k_format
-from deeplearningrecommendationsystem_tpu_torch.experiments import build_model, run_experiment
+from deeplearningrecommendationsystem_tpu_torch.experiments import (
+    build_model,
+    run_experiment,
+    split_batches,
+)
 from deeplearningrecommendationsystem_tpu_torch.models import MatrixFactorization, ServingContext
+from deeplearningrecommendationsystem_tpu_torch.ops import afm_attention as afm
 from deeplearningrecommendationsystem_tpu_torch.ops import gather as gat
+from deeplearningrecommendationsystem_tpu_torch.ops import lr_epoch as lre
 from deeplearningrecommendationsystem_tpu_torch.ops import mf_epoch as mfe
 from deeplearningrecommendationsystem_tpu_torch.ops import serving_topk as topk
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import afm_attention as cuda_afm
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import build
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_gather
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lre
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mfe
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as cuda_topk
-from deeplearningrecommendationsystem_tpu_torch.sampling import NegativeSampler
+from deeplearningrecommendationsystem_tpu_torch.ops.interactions import pairwise_products
 from deeplearningrecommendationsystem_tpu_torch.server import RecommenderServer
 from deeplearningrecommendationsystem_tpu_torch.serving import Recommender
+from deeplearningrecommendationsystem_tpu_torch.train import TrainConfig, Trainer
 
 DEVICE = torch.device("cuda")
 NEG_INF = topk.NEG_INF
@@ -92,6 +114,18 @@ SEEN_DENSITY = 100_000 / (943 * 1682)  # ml-100k: every rating is a seen item
 # the slice below, and the JAX package's large-catalog serving shape
 KERNEL_SHAPES = [(943, 1682, EMBEDDING_DIM, 50), (32, 1682, EMBEDDING_DIM, 50),
                  (2048, 131072, EMBEDDING_DIM, 50)]
+LR_SERVING_SHAPE = (943, 1682, 2, 50)  # LR's rank-2 serving factors, all users
+# the fused LR trainers against their plain versions over LR_CHECK_EPOCHS
+# epochs: (loss rtol, weight atol), float32 sums in another order (block
+# partials, shared atomics) carried through Adam's normalised steps at lr 0.05
+LR_TOL = (1e-5, 1e-4)
+LR_CHECK_EPOCHS = 5
+# the AFM pool kernels against their plain versions: largest error within
+# this share of the tensor's largest |value| (float32 sums over D, over the 15
+# pairs and, for dW, db and dh, over all rows, in another order)
+AFM_FWD_RTOL, AFM_BWD_RTOL = 1e-5, 1e-4
+AFM_EPOCHS = 3  # the CPU reference's plain path is slow at full width
+CATALOG_TILE = 64  # users per tile of catalog_scores_from_features
 CSRC = "deeplearningrecommendationsystem_tpu_torch/csrc"
 PALLAS = "deeplearningrecommendationsystem_tpu/ops/pallas"
 KERNELS = {
@@ -105,12 +139,24 @@ KERNELS = {
                     "replaces": f"{PALLAS}/onehot_grad.py:70"},
     "mf_fullbatch_train": {"route": "cuda", "source": f"{CSRC}/mf_epoch.cu",
                            "replaces": f"{PALLAS}/mf_epoch.py:141"},
+    "lr_fullbatch_train": {"route": "cuda", "source": f"{CSRC}/lr_epoch.cu",
+                           "replaces": f"{PALLAS}/lr_epoch.py:90"},
+    "lr_fullbatch_train_compact": {"route": "cuda", "source": f"{CSRC}/lr_epoch.cu",
+                                   "replaces": f"{PALLAS}/lr_epoch.py:272"},
+    "afm_attention_pool": {"route": "cuda", "source": f"{CSRC}/afm_attention.cu",
+                           "replaces": f"{PALLAS}/afm_attention.py:57"},
+    "afm_attention_pool_bwd": {"route": "cuda", "source": f"{CSRC}/afm_attention.cu",
+                               "replaces": f"{PALLAS}/afm_attention.py:175 (backward _pool_bwd)"},
 }
 LAUNCHERS = {"topk_serve_matmul": cuda_topk.topk_serve_matmul,
              "topk_scores": cuda_topk.topk_scores,
              "gather_rows": cuda_gather.gather_rows,
              "onehot_grad": cuda_gather.onehot_grad,
-             "mf_fullbatch_train": cuda_mfe.mf_fullbatch_train}
+             "mf_fullbatch_train": cuda_mfe.mf_fullbatch_train,
+             "lr_fullbatch_train": cuda_lre.lr_fullbatch_train,
+             "lr_fullbatch_train_compact": cuda_lre.lr_fullbatch_train_compact,
+             "afm_attention_pool": cuda_afm.afm_attention_pool,
+             "afm_attention_pool_bwd": cuda_afm.afm_attention_pool_bwd}
 
 
 def emit(obj) -> None:
@@ -382,21 +428,148 @@ def check_mf_epoch(batch, U: int, I: int, dtype: str, gen: torch.Generator,
     }
 
 
+def library_epoch(params, loss_fn, learning_rate: float):
+    """One eager autograd epoch with torch.optim.Adam over ``params``."""
+    opt = torch.optim.Adam(params, lr=learning_rate)
+
+    def epoch():
+        opt.zero_grad(set_to_none=True)
+        loss_fn().backward()
+        opt.step()
+
+    return epoch
+
+
+def lr_bound(mode: str, args, epochs: int):
+    """(bound_ms, bound_by) of ``epochs`` fused LR epochs. Bytes: every input
+    read once and w and the losses written once, for the whole call. Operations
+    per epoch: the row's score and its gradient (2 per column each, the dense
+    product counted whole in the wide mode), 20 for the loss and g, 15 per
+    weight for Adam."""
+    nbytes = sum(t.numel() * t.element_size() for t in args) + args[-1].numel() * 4 + epochs * 4
+    if mode == "wide":
+        (B, F), cols = args[0].shape, args[0].shape[1]
+    else:
+        B, cols = args[2].shape[0], args[2].shape[1] + 2
+        F = args[-1].numel()
+    return bound_of(epochs * (B * (4 * cols + 20) + 15 * F), nbytes)
+
+
+def check_lr(model, params, x, y, mode: str, learning_rate: float, timed_epochs: int) -> dict:
+    """A fused LR trainer against its plain version over LR_CHECK_EPOCHS epochs at
+    the LR train batch, as ``fast_fit`` feeds it; times per epoch."""
+    U, I = model.spec.num_users, model.spec.num_items
+    args = model.fused_inputs(params, x, y, mode)
+    if mode == "compact":
+        kernel, plain, extra = lre.lr_fullbatch_train_compact, lre.lr_fullbatch_train_compact_plain, (U, I)
+    else:
+        kernel, plain, extra = lre.lr_fullbatch_train, lre.lr_fullbatch_train_plain, ()
+    got = kernel(*args, LR_CHECK_EPOCHS, learning_rate, *extra)
+    want = plain(*args, LR_CHECK_EPOCHS, learning_rate, *extra)
+    torch.testing.assert_close(got[1], want[1], rtol=LR_TOL[0], atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=LR_TOL[1])
+    err = max(float((g_t - w_t).abs().max()) for g_t, w_t in zip(got, want))
+
+    w = args[-1].reshape(-1).clone().requires_grad_(True)
+    if mode == "compact":
+        uid, iid, dense, yy, _ = args
+
+        def loss():
+            return F.binary_cross_entropy_with_logits(w[uid] + w[U + iid] + dense @ w[U + I:], yy)
+    else:
+        x_aug, yy, _ = args
+
+        def loss():
+            return F.binary_cross_entropy_with_logits(x_aug @ w, yy)
+
+    E = timed_epochs
+    t_bound, bound_by = lr_bound(mode, args, E)
+    return {
+        "shape": {"rows": int(y.shape[0]), "users": U, "items": I,
+                  "columns": int(args[0].shape[1]) if mode == "wide" else int(args[2].shape[1]),
+                  "mode": mode, "epochs_per_call": E},
+        "unit": "per epoch",
+        "max_abs_err": err,
+        "kernel_ms": time_ms(lambda: kernel(*args, E, learning_rate, *extra)) / E,
+        "plain_ms": time_ms(lambda: plain(*args, E, learning_rate, *extra)) / E,
+        "library_ms": time_ms(library_epoch([w], loss, learning_rate)),
+        "library": "one eager autograd epoch with torch.optim.Adam",
+        "bound_ms": t_bound / E, "bound_by": bound_by,
+    }
+
+
+def afm_work(B: int, D: int, A: int, backward: bool):
+    """(operations, bytes) of the AFM pool on B rows. Forward, per row and pair:
+    the product c (D), c W (2 D A), the bias, relu and dot with h (4 A), the pool
+    (2 D); the softmax 45 a row. Backward: the forward again, then per pair g . c
+    (2 D), dz, dh and db (5 A), dW (D + 2 D A), dc (2 D A + 2 D) and de (4 D)."""
+    ops = B * (15 * (2 * D * A + 4 * A + 3 * D) + 45)
+    params = (D * A + 2 * A) * 4
+    if not backward:
+        return ops, B * 6 * D * 4 + B * D * 4 + params
+    ops += B * 15 * (4 * D * A + 9 * D + 5 * A)
+    return ops, 2 * B * 6 * D * 4 + B * D * 4 + 2 * params
+
+
+def afm_library_fwd(fields, W, b, h):
+    """The eager composition: pair products, torch.matmul for c @ W, softmax,
+    torch.bmm for the pool."""
+    cross = pairwise_products(fields)
+    wts = torch.softmax(torch.relu(torch.matmul(cross, W) + b) @ h, dim=1)
+    return torch.bmm(wts.transpose(1, 2), cross)[:, 0]
+
+
+def afm_library_bwd(fields, W, b, h, g):
+    leaves = [t.detach().requires_grad_(True) for t in (fields, W, b, h)]
+    return torch.autograd.grad(afm_library_fwd(*leaves), leaves, g)
+
+
+def normwise_err(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float) -> float:
+    err = float((got - want).abs().max())
+    if not err <= rtol * float(want.abs().max()):
+        raise AssertionError(f"{name}: kernel off by {err}, above {rtol} x max |plain|")
+    return err
+
+
+def check_afm(B: int, D: int, A: int, gen: torch.Generator, label: str, backward: bool) -> dict:
+    """The AFM pool's forward (or backward) kernel against its plain version on
+    B rows of random fields at the scale of the model's embeddings and
+    standard-normal attention weights, as the model draws them."""
+    fields = 0.1 * torch.randn((B, 6, D), generator=gen, device=DEVICE)
+    W = torch.randn((D, A), generator=gen, device=DEVICE)
+    b = torch.randn((A,), generator=gen, device=DEVICE)
+    h = torch.randn((A, 1), generator=gen, device=DEVICE)
+    g = torch.randn((B, D), generator=gen, device=DEVICE) / B
+    if backward:
+        args, kernel, plain = (fields, W, b, h, g), afm.afm_attention_pool_bwd, afm.afm_attention_pool_bwd_plain
+        got, want = kernel(*args), plain(*args)
+        err = max(normwise_err(f"afm_attention_pool_bwd d{n}", gt, wt, AFM_BWD_RTOL)
+                  for n, gt, wt in zip(("fields", "W", "b", "h"), got, want))
+        library, lib_name = afm_library_bwd, "eager composition's autograd (forward included)"
+    else:
+        args, kernel, plain = (fields, W, b, h), afm.afm_attention_pool, afm.afm_attention_pool_plain
+        err = normwise_err("afm_attention_pool", kernel(*args), plain(*args), AFM_FWD_RTOL)
+        library, lib_name = afm_library_fwd, "eager: pair products, torch.matmul for c @ W, softmax, torch.bmm"
+    torch.cuda.synchronize()
+    t_bound, bound_by = bound_of(*afm_work(B, D, A, backward))
+    row = {
+        "shape": {"rows": B, "fields": 6, "dim": D, "attention": A, "batch": label},
+        "max_abs_err": err,
+        "kernel_ms": time_ms(lambda: kernel(*args)),
+        "plain_ms": time_ms(lambda: plain(*args)),
+        "library_ms": time_ms(lambda: library(*args)),
+        "library": lib_name,
+        "bound_ms": t_bound, "bound_by": bound_by,
+    }
+    del fields, g
+    torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------- data
 
 def make_dataset(path: str, seed: int = 0) -> MovieLens100K:
     return MovieLens100K(write_ml100k_format(path, seed=seed), seed=seed)
-
-
-def train_batch(ds: MovieLens100K, cfg):
-    """The train batch ``run_experiment`` builds for ``cfg``: the same sampler,
-    seed and order, so the same negatives."""
-    sampler = NegativeSampler(ds.seen_mask(ds.train, ds.valid, ds.test), seed=cfg.seed,
-                              device=DEVICE)
-    combined = MovieLens100K.concat_splits(ds.train, sampler.sample(cfg.negatives[0]))
-    users = torch.from_numpy(combined["user"]).to(DEVICE)
-    items = torch.from_numpy(combined["item"]).to(DEVICE)
-    return (users, items), torch.from_numpy(combined["rating"]).to(DEVICE)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -406,9 +579,30 @@ HISTORY_KEYS = {f"{s}_{m}" for s in ("train", "valid", "test")
 HISTORY_KEYS.add("_param_checksum")
 
 
+def check_counts(phase: str, counts: dict, want: dict) -> None:
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{phase}: {name} launched {counts[name]} times, expected {n}")
+
+
+def compare_histories(phase: str, card: dict, cpu: dict, card_extras: dict,
+                      cpu_extras: dict) -> dict:
+    """The card's losses within TRAIN_LOSS_RTOL of the CPU's and its AUCs within
+    TRAIN_AUC_ATOL; returns the largest relative loss difference per split."""
+    worst = {}
+    for key in ("train_loss", "valid_loss", "test_loss"):
+        c = np.asarray(cpu[key])
+        np.testing.assert_allclose(card[key], c, rtol=TRAIN_LOSS_RTOL, err_msg=f"{phase} {key}")
+        worst[key] = float(np.max(np.abs(card[key] / c - 1)))
+    for key, v in card_extras.items():
+        if abs(v - cpu_extras[key]) > TRAIN_AUC_ATOL:
+            raise AssertionError(f"{phase}: {key} {v} on the card, {cpu_extras[key]} on the CPU")
+    return worst
+
+
 def run_train(ds: MovieLens100K) -> dict:
     cfg = PRESETS["mf"].replace(epochs=TRAIN_EPOCHS)
-    batch = train_batch(ds, cfg)
+    batch = split_batches(cfg, ds, DEVICE)["train"]
     init = build_model(cfg, ds).to(DEVICE)
     params0 = {k: v.detach().clone() for k, v in init.named_parameters()}
 
@@ -422,11 +616,8 @@ def run_train(ds: MovieLens100K) -> dict:
     counts = launches()  # ... and ends here
 
     E = TRAIN_EPOCHS
-    want = {"gather_rows": E * 6 + 6,  # train, valid, test lookups per epoch; final AUCs
-            "onehot_grad": E * 2, "mf_fullbatch_train": E * 2}
-    for name, n in want.items():
-        if counts[name] != n:
-            raise AssertionError(f"train: {name} launched {counts[name]} times, expected {n}")
+    check_counts("train", counts, {"gather_rows": E * 6 + 6,  # 3 splits an epoch; final AUCs
+                                   "onehot_grad": E * 2, "mf_fullbatch_train": E * 2})
     if set(res.history) != HISTORY_KEYS:
         raise AssertionError(f"train: history keys {sorted(res.history)}")
     loss = res.history["train_loss"]
@@ -434,14 +625,7 @@ def run_train(ds: MovieLens100K) -> dict:
         raise AssertionError(f"train: the train loss did not fall: {loss.tolist()}")
 
     cpu = run_experiment(cfg, data=ds, device="cpu")  # plain versions on the CPU
-    worst = {}
-    for key in ("train_loss", "valid_loss", "test_loss"):
-        np.testing.assert_allclose(res.history[key], cpu.history[key], rtol=TRAIN_LOSS_RTOL,
-                                   err_msg=key)
-        worst[key] = float(np.max(np.abs(res.history[key] / cpu.history[key] - 1)))
-    for key, v in res.extras.items():
-        if abs(v - cpu.extras[key]) > TRAIN_AUC_ATOL:
-            raise AssertionError(f"train: {key} {v} on the card, {cpu.extras[key]} on the CPU")
+    worst = compare_histories("train", res.history, cpu.history, res.extras, cpu.extras)
     fused = fit_losses.cpu().numpy()
     np.testing.assert_allclose(fused, res.history["train_loss"], rtol=TRAIN_LOSS_RTOL)
     for k in ("user", "item"):
@@ -524,10 +708,8 @@ def run_serve(ds: MovieLens100K, data_dir: str, seed: int = 0) -> dict:
     finally:
         server.shutdown()
     E = TRAIN_EPOCHS
-    want = {"gather_rows": 2 * E, "onehot_grad": 2 * E, "topk_serve_matmul": 3}
-    for name, n in want.items():
-        if counts[name] != n:
-            raise AssertionError(f"serve: {name} launched {counts[name]} times, expected {n}")
+    check_counts("serve", counts, {"gather_rows": 2 * E, "onehot_grad": 2 * E,
+                                   "topk_serve_matmul": 3})
     return {"phase": "serve", "entry_point": "cli/serve.py::build_server --model mf --epochs 20",
             "requests": requests, "launches": counts, "stats": stats}
 
@@ -592,6 +774,164 @@ def run_slice(ds: MovieLens100K, seed: int = 0) -> dict:
             "launches": counts, "stats": stats}
 
 
+# ---------------------------------------------------------------- phases 7-9
+
+def n_tiles(ds: MovieLens100K) -> int:
+    return -(-ds.num_users // CATALOG_TILE)
+
+
+def run_lr(ds: MovieLens100K) -> dict:
+    cfg = PRESETS["lr"].replace(epochs=TRAIN_EPOCHS)
+    E = TRAIN_EPOCHS
+    x, y = split_batches(cfg, ds, DEVICE)["train"]
+    init = build_model(cfg, ds).to(DEVICE)
+    params0 = {k: v.detach().clone() for k, v in init.named_parameters()}
+
+    reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, data=ds, device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    fits = {mode: init.fast_fit(params0, x, y, E, cfg.learning_rate, mode=mode)
+            for mode in ("compact", "wide")}
+    torch.cuda.synchronize()
+    counts = launches()  # ... and ends here
+
+    # 2 bias lookups a forward: train, valid, test an epoch, the final AUCs, the catalog tiles
+    check_counts("lr", counts, {"gather_rows": 2 * (3 * E + 3 + n_tiles(ds)), "onehot_grad": 2 * E,
+                                "lr_fullbatch_train": 2 * E, "lr_fullbatch_train_compact": 2 * E})
+    if set(res.history) != HISTORY_KEYS:
+        raise AssertionError(f"lr: history keys {sorted(res.history)}")
+    loss = res.history["train_loss"]
+    if not (np.isfinite(loss).all() and loss[-1] < loss[0] - 0.05):
+        raise AssertionError(f"lr: the train loss did not fall: {loss.tolist()}")
+    cpu = run_experiment(cfg, data=ds, device="cpu")  # plain versions on the CPU
+    worst = compare_histories("lr", res.history, cpu.history, res.extras, cpu.extras)
+    fused = {}
+    for mode, (params, losses) in fits.items():
+        got = losses.cpu().numpy()
+        np.testing.assert_allclose(got, loss, rtol=TRAIN_LOSS_RTOL, err_msg=f"fast_fit {mode}")
+        if not all(bool(torch.isfinite(t).all()) for t in params.values()):
+            raise AssertionError(f"fast_fit {mode}: non-finite weights")
+        fused[mode] = float(np.max(np.abs(got / loss - 1)))
+    return {"phase": "lr", "config": "lr preset, 20 epochs, track_metrics",
+            "rows": int(y.shape[0]), "epochs": E,
+            "train_loss": [float(loss[0]), float(loss[-1])],
+            "ranking_test@10": res.ranking["test@10"], "extras": res.extras,
+            "wall_s": wall_s, "train_time_s": res.train_time_s,
+            "max_rel_loss_diff_vs_cpu": worst, "max_rel_loss_diff_fast_fit": fused,
+            "launches": counts}
+
+
+def run_afm(ds: MovieLens100K) -> dict:
+    cfg = PRESETS["afm"].replace(epochs=AFM_EPOCHS)
+    E = AFM_EPOCHS
+    reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, data=ds, device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launches()  # ... and ends here
+
+    forwards = 3 * E + 3 + n_tiles(ds)  # train, valid, test an epoch; final AUCs; catalog tiles
+    check_counts("afm", counts, {"afm_attention_pool": forwards, "afm_attention_pool_bwd": 2 * E,
+                                 "gather_rows": 4 * forwards, "onehot_grad": 4 * E})
+    if set(res.history) != HISTORY_KEYS:
+        raise AssertionError(f"afm: history keys {sorted(res.history)}")
+    loss = res.history["train_loss"]
+    if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+        raise AssertionError(f"afm: the train loss did not fall: {loss.tolist()}")
+
+    # the CPU reference: Trainer.fit over the same batches from the same initial
+    # weights (plain versions), without the full-catalog ranking
+    batches = split_batches(cfg, ds, "cpu")
+    cpu = Trainer(build_model(cfg, ds),
+                  TrainConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                              epochs=E, track_metrics=True, compute_dtype=cfg.compute_dtype),
+                  device="cpu").fit(batches["train"], valid=batches["valid"], test=batches["test"])
+    worst = compare_histories("afm", res.history, {k: v.numpy() for k, v in cpu.history.items()},
+                              res.extras, cpu.extras)
+    # the catalog scores of one tile of users under the card's trained weights
+    model = build_model(cfg, ds)
+    model.load_state_dict({k: v.cpu() for k, v in res.params.items()})
+    tile = ServingContext(torch.from_numpy(ds.user_features[:CATALOG_TILE]),
+                          torch.from_numpy(ds.item_features))
+    with torch.no_grad():
+        want = model.score_catalog(tile)
+        got = model.to(DEVICE).score_catalog(tile.to(DEVICE)).cpu()
+    catalog_err = normwise_err("afm catalog tile", got, want, AFM_FWD_RTOL)
+    return {"phase": "afm", "config": f"afm preset (embedding 128, attention 64), {E} epochs",
+            "rows": res.train_examples, "epochs": E,
+            "train_loss": [float(loss[0]), float(loss[-1])],
+            "ranking_test@10": res.ranking["test@10"], "extras": res.extras,
+            "wall_s": wall_s, "train_time_s": res.train_time_s,
+            "max_rel_loss_diff_vs_cpu": worst,
+            "catalog_tile_max_abs_err_vs_cpu": catalog_err, "launches": counts}
+
+
+def recommend_scores(port, rec, users, k, single=False) -> dict:
+    """One /v1/recommend request to a non-factored model, held against the
+    stable top-k of the server's masked catalog scores (``rec.scores``, which
+    ``run_serve_feature`` holds against the model's own scores)."""
+    if single:
+        out = http(port, "GET", f"/v1/recommend?user={users[0]}&k={k}")
+        items, scores = [out["items"]], [out["scores"]]
+    else:
+        out = http(port, "POST", "/v1/recommend", {"users": users, "k": k})
+        items, scores = out["items"], out["scores"]
+    u = torch.tensor(users, device=DEVICE)
+    want_v, want_i = topk.stable_top_k(rec.scores[u], k)
+    if items != want_i.tolist() or scores != want_v.tolist():
+        raise AssertionError("recommend: not the plain top-k of the masked scores")
+    if bool(torch.gather(rec.seen[u], 1, torch.tensor(items, device=DEVICE)).any()):
+        raise AssertionError("recommend: a seen item was recommended")
+    return {"request": f"{'GET' if single else 'POST'} /v1/recommend", "users": len(users), "k": k}
+
+
+def run_serve_feature(ds: MovieLens100K, data_dir: str, name: str, epochs: int,
+                      seed: int = 0) -> dict:
+    args = serve_cli.parser().parse_args(["--model", name, "--data", data_dir, "--epochs",
+                                          str(epochs), "--port", "0", "--seed", str(seed)])
+    reset_launches()  # the main path's run starts here
+    server = serve_cli.build_server(args).serve_background()
+    try:
+        rec = server.recommender
+        health = http(server.port, "GET", "/healthz")
+        if (health["num_users"], health["num_items"]) != (ds.num_users, ds.num_items):
+            raise AssertionError(f"/healthz: {health}")
+        rng = np.random.default_rng(seed)
+        batch = sorted(rng.choice(ds.num_users, 32, replace=False).tolist())
+        if name == "lr":
+            P, Q = (t.detach() for t in rec.model.serving_factors(rec.ctx))
+            if P.shape[1] != 2:
+                raise AssertionError(f"lr serving factors of width {P.shape[1]}")
+            masked = torch.where(rec.seen, NEG_INF, P @ Q.T)
+            requests = [recommend(server.port, rec, masked, [12], 10, single=True),
+                        recommend(server.port, rec, masked, batch, 50),
+                        recommend(server.port, rec, masked, list(range(ds.num_users)), 50)]
+        else:
+            requests = [recommend_scores(server.port, rec, [12], 10, single=True),
+                        recommend_scores(server.port, rec, batch, 50)]
+        counts = launches()  # ... and ends here
+        stats = http(server.port, "GET", "/v1/stats")
+        with torch.no_grad():  # the served scores are the trained model's, masked
+            if not torch.equal(rec.scores, torch.where(rec.seen, NEG_INF,
+                                                       rec.model.score_catalog(rec.ctx))):
+                raise AssertionError(f"serve_{name}: the served scores are not the model's")
+    finally:
+        server.shutdown()
+    tiles = n_tiles(ds)
+    if name == "lr":  # training forwards, the ranking eval's and the server's catalog scoring
+        want = {"gather_rows": 2 * (epochs + 2 * tiles), "onehot_grad": 2 * epochs,
+                "topk_serve_matmul": 3}
+    else:
+        want = {"afm_attention_pool": epochs + 2 * tiles, "afm_attention_pool_bwd": 2 * epochs,
+                "gather_rows": 4 * (epochs + 2 * tiles), "onehot_grad": 4 * epochs}
+    check_counts(f"serve_{name}", counts, want)
+    return {"phase": f"serve_{name}",
+            "entry_point": f"cli/serve.py::build_server --model {name} --epochs {epochs}",
+            "requests": requests, "launches": counts, "stats": stats}
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -623,7 +963,7 @@ def main() -> int:
                 rows[name].append(check_topk(name, U, I, D, k, gen))
                 emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
 
-        batch = train_batch(ds, PRESETS["mf"])
+        batch = split_batches(PRESETS["mf"], ds, DEVICE)["train"]
         (uid, iid), _ = batch
         small = torch.randint(0, 37, (77,), generator=gen, device=DEVICE)  # ragged, a bias table
         tables = [("user", ds.num_users, uid), ("item", ds.num_items, iid), ("small", 37, small)]
@@ -643,7 +983,33 @@ def main() -> int:
         del batch, uid, iid
         torch.cuda.empty_cache()
 
-        phases = [run_train(ds), run_serve(ds, tmp), run_slice(ds)]
+        rows["topk_serve_matmul"].append(check_topk("topk_serve_matmul", *LR_SERVING_SHAPE, gen))
+        emit({"phase": "kernel_check", "kernel": "topk_serve_matmul", **rows["topk_serve_matmul"][-1]})
+        lr_cfg = PRESETS["lr"]
+        x, y = split_batches(lr_cfg, ds, DEVICE)["train"]
+        lr_model = build_model(lr_cfg, ds).to(DEVICE)
+        for mode, name in (("wide", "lr_fullbatch_train"), ("compact", "lr_fullbatch_train_compact")):
+            rows[name].append(check_lr(lr_model, lr_model.params(), x, y, mode,
+                                       lr_cfg.learning_rate, TRAIN_EPOCHS))
+            emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
+        del x, y, lr_model
+        afm_cfg = PRESETS["afm"]
+        D, A = afm_cfg.model_kwargs["embedding_dim"], afm_cfg.model_kwargs["attention_dim"]
+        afm_rows = int(split_batches(afm_cfg, ds, DEVICE)["train"][1].shape[0])
+        for B, label in ((afm_rows, "train batch"),
+                         (CATALOG_TILE * ds.num_items, f"catalog tile of {CATALOG_TILE} users")):
+            rows["afm_attention_pool"].append(check_afm(B, D, A, gen, label, backward=False))
+            emit({"phase": "kernel_check", "kernel": "afm_attention_pool",
+                  **rows["afm_attention_pool"][-1]})
+        rows["afm_attention_pool_bwd"].append(check_afm(afm_rows, D, A, gen, "train batch",
+                                                        backward=True))
+        emit({"phase": "kernel_check", "kernel": "afm_attention_pool_bwd",
+              **rows["afm_attention_pool_bwd"][-1]})
+        torch.cuda.empty_cache()
+
+        phases = [run_train(ds), run_serve(ds, tmp), run_slice(ds), run_lr(ds), run_afm(ds),
+                  run_serve_feature(ds, tmp, "lr", TRAIN_EPOCHS),
+                  run_serve_feature(ds, tmp, "afm", AFM_EPOCHS)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for p in phases:
@@ -654,7 +1020,7 @@ def main() -> int:
     for name, meta in KERNELS.items():
         if counts[name] < 1:
             raise AssertionError(f"{name} was not launched on the main path")
-        main_row = rows[name][0]  # the main path's shape: all MF users, or the user table
+        main_row = rows[name][0]  # the main path's shape: all MF users, the user table, the train batch
         lines.append({
             "name": name, **meta, "launches": counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),

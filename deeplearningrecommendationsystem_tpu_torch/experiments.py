@@ -5,9 +5,10 @@ far: load ml-100k -> sample per-split negatives -> build full-batch tensors ->
 train N epochs with per-epoch train/valid/test metrics -> score the full
 catalog -> ranking@k on valid and test with seen items excluded.
 
-Ported: the 'pair' family (MF, the pattern of scripts/mf.py), full-batch. The
-other families, presets and training modes raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+Ported, full-batch: the 'pair' family for MF (the pattern of scripts/mf.py)
+and the 'feature' family for LR and AFM (the pattern of scripts/lr.py: each
+split's [N, 45] feature matrix). The other presets, families and training
+modes raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 The initial weights and the negatives are drawn from CPU generators seeded
 from ``cfg.seed`` and then moved to ``device``, so a run on a card and the
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,30 +30,40 @@ from deeplearningrecommendationsystem_tpu_torch.data.movielens import MovieLens1
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
 from deeplearningrecommendationsystem_tpu_torch.eval.ranking import ranking_metrics
 from deeplearningrecommendationsystem_tpu_torch.eval.recommend import score_ranking, seen_to_tail
-from deeplearningrecommendationsystem_tpu_torch.models import MatrixFactorization, ServingContext
+from deeplearningrecommendationsystem_tpu_torch.models import (
+    AFM,
+    LogisticRegression,
+    MatrixFactorization,
+    ServingContext,
+)
 from deeplearningrecommendationsystem_tpu_torch.sampling import NegativeSampler
 from deeplearningrecommendationsystem_tpu_torch.train import TrainConfig, Trainer
 
 # ROADMAP.md §1 items that bring the presets not ported yet
 _NOT_PORTED = {
-    "deepfm": "item 6", "lr": "item 8", "ffm": "item 8", "widedeep": "item 8", "nfm": "item 8",
-    "afm": "item 8", "pnn": "item 8", "deepcross": "item 8", "deepcrossing": "item 8",
+    "deepfm": "item 6", "ffm": "item 8", "widedeep": "item 8", "nfm": "item 8",
+    "pnn": "item 8", "deepcross": "item 8", "deepcrossing": "item 8",
     "neuralcf": "item 9", "autorec": "item 9", "i-autorec": "item 9",
     "din": "item 10", "dien": "item 10",
 }
+FAMILIES = ("pair", "feature")
 
 
 def build_model(cfg: ExperimentConfig, data: MovieLens100K,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
     """The preset's model on the CPU, its weights drawn from ``generator``
     (a CPU generator; seeded from ``cfg.seed`` when None)."""
-    if cfg.model != "mf":
+    if cfg.model not in ("mf", "lr", "afm"):
         where = _NOT_PORTED.get(cfg.model, "§1")
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet; see ROADMAP.md §1 {where}")
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    return MatrixFactorization(data.num_users, data.num_items, **cfg.model_kwargs,
-                               generator=generator, device="cpu")
+    kw = dict(cfg.model_kwargs, generator=generator, device="cpu")
+    if cfg.model == "mf":
+        return MatrixFactorization(data.num_users, data.num_items, **kw)
+    if cfg.model == "lr":
+        return LogisticRegression(data.spec, **kw)
+    return AFM(data.spec, **kw)
 
 
 @dataclasses.dataclass
@@ -78,9 +89,9 @@ class ExperimentResult:
 
 
 def _check_supported(cfg: ExperimentConfig) -> None:
-    if cfg.family != "pair":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; see ROADMAP.md §1 items 6-10")
+            f"family {cfg.family!r} is not ported yet; see ROADMAP.md §1 items 9-10")
     if cfg.train_mode != "fullbatch":
         raise NotImplementedError(
             f"train_mode {cfg.train_mode!r} is not ported yet; see ROADMAP.md §1 item 11")
@@ -88,6 +99,32 @@ def _check_supported(cfg: ExperimentConfig) -> None:
         raise NotImplementedError("mesh_shape (DP/EP) is not ported yet; see ROADMAP.md §1 item 13")
     if cfg.aux_weight > 0:
         raise NotImplementedError("aux_weight is DIEN's; see ROADMAP.md §1 item 10")
+
+
+def split_batches(cfg: ExperimentConfig, data: MovieLens100K,
+                  device: str | torch.device = "cuda") -> Dict[str, Tuple[Any, torch.Tensor]]:
+    """{"train", "valid", "test"} -> (batch, labels) on ``device``: each split's
+    positives with ``cfg.negatives`` sampled negatives per user, drawn in that
+    order from one sampler seeded from ``cfg.seed``. The batch is (users,
+    items) for the pair family and the [N, 45] feature matrix for the feature
+    family."""
+    dev = resolve_device(device)
+    sampler = NegativeSampler(data.seen_mask(data.train, data.valid, data.test),
+                              seed=cfg.seed, device=dev)
+    batches = {}
+    for name, split, n_neg in (
+        ("train", data.train, cfg.negatives[0]),
+        ("valid", data.valid, cfg.negatives[1]),
+        ("test", data.test, cfg.negatives[2]),
+    ):
+        combined: Split = MovieLens100K.concat_splits(split, sampler.sample(n_neg))
+        if cfg.family == "feature":
+            batch = torch.from_numpy(data.feature_matrix(combined)).to(dev)
+        else:
+            batch = (torch.from_numpy(combined["user"]).to(dev),
+                     torch.from_numpy(combined["item"]).to(dev))
+        batches[name] = (batch, torch.from_numpy(combined["rating"]).to(dev))
+    return batches
 
 
 def _sync(device: torch.device) -> None:
@@ -126,19 +163,7 @@ def run_experiment(
         item_features=torch.from_numpy(data.item_features).to(dev),
     )
 
-    sampler = NegativeSampler(data.seen_mask(data.train, data.valid, data.test),
-                              seed=cfg.seed, device=dev)
-    batches = {}
-    for name, split, n_neg in (
-        ("train", data.train, cfg.negatives[0]),
-        ("valid", data.valid, cfg.negatives[1]),
-        ("test", data.test, cfg.negatives[2]),
-    ):
-        combined: Split = MovieLens100K.concat_splits(split, sampler.sample(n_neg))
-        batches[name] = (
-            (torch.from_numpy(combined["user"]).to(dev), torch.from_numpy(combined["item"]).to(dev)),
-            torch.from_numpy(combined["rating"]).to(dev),
-        )
+    batches = split_batches(cfg, data, dev)
     train_examples = len(batches["train"][1])
 
     # ---- train (full batch, one Adam step per epoch) ----

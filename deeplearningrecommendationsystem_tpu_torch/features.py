@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class FeatureSpec:
@@ -40,14 +42,23 @@ class FeatureSpec:
         """Width of the non-id block (age + one/multi-hot fields): 43."""
         return self.width - 2
 
+    def ids(self, x):
+        """(user_ids, item_ids) int64 from the id columns of a [B, width]
+        float tensor. The ids are stored as floats, which hold every integer
+        only up to 2^24 in float32; bfloat16 and float16 lose ids above 256
+        and 2048, so such a tensor raises instead of giving wrong ids."""
+        if x.dtype in (torch.bfloat16, torch.float16):
+            raise TypeError(f"feature matrix in {x.dtype}: its id columns lose ids above "
+                            f"{256 if x.dtype == torch.bfloat16 else 2048}; keep it float32")
+        return x[:, self.user_col].long(), x[:, self.item_col].long()
+
     def split(self, x):
         """Slice a [B, width] feature tensor into its fields.
 
         Returns (user_ids int64, item_ids int64, age [B,1], gender [B,2],
         occupation [B,21], genres [B,19]).
         """
-        user = x[:, self.user_col].long()
-        item = x[:, self.item_col].long()
+        user, item = self.ids(x)
         age = x[:, self.age_col : self.age_col + 1]
         gender = x[:, self.gender_slice[0] : self.gender_slice[1]]
         occupation = x[:, self.occupation_slice[0] : self.occupation_slice[1]]

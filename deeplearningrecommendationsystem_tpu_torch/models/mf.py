@@ -27,8 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
-from deeplearningrecommendationsystem_tpu_torch.models.base import ServingContext
+from deeplearningrecommendationsystem_tpu_torch.models.base import ServingContext, init_generator
 from deeplearningrecommendationsystem_tpu_torch.ops.embedding import gather_rows
 from deeplearningrecommendationsystem_tpu_torch.ops.linear import embedding_init
 from deeplearningrecommendationsystem_tpu_torch.ops.mf_epoch import mf_fullbatch_train
@@ -46,11 +45,7 @@ class MatrixFactorization(nn.Module):
         device: str | torch.device = "cuda",
     ):
         super().__init__()
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        if generator.device.type != dev.type:
-            raise ValueError(f"generator is on {generator.device}, the model on {dev}")
+        generator = init_generator(generator, device)
         self.num_users = num_users
         self.num_items = num_items
         self.embedding_dim = embedding_dim

@@ -1,4 +1,5 @@
-"""Id-table lookup with a kernel in both directions.
+"""Id-table lookup with a kernel in both directions, and the field embeddings
+of the feature-vector family.
 
 Ports the dense branch of the JAX package's ``parallel/ep.py::gather_rows``
 and the routes it chooses among: the native ``table[ids]``,
@@ -16,13 +17,23 @@ shipped caller passes such ids.
 
 Row-sharded (EP) tables over a mesh are not ported yet (``ROADMAP.md`` §1
 item 13): ``gather_rows(..., mesh=...)`` raises.
+
+``init_field_tables`` and ``embed_fields`` embed the six ml-100k fields of a
+[B, 45] feature matrix: the user and item ids through ``gather_rows`` (the
+kernel pair), the age scalar and the gender, occupation and genre blocks as
+``x @ table`` products, which the JAX package leaves to XLA and the port to
+``torch.matmul``.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Mapping, Sequence
+
 import torch
 
+from deeplearningrecommendationsystem_tpu_torch.features import FeatureSpec
 from deeplearningrecommendationsystem_tpu_torch.ops.gather import gather_rows_kernel, onehot_grad
+from deeplearningrecommendationsystem_tpu_torch.ops.linear import embedding_init
 
 
 class GatherRows(torch.autograd.Function):
@@ -47,3 +58,49 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor, mesh=None) -> torch.Tens
             "row-sharded (EP) tables are not ported yet; see ROADMAP.md §1 item 13")
     out = GatherRows.apply(table, ids.reshape(-1).contiguous())
     return out.reshape(*ids.shape, table.shape[1])
+
+
+def init_field_tables(
+    generator: torch.Generator,
+    spec: FeatureSpec,
+    dim: int,
+    fields: Sequence[str] = ("user", "item", "gender", "occupation", "genre"),
+    dtype: torch.dtype = torch.float32,
+) -> Dict[str, torch.Tensor]:
+    """Xavier-normal tables for the requested fields ('age' has vocab 1)."""
+    sizes = {
+        "user": spec.num_users,
+        "item": spec.num_items,
+        "age": 1,
+        "gender": spec.num_genders,
+        "occupation": spec.num_occupations,
+        "genre": spec.num_genres,
+    }
+    return {f: embedding_init(generator, sizes[f], dim, dtype) for f in fields}
+
+
+def embed_fields(tables: Mapping[str, torch.Tensor], x: torch.Tensor,
+                 spec: FeatureSpec) -> Dict[str, torch.Tensor]:
+    """Embed each field of a [B, 45] feature matrix -> dict of [B, D] tensors.
+
+    Only fields present in ``tables`` are embedded; 'age' (vocab-1 table)
+    projects the scalar age through its single row.
+    """
+    user, item, age, gender, occupation, genre = spec.split(x)
+    blocks = {"age": age, "gender": gender, "occupation": occupation, "genre": genre}
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("user", "item", "age", "gender", "occupation", "genre"):
+        if name not in tables:
+            continue
+        if name in ("user", "item"):
+            out[name] = gather_rows(tables[name], user if name == "user" else item)
+        else:
+            out[name] = blocks[name] @ tables[name]
+    return out
+
+
+def bias_embedding_init(generator: torch.Generator, num: int,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[num, 1] Xavier-normal bias table (the reference's 1-dim id embeddings
+    of every wide/linear part)."""
+    return embedding_init(generator, num, 1, dtype)

@@ -2,9 +2,11 @@
 
 The two packages draw different numbers from the same seed, so a test that
 holds the port against the JAX package gives both the same weights: the JAX
-params pytree, as NumPy arrays, copied into the port's module. Each model
-class names how its state-dict entries come from the pytree; a later model
-adds its mapping to ``_FROM_JAX``.
+params pytree, as NumPy arrays, copied into the port's module. The ported
+models keep the JAX pytree's names, a nested dict becoming a submodule, so a
+module's state-dict names are the pytree's leaves under dotted names
+({"wide": {"w": ...}} -> "wide.w"). A model whose names differ would add its
+own mapping here.
 
 ``opt_state_from_jax`` does the same for the optimizer: it turns an optax Adam
 state (``ScaleByAdamState``: ``count``, ``mu``, ``nu``, alone or inside the
@@ -15,34 +17,50 @@ attributes, so this module imports neither JAX nor optax.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
-from deeplearningrecommendationsystem_tpu_torch.models.mf import MatrixFactorization
+from deeplearningrecommendationsystem_tpu_torch.models import (
+    AFM,
+    LogisticRegression,
+    MatrixFactorization,
+)
 
 
-def _mf(params: Mapping) -> Dict[str, np.ndarray]:
-    return {"user": params["user"], "item": params["item"]}  # [U, D], [I, D]
+def _flat(params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The leaves of a nested dict under dotted names."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in params.items():
+        if isinstance(value, Mapping):
+            out.update(_flat(value, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
 
 
-_FROM_JAX: Dict[type, Callable[[Mapping], Dict[str, np.ndarray]]] = {
-    MatrixFactorization: _mf,
-}
+# MF: user [U, D], item [I, D]. LR: user_bias, item_bias, wide.{w, b}. AFM:
+# tables.{user, item, gender, occupation, genre}, att_{w, b, h}, att_out.{w, b},
+# wide.{user_bias, item_bias, wide.{w, b}}.
+_PORTED = (MatrixFactorization, LogisticRegression, AFM)
+
+
+def _to_state(model: nn.Module, tree: Mapping) -> Dict[str, np.ndarray]:
+    if type(model) not in _PORTED:
+        raise TypeError(f"no JAX weight mapping for {type(model).__name__}")
+    return _flat(tree)
 
 
 def params_from_jax(model: nn.Module, params: Mapping) -> nn.Module:
     """Copy the JAX params pytree ``params`` into ``model`` in place, on the
     model's device and dtype; returns the model."""
-    try:
-        to_state = _FROM_JAX[type(model)]
-    except KeyError:
-        raise TypeError(f"no JAX weight mapping for {type(model).__name__}") from None
     current = model.state_dict()
     state = {}
-    for name, array in to_state(params).items():
+    for name, array in _to_state(model, params).items():
+        if name not in current:
+            raise ValueError(f"{name}: no parameter of that name in {type(model).__name__}")
         array = np.asarray(array)
         if tuple(array.shape) != tuple(current[name].shape):
             raise ValueError(
@@ -73,11 +91,7 @@ def opt_state_from_jax(model: nn.Module, opt_state: Any) -> Dict[str, Dict[str, 
     adam = _adam_state(opt_state)
     if adam is None:
         raise TypeError("no Adam state (count, mu, nu) in the given optax state")
-    try:
-        to_state = _FROM_JAX[type(model)]
-    except KeyError:
-        raise TypeError(f"no JAX weight mapping for {type(model).__name__}") from None
-    mu, nu = to_state(adam.mu), to_state(adam.nu)
+    mu, nu = _to_state(model, adam.mu), _to_state(model, adam.nu)
     step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
     return {
         name: {

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-serving top-k kernels, the embedding gather and its backward, and the fused MF
-trainer. Every test here needs an NVIDIA GPU with nvcc and skips elsewhere; run
+serving top-k kernels, the embedding gather and its backward, the fused MF
+trainer, the fused LR trainers (wide and compact) and the AFM attention pool
+(forward and backward). Every test here needs an NVIDIA GPU with nvcc and skips elsewhere; run
 them on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -20,10 +21,14 @@ recursive summation of the exact (float64) sums.
 import pytest
 import torch
 
+from deeplearningrecommendationsystem_tpu_torch.ops import afm_attention as afm
 from deeplearningrecommendationsystem_tpu_torch.ops import gather as gat
+from deeplearningrecommendationsystem_tpu_torch.ops import lr_epoch as lre
 from deeplearningrecommendationsystem_tpu_torch.ops import mf_epoch as mfe
 from deeplearningrecommendationsystem_tpu_torch.ops import serving_topk as topk
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import afm_attention as cuda_afm
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_gather
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lre
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mfe
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as cuda_topk
 from deeplearningrecommendationsystem_tpu_torch.ops.embedding import gather_rows
@@ -51,8 +56,9 @@ def _assert_equal(got, want):
 
 
 # (U, I, D): ragged user tiles and item chunks, a catalog smaller than one
-# chunk, exactly one chunk, and widths that are not a multiple of 4
-SHAPES = [(37, 301, 16), (1, 100, 64), (9, 128, 7), (70, 1000, 100)]
+# chunk, exactly one chunk, widths that are not a multiple of 4, and LR's
+# rank-2 serving factors over the ml-100k catalog
+SHAPES = [(37, 301, 16), (1, 100, 64), (9, 128, 7), (70, 1000, 100), (943, 1682, 2)]
 
 
 @pytest.mark.parametrize("U,I,D", SHAPES)
@@ -236,3 +242,176 @@ def test_mf_launcher_checks_its_inputs(cuda):
             cuda_mfe.mf_fullbatch_train(*args, 2, 0.01)
     with pytest.raises(ValueError):
         cuda_mfe.mf_fullbatch_train(uid, iid, y, pu, pi, 2, 0.01, compute_dtype="float16")
+
+
+# ---- the fused LR trainers (csrc/lr_epoch.cu)
+
+# losses rtol, weights atol: float32 sums in another order (per-block partials,
+# shared atomics) carried through Adam's normalised steps at lr 0.05
+LR_TOL = (1e-5, 1e-4)
+
+
+def _lr_inputs(cuda, B, U, I, D, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    uid = torch.sort(torch.randint(0, U, (B,), generator=g, device=cuda)).values
+    iid = torch.randint(0, I, (B,), generator=g, device=cuda)
+    dense = (torch.rand((B, D), generator=g, device=cuda) < 0.2).float()
+    dense[:, 0] = torch.rand((B,), generator=g, device=cuda)  # the age column
+    y = (torch.rand((B,), generator=g, device=cuda) < 0.3).float()
+    return uid, iid, dense, y
+
+
+# (B, U, I): a ragged batch, the LR preset's train batch at ml-100k's width
+LR_SHAPES = [(90, 50, 81), (69_040, 943, 1682), (33, 7, 9)]
+
+
+@pytest.mark.parametrize("B,U,I", LR_SHAPES)
+def test_lr_fullbatch_train_matches_plain(cuda, B, U, I):
+    uid, iid, dense, y = _lr_inputs(cuda, B, U, I, 43, seed=B)
+    x_aug = torch.zeros((B, U + I + 44), device=cuda)
+    x_aug[torch.arange(B, device=cuda), uid] = 1.0
+    x_aug[torch.arange(B, device=cuda), U + iid] = 1.0
+    x_aug[:, U + I:U + I + 43] = dense
+    x_aug[:, -1] = 1.0
+    w0 = 0.1 * torch.randn((U + I + 44, 1), generator=torch.Generator(device=cuda).manual_seed(1),
+                           device=cuda)
+    before = cuda_lre.lr_fullbatch_train.launches
+    w, losses = lre.lr_fullbatch_train(x_aug, y, w0, 6, 0.05)
+    torch.cuda.synchronize()
+    assert cuda_lre.lr_fullbatch_train.launches == before + 12  # two launches an epoch
+    want_w, want_losses = lre.lr_fullbatch_train_plain(x_aug, y, w0, 6, 0.05)
+    torch.testing.assert_close(losses, want_losses, rtol=LR_TOL[0], atol=0)
+    torch.testing.assert_close(w, want_w, rtol=0, atol=LR_TOL[1])
+    # the same weights every run: the partial sums are reduced in a fixed order
+    assert torch.equal(lre.lr_fullbatch_train(x_aug, y, w0, 6, 0.05)[0], w)
+
+
+@pytest.mark.parametrize("B,U,I", LR_SHAPES)
+@pytest.mark.parametrize("padded", [False, True])
+def test_lr_fullbatch_train_compact_matches_plain(cuda, B, U, I, padded):
+    uid, iid, dense, y = _lr_inputs(cuda, B, U, I, 43, seed=B + 1)
+    # the JAX layout pads each segment to 128 lanes; the port's fast_fit pads none
+    u_pad, i_pad, d_pad = ((-(-U // 128) * 128, -(-I // 128) * 128, 128) if padded
+                           else (U, I, 44))
+    dense_aug = torch.zeros((B, d_pad), device=cuda)
+    dense_aug[:, :43] = dense
+    dense_aug[:, 43] = 1.0
+    uid, iid = uid.clone(), iid.clone()
+    uid[:3] = torch.tensor([-1, u_pad, u_pad + 5], device=cuda)  # match no lane
+    w0 = torch.zeros((1, u_pad + i_pad + d_pad), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    w0[0, :U] = 0.1 * torch.randn(U, generator=g, device=cuda)
+    w0[0, u_pad:u_pad + I] = 0.1 * torch.randn(I, generator=g, device=cuda)
+    w0[0, u_pad + i_pad:u_pad + i_pad + 44] = 0.1 * torch.randn(44, generator=g, device=cuda)
+    for ids in (torch.int32, torch.int64):
+        args = (uid.to(ids), iid.to(ids), dense_aug, y, w0, 5, 0.05, u_pad, i_pad)
+        before = cuda_lre.lr_fullbatch_train_compact.launches
+        w, losses = lre.lr_fullbatch_train_compact(*args)
+        torch.cuda.synchronize()
+        assert cuda_lre.lr_fullbatch_train_compact.launches == before + 10
+        want_w, want_losses = lre.lr_fullbatch_train_compact_plain(*args)
+        torch.testing.assert_close(losses, want_losses, rtol=LR_TOL[0], atol=0)
+        torch.testing.assert_close(w, want_w, rtol=0, atol=LR_TOL[1])
+        if padded:  # lanes no id matches keep their value
+            assert not bool(w[0, U:u_pad].any()) and not bool(w[0, u_pad + i_pad + 44:].any())
+
+
+def test_lr_launchers_check_their_inputs(cuda):
+    uid, iid, dense, y = _lr_inputs(cuda, 20, 5, 6, 4, seed=0)
+    x = torch.randn((20, 16), device=cuda)
+    w0 = torch.zeros((16, 1), device=cuda)
+    for args, err in [((x.double(), y, w0), TypeError), ((x, y[:5], w0), ValueError),
+                      ((x, y, w0[:8].contiguous()), ValueError), ((x.T, y, w0), ValueError),
+                      ((x.cpu(), y, w0), ValueError)]:
+        with pytest.raises(err):
+            cuda_lre.lr_fullbatch_train(*args, 2, 0.05)
+    wc = torch.zeros((1, 5 + 6 + 4), device=cuda)
+    for args, err in [((uid.float(), iid, dense, y, wc), TypeError),
+                      ((uid, iid.int(), dense, y, wc), TypeError),
+                      ((uid, iid, dense, y, wc[:, :10].contiguous()), ValueError),
+                      ((uid, iid, torch.zeros((20, 129), device=cuda), y,
+                        torch.zeros((1, 140), device=cuda)), ValueError)]:
+        with pytest.raises(err):
+            cuda_lre.lr_fullbatch_train_compact(*args, 2, 0.05, 5, 6)
+
+
+# ---- the AFM attention pool (csrc/afm_attention.cu)
+
+def _afm_inputs(cuda, B, D, A, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    fields = 0.3 * torch.randn((B, 6, D), generator=g, device=cuda)
+    w = torch.randn((D, A), generator=g, device=cuda)
+    b = torch.randn((A,), generator=g, device=cuda)
+    h = torch.randn((A, 1), generator=g, device=cuda)
+    cot = torch.randn((B, D), generator=g, device=cuda)
+    return fields, w, b, h, cot
+
+
+def _close(got, want, rtol):
+    """Within rtol of the tensor's largest |value|: float32 sums over up to
+    15 B terms in another order than the plain version's."""
+    err = float((got - want).abs().max())
+    assert err <= rtol * max(float(want.abs().max()), 1e-30), (err, float(want.abs().max()))
+
+
+# (B, D, A): the JAX test's shape, the AFM preset's width at a ragged batch
+# and at one catalog tile of 64 users, widths that need padding
+AFM_SHAPES = [(70, 32, 16), (5_003, 128, 64), (107_648, 128, 64), (301, 7, 5), (40, 64, 128)]
+
+
+@pytest.mark.parametrize("B,D,A", AFM_SHAPES)
+def test_afm_attention_pool_matches_plain(cuda, B, D, A):
+    fields, w, b, h, _ = _afm_inputs(cuda, B, D, A, seed=B + D)
+    before = cuda_afm.afm_attention_pool.launches
+    got = afm.afm_attention_pool(fields, w, b, h)
+    torch.cuda.synchronize()
+    assert cuda_afm.afm_attention_pool.launches == before + 1
+    assert got.shape == (B, D) and got.dtype == torch.float32
+    _close(got, afm.afm_attention_pool_plain(fields, w, b, h), 1e-5)
+
+
+@pytest.mark.parametrize("B,D,A", [s for s in AFM_SHAPES if s[0] < 100_000])
+def test_afm_attention_pool_bwd_matches_plain(cuda, B, D, A):
+    fields, w, b, h, cot = _afm_inputs(cuda, B, D, A, seed=B + A)
+    before = cuda_afm.afm_attention_pool_bwd.launches
+    got = afm.afm_attention_pool_bwd(fields, w, b, h, cot)
+    torch.cuda.synchronize()
+    assert cuda_afm.afm_attention_pool_bwd.launches == before + 2
+    want = afm.afm_attention_pool_bwd_plain(fields, w, b, h, cot)
+    for gt, wt in zip(got, want):
+        assert gt.shape == wt.shape and gt.dtype == torch.float32
+        _close(gt, wt, 1e-4)
+    # the same gradients every run: the block partials are summed in a fixed order
+    for a, b_ in zip(afm.afm_attention_pool_bwd(fields, w, b, h, cot), got):
+        assert torch.equal(a, b_)
+
+
+def test_afm_attention_pool_autograd_on_the_card(cuda):
+    """AfmAttentionPool under autograd: one forward and two backward launches,
+    the gradients those of the CPU plain versions."""
+    fields, w, b, h, cot = _afm_inputs(cuda, 300, 32, 16, seed=3)
+    leaves = [t.clone().requires_grad_(True) for t in (fields, w, b, h)]
+    before = cuda_afm.afm_attention_pool.launches, cuda_afm.afm_attention_pool_bwd.launches
+    (afm.AfmAttentionPool.apply(*leaves) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert (cuda_afm.afm_attention_pool.launches, cuda_afm.afm_attention_pool_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (fields, w, b, h)]
+    (afm.AfmAttentionPool.apply(*cpu) * cot.cpu()).sum().backward()
+    for got, want in zip(leaves, cpu):
+        _close(got.grad.cpu(), want.grad, 1e-4)
+
+
+def test_afm_launchers_check_their_inputs(cuda):
+    fields, w, b, h, cot = _afm_inputs(cuda, 10, 8, 4, seed=0)
+    for args, err in [((fields.double(), w, b, h), TypeError),
+                      ((fields[:, :5].contiguous(), w, b, h), ValueError),
+                      ((fields, w[:4].contiguous(), b, h), ValueError),
+                      ((fields, w, b[:2].contiguous(), h), ValueError),
+                      ((fields.transpose(0, 1), w, b, h), ValueError),
+                      ((fields, torch.zeros((8, 129), device=cuda), torch.zeros(129, device=cuda),
+                        torch.zeros((129, 1), device=cuda)), ValueError)]:
+        with pytest.raises(err):
+            cuda_afm.afm_attention_pool(*args)
+    with pytest.raises(ValueError):
+        cuda_afm.afm_attention_pool_bwd(fields, w, b, h, cot[:5].contiguous())

@@ -1,5 +1,6 @@
-"""The MF slice end to end: ``run_experiment`` in both packages on one small
-synthetic ml-100k-format dataset, and the port's ``cli/serve.py`` on the CPU.
+"""The MF, LR and AFM slices end to end: ``run_experiment`` in both packages on
+small synthetic ml-100k-format datasets, and the port's ``cli/serve.py`` on the
+CPU.
 
 Both runs are made to start from the same numbers: the port's
 ``NegativeSampler`` and ``build_model`` are replaced by ones that hand it the
@@ -13,10 +14,16 @@ error; the checksum (a sum of 40k params and moments) atol 2e-4 (measured:
 4.7e-5); the thresholded
 metrics, the ranking metrics and the top-k lists exactly, since no two
 scores of a user that decide a list lie closer than the packages' float32
-differences on this data.
+differences on this data. LR and a narrow AFM (embedding 32, attention 16)
+run on a dataset with 300 items, since on 150 the sampler can emit item id I,
+which the 45-column feature matrix cannot look up in either package
+(``ROADMAP.md`` §3); held to the same tolerances, except AFM's checksum
+(rtol 1e-5: its standard-normal attention weights make it a sum of values
+near 100).
 """
 
 import argparse
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +34,9 @@ import torch
 from deeplearningrecommendationsystem_tpu import experiments as jax_experiments
 from deeplearningrecommendationsystem_tpu.configs import PRESETS as JAX_PRESETS
 from deeplearningrecommendationsystem_tpu.data import MovieLens100K as JaxMovieLens
+from deeplearningrecommendationsystem_tpu.features import FeatureSpec as JaxSpec
+from deeplearningrecommendationsystem_tpu.models import AFM as JaxAFM
+from deeplearningrecommendationsystem_tpu.models import LogisticRegression as JaxLR
 from deeplearningrecommendationsystem_tpu.models import MatrixFactorization as JaxMF
 from deeplearningrecommendationsystem_tpu.sampling import NegativeSampler as JaxSampler
 from deeplearningrecommendationsystem_tpu.serving import Recommender as JaxRecommender
@@ -124,9 +134,82 @@ def test_served_top_k_matches_jax(runs):
         np.testing.assert_array_equal(rec.top_k(k), jax_rec.top_k(k))
 
 
+# ---- the feature family: LR and a narrow AFM
+
+FEATURE_I = 300
+FEATURE_CONFIGS = {"lr": {}, "afm": {"model_kwargs": {"embedding_dim": 32, "attention_dim": 16}}}
+_build_model = experiments.build_model
+
+
+@pytest.fixture(scope="module")
+def feature_dir(tmp_path_factory):
+    return write_ml100k_format(str(tmp_path_factory.mktemp("mlf")), seed=5, num_users=U,
+                               num_items=FEATURE_I, num_ratings=R)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}.") if isinstance(v, dict) else {f"{prefix}{k}": v})
+    return out
+
+
+def _jax_init_feature_model(cfg, data, generator=None):
+    jax_model = {"lr": JaxLR, "afm": JaxAFM}[cfg.model](
+        JaxSpec(**dataclasses.asdict(data.spec)), **cfg.model_kwargs)
+    params = jax.tree.map(np.asarray, jax_model.init(jax.random.PRNGKey(cfg.seed)))
+    return params_from_jax(_build_model(cfg, data), params)
+
+
+@pytest.fixture(scope="module", params=list(FEATURE_CONFIGS))
+def feature_runs(request, feature_dir):
+    name = request.param
+    over = dict(epochs=EPOCHS, **FEATURE_CONFIGS[name])
+    mp = pytest.MonkeyPatch()
+    mp.setattr(experiments, "NegativeSampler", _JaxDraws)
+    mp.setattr(experiments, "build_model", _jax_init_feature_model)
+    try:
+        jx = JaxMovieLens(feature_dir, seed=0, use_native=False)
+        pt = MovieLens100K(feature_dir, seed=0)
+        want = jax_experiments.run_experiment(JAX_PRESETS[name].replace(**over), data=jx)
+        got = experiments.run_experiment(PRESETS[name].replace(**over), data=pt, device="cpu")
+    finally:
+        mp.undo()
+    return name, got, want
+
+
+def test_feature_history_and_params_match_jax(feature_runs):
+    name, got, want = feature_runs
+    assert got.model == name and got.train_examples == want.train_examples
+    assert set(got.history) == set(want.history)
+    for key, w in want.history.items():
+        metric = key.split("_", 1)[1]
+        if key == "_param_checksum":
+            tol = {"rtol": 1e-5} if name == "afm" else {"atol": 2e-4}
+            np.testing.assert_allclose(got.history[key], w, err_msg=key, **tol)
+        elif metric in THRESHOLDED:
+            np.testing.assert_array_equal(got.history[key], w, err_msg=key)
+        else:
+            np.testing.assert_allclose(got.history[key], w, rtol=1e-5, err_msg=key)
+    for key in want.extras:
+        np.testing.assert_allclose(got.extras[key], want.extras[key], rtol=1e-5, err_msg=key)
+    want_params = _flat(jax.tree.map(np.asarray, want.params))
+    assert got.params.keys() == want_params.keys()
+    for key, w in want_params.items():
+        np.testing.assert_allclose(got.params[key].numpy(), w, atol=5e-5, err_msg=key)
+
+
+def test_feature_ranking_matches_jax(feature_runs):
+    _, got, want = feature_runs
+    assert got.ranking.keys() == want.ranking.keys()
+    for split in want.ranking:
+        for m, w in want.ranking[split].items():
+            np.testing.assert_allclose(got.ranking[split][m], w, rtol=1e-6, err_msg=f"{split} {m}")
+
+
 def test_other_presets_name_their_roadmap_item(dataset_dir):
     pt = MovieLens100K(dataset_dir, seed=0)
-    for name in ("deepfm", "neuralcf", "din", "autorec", "lr"):
+    for name in ("deepfm", "neuralcf", "din", "autorec", "nfm"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             experiments.run_experiment(PRESETS[name].replace(epochs=1), data=pt, device="cpu")
     for over in ({"train_mode": "minibatch"}, {"mesh_shape": (1, 2)}):
@@ -164,3 +247,26 @@ def test_build_server_trains_and_serves(dataset_dir):
 def test_build_server_unported_flags_exit(dataset_dir, flag):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         serve.build_server(_args(dataset_dir, **{flag: "x"}))
+
+
+@pytest.mark.parametrize("name", list(FEATURE_CONFIGS))
+def test_build_server_serves_feature_models(feature_dir, name):
+    """LR serves through its rank-2 factors (the fused top-k at D = 2), AFM
+    through its masked catalog scores; both answers equal the stable top-k of
+    the trained model's masked scores."""
+    args = _args(feature_dir, model=name, epochs=2)
+    server = serve.build_server(args)
+    try:
+        code, payload = server.dispatch("POST", "/v1/recommend", {"users": [0, 7, 59], "k": 10})
+        assert code == 200
+        rec = server.recommender
+        assert hasattr(rec.model, "serving_factors") == (name == "lr")
+        with torch.no_grad():
+            masked = torch.where(rec.seen, -1e30, rec.model.score_catalog(rec.ctx))
+        order = sorted(range(FEATURE_I), key=lambda i: (-masked[7, i].item(), i))
+        assert payload["items"][1] == order[:10]
+        if name == "lr":
+            P, Q = rec.model.serving_factors(rec.ctx)
+            assert P.shape[1] == Q.shape[1] == 2
+    finally:
+        server.httpd.server_close()

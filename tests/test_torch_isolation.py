@@ -5,8 +5,8 @@
 * Entry points default to CUDA and raise where it is absent, unless the caller
   passes ``device="cpu"``.
 * A CUDA tensor given to a kernel wrapper (top-k, gather, onehot_grad, the
-  fused MF trainer) goes to its kernel launcher and never to the plain
-  version; there is no fallback.
+  fused MF and LR trainers, the AFM attention pool and its backward) goes to
+  its kernel launcher and never to the plain version; there is no fallback.
 
 This file imports neither JAX nor the JAX package, so its CUDA test also runs
 on a machine that has only the port (``-m cuda --noconftest``).
@@ -25,10 +25,18 @@ from deeplearningrecommendationsystem_tpu_torch import experiments
 from deeplearningrecommendationsystem_tpu_torch.cli import serve
 from deeplearningrecommendationsystem_tpu_torch.configs import PRESETS
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
-from deeplearningrecommendationsystem_tpu_torch.models import MatrixFactorization, ServingContext
-from deeplearningrecommendationsystem_tpu_torch.ops import gather, mf_epoch
+from deeplearningrecommendationsystem_tpu_torch.features import FeatureSpec
+from deeplearningrecommendationsystem_tpu_torch.models import (
+    AFM,
+    LogisticRegression,
+    MatrixFactorization,
+    ServingContext,
+)
+from deeplearningrecommendationsystem_tpu_torch.ops import afm_attention, gather, lr_epoch, mf_epoch
 from deeplearningrecommendationsystem_tpu_torch.ops import serving_topk as topk
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import afm_attention as cuda_afm
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_gather
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lr_epoch
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mf_epoch
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as cuda_topk
 from deeplearningrecommendationsystem_tpu_torch.sampling import NegativeSampler
@@ -63,6 +71,12 @@ def test_port_files_are_found():
             "deeplearningrecommendationsystem_tpu_torch/ops/cuda/serving_topk.py",
             "deeplearningrecommendationsystem_tpu_torch/ops/cuda/gather.py",
             "deeplearningrecommendationsystem_tpu_torch/ops/cuda/mf_epoch.py",
+            "deeplearningrecommendationsystem_tpu_torch/ops/cuda/lr_epoch.py",
+            "deeplearningrecommendationsystem_tpu_torch/ops/cuda/afm_attention.py",
+            "deeplearningrecommendationsystem_tpu_torch/ops/lr_epoch.py",
+            "deeplearningrecommendationsystem_tpu_torch/ops/afm_attention.py",
+            "deeplearningrecommendationsystem_tpu_torch/models/lr.py",
+            "deeplearningrecommendationsystem_tpu_torch/models/afm.py",
             "deeplearningrecommendationsystem_tpu_torch/train/trainer.py",
             "deeplearningrecommendationsystem_tpu_torch/experiments.py",
             "deeplearningrecommendationsystem_tpu_torch/cli/serve.py"} <= names
@@ -96,6 +110,8 @@ def no_cuda(monkeypatch):
 ENTRY_POINTS = {
     "resolve_device": lambda: resolve_device(),
     "MatrixFactorization": lambda: MatrixFactorization(4, 6, 8),
+    "LogisticRegression": lambda: LogisticRegression(),
+    "AFM": lambda: AFM(),
     "Recommender": lambda: Recommender(MatrixFactorization(4, 6, 8, device="cpu"), _ctx()),
     "Trainer": lambda: Trainer(MatrixFactorization(4, 6, 8, device="cpu"), TrainConfig()),
     "NegativeSampler": lambda: NegativeSampler(np.zeros((4, 6), dtype=bool), seed=0),
@@ -222,7 +238,18 @@ TRAIN_WRAPPERS = {
     "mf_fullbatch_train": (mf_epoch, cuda_mf_epoch, "mf_fullbatch_train",
                            lambda make: (make(5), make(5), make(5), make(3, 4), make(6, 4), 2,
                                          0.01)),
+    "lr_fullbatch_train": (lr_epoch, cuda_lr_epoch, "lr_fullbatch_train",
+                           lambda make: (make(5, 8), make(5), make(8, 1), 2, 0.05)),
+    "lr_fullbatch_train_compact": (lr_epoch, cuda_lr_epoch, "lr_fullbatch_train_compact",
+                                   lambda make: (make(5), make(5), make(5, 4), make(5),
+                                                 make(1, 11), 2, 0.05, 3, 4)),
+    "afm_attention_pool": (afm_attention, cuda_afm, "afm_attention_pool",
+                           lambda make: (make(5, 6, 8), make(8, 4), make(4), make(4, 1))),
+    "afm_attention_pool_bwd": (afm_attention, cuda_afm, "afm_attention_pool_bwd",
+                               lambda make: (make(5, 6, 8), make(8, 4), make(4), make(4, 1),
+                                             make(5, 8))),
 }
+FLOAT_ONLY = ("lr_fullbatch_train", "afm_attention_pool", "afm_attention_pool_bwd")
 
 
 def _int_or(make):
@@ -233,9 +260,13 @@ def _int_or(make):
 
 
 def _cpu_args(name):
+    if name in FLOAT_ONLY:  # no ids among the arguments
+        return TRAIN_WRAPPERS[name][3](torch.zeros)
     args = TRAIN_WRAPPERS[name][3](_int_or(torch.zeros))
     if name == "mf_fullbatch_train":  # labels are float
         return (args[0], args[1], torch.zeros(5)) + args[3:]
+    if name == "lr_fullbatch_train_compact":
+        return args[:3] + (torch.zeros(5),) + args[4:]
     return args
 
 
@@ -265,7 +296,8 @@ def test_train_launchers_reject_cpu_tensors(name):
         getattr(launchers, launcher)(*_cpu_args(name))
 
 
-@pytest.mark.parametrize("module", [gather, mf_epoch], ids=lambda m: m.__name__.rsplit(".", 1)[1])
+@pytest.mark.parametrize("module", [gather, mf_epoch, lr_epoch, afm_attention],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_train_wrapper_sources_have_no_fallback(module):
     """As for the top-k wrappers: no ``try``; the plain version is called once,
     inside ``if _on_cpu(...)``; the launcher modules call no plain version."""
@@ -280,7 +312,7 @@ def test_train_wrapper_sources_have_no_fallback(module):
         assert _calls(branch.test) == ["_on_cpu"]
         plain = [c for c in _calls(fn) if c.endswith("_plain")]
         assert plain == [f"{name}_plain"] == [c for c in _calls(branch) if c.endswith("_plain")]
-    for launchers in (cuda_gather, cuda_mf_epoch):
+    for launchers in (cuda_gather, cuda_mf_epoch, cuda_lr_epoch, cuda_afm):
         text = pathlib.Path(launchers.__file__).read_text()
         assert "_plain" not in text and "try:" not in text
 
@@ -298,3 +330,35 @@ def test_gather_rows_goes_through_the_kernel_pair(monkeypatch):
     embedding.gather_rows(table, torch.tensor([[1, 5], [0, 1]])).sum().backward()
     assert seen == ["fwd", "bwd"]
     np.testing.assert_array_equal(table.grad[:, 0].numpy(), [1, 2, 0, 0, 0, 1])
+
+
+def test_afm_pool_goes_through_the_kernel_pair(monkeypatch):
+    """AFM's forward takes the pool wrapper, its backward the backward wrapper."""
+    seen = []
+    monkeypatch.setattr(afm_attention, "afm_attention_pool", lambda *a: seen.append("fwd") or
+                        afm_attention.afm_attention_pool_plain(*a))
+    monkeypatch.setattr(afm_attention, "afm_attention_pool_bwd", lambda *a: seen.append("bwd") or
+                        afm_attention.afm_attention_pool_bwd_plain(*a))
+    spec = FeatureSpec(num_users=4, num_items=5)
+    model = AFM(spec, 8, 4, device="cpu")
+    x = torch.zeros((3, 45))
+    x[:, 0], x[:, 1] = torch.tensor([0.0, 1, 3]), torch.tensor([4.0, 2, 0])
+    model(x).sum().backward()
+    assert seen == ["fwd", "bwd"]
+    assert model.att_w.grad is not None and model.tables.user.grad is not None
+
+
+@pytest.mark.parametrize("mode", ["compact", "wide"])
+def test_lr_fast_fit_goes_through_its_wrapper(monkeypatch, mode):
+    name = {"compact": "lr_fullbatch_train_compact", "wide": "lr_fullbatch_train"}[mode]
+    from deeplearningrecommendationsystem_tpu_torch.models import lr as lr_model
+
+    calls = []
+    plain = getattr(lr_epoch, f"{name}_plain")
+    monkeypatch.setattr(lr_model, name, lambda *a, **k: calls.append(name) or plain(*a, **k))
+    model = LogisticRegression(FeatureSpec(num_users=4, num_items=5), device="cpu")
+    x = torch.zeros((3, 45))
+    x[:, 0], x[:, 1] = torch.tensor([0.0, 1, 3]), torch.tensor([4.0, 2, 0])
+    params, losses = model.fast_fit(model.params(), x, torch.ones(3), 2, 0.05, mode=mode)
+    assert calls == [name] and losses.shape == (2,)
+    assert params.keys() == model.params().keys()

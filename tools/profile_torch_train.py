@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Where an MF training epoch of the PyTorch/CUDA port spends the card's time.
+"""Where a training epoch of the PyTorch/CUDA port spends the card's time.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 tools/profile_torch_mf.py [--epochs 20]
+    python3 tools/profile_torch_train.py [--model mf|lr|afm ...] [--epochs 20]
 
-On a synthetic ml-100k-format dataset at the MF preset's full width it runs,
+On a synthetic ml-100k-format dataset at each preset's full width it runs,
 under ``torch.profiler`` (CPU and CUDA activity), after one warm-up run each:
 
 * ``Trainer.fit`` with per-epoch metrics (``run_experiment``'s training call);
 * ``Trainer.fit`` without them (``cli/serve.py``'s training call);
-* ``MatrixFactorization.fast_fit`` (the fused kernel), float32.
+* for MF, ``MatrixFactorization.fast_fit`` (the fused kernel), float32; for
+  LR, ``LogisticRegression.fast_fit`` in its compact and wide modes.
 
 For each it prints one JSON line: the wall time of the call (host clock, after
 a synchronise) with and without the profiler, the summed device time of every
@@ -36,21 +37,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from deeplearningrecommendationsystem_tpu_torch.configs import PRESETS  # noqa: E402
 from deeplearningrecommendationsystem_tpu_torch.data import MovieLens100K, write_ml100k_format  # noqa: E402
-from deeplearningrecommendationsystem_tpu_torch.experiments import build_model  # noqa: E402
-from deeplearningrecommendationsystem_tpu_torch.sampling import NegativeSampler  # noqa: E402
+from deeplearningrecommendationsystem_tpu_torch.experiments import (  # noqa: E402
+    build_model,
+    split_batches,
+)
 from deeplearningrecommendationsystem_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
-
-
-def batches(ds: MovieLens100K, cfg, device):
-    """The three batches ``run_experiment`` builds for ``cfg``."""
-    sampler = NegativeSampler(ds.seen_mask(ds.train, ds.valid, ds.test), seed=cfg.seed,
-                              device=device)
-    out = []
-    for split, n in zip((ds.train, ds.valid, ds.test), cfg.negatives):
-        c = MovieLens100K.concat_splits(split, sampler.sample(n))
-        out.append(((torch.from_numpy(c["user"]).to(device), torch.from_numpy(c["item"]).to(device)),
-                    torch.from_numpy(c["rating"]).to(device)))
-    return out
 
 
 def device_us(event) -> float:
@@ -85,39 +76,48 @@ def profiled(name: str, fn, epochs: int) -> dict:
     }
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--epochs", type=int, default=20)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_torch_mf: CUDA is not available; this script needs an NVIDIA GPU",
-              file=sys.stderr)
-        return 1
-    dev = torch.device("cuda")
-    cfg = PRESETS["mf"].replace(epochs=args.epochs)
-    with tempfile.TemporaryDirectory() as tmp:
-        ds = MovieLens100K(write_ml100k_format(tmp, seed=0), seed=0)
-    train, valid, test = batches(ds, cfg, dev)
+def runs(name: str, ds: MovieLens100K, epochs: int, dev):
+    """(run name, rows, call) of each run profiled for the preset ``name``."""
+    cfg = PRESETS[name].replace(epochs=epochs)
+    b = split_batches(cfg, ds, dev)
+    train, valid, test = b["train"], b["valid"], b["test"]
 
     def fit(track: bool):
         model = build_model(cfg, ds).to(dev)
         tr = Trainer(model, TrainConfig(learning_rate=cfg.learning_rate,
-                                        weight_decay=cfg.weight_decay, epochs=args.epochs,
+                                        weight_decay=cfg.weight_decay, epochs=epochs,
                                         track_metrics=track), device=dev)
         return lambda: tr.fit(train, valid=valid, test=test)
 
     model = build_model(cfg, ds).to(dev)
     params = {k: v.detach() for k, v in model.named_parameters()}
-    runs = [
-        ("Trainer.fit, track_metrics", fit(True)),
-        ("Trainer.fit, no metrics", fit(False)),
-        ("fast_fit float32", lambda: model.fast_fit(params, train[0], train[1], args.epochs,
-                                                    cfg.learning_rate, cfg.weight_decay,
-                                                    "float32")),
-    ]
-    for name, fn in runs:
-        print(json.dumps({**profiled(name, fn, args.epochs), "rows": int(train[1].shape[0])}),
-              flush=True)
+    out = [("Trainer.fit, track_metrics", fit(True)), ("Trainer.fit, no metrics", fit(False))]
+    if name == "mf":
+        out.append(("fast_fit float32", lambda: model.fast_fit(
+            params, train[0], train[1], epochs, cfg.learning_rate, cfg.weight_decay, "float32")))
+    elif name == "lr":
+        for mode in ("compact", "wide"):
+            out.append((f"fast_fit {mode}", lambda mode=mode: model.fast_fit(
+                params, train[0], train[1], epochs, cfg.learning_rate, mode=mode)))
+    return [(run, int(train[1].shape[0]), fn) for run, fn in out]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", nargs="+", choices=["mf", "lr", "afm"], default=["mf"])
+    ap.add_argument("--epochs", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_train: CUDA is not available; this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = MovieLens100K(write_ml100k_format(tmp, seed=0), seed=0)
+    for name in args.model:
+        for run, rows, fn in runs(name, ds, args.epochs, dev):
+            print(json.dumps({"model": name, **profiled(run, fn, args.epochs), "rows": rows}),
+                  flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     return 0
