@@ -39,9 +39,20 @@ no result line.
    64 users under the same trained weights;
 9. serve_lr, serve_afm -- ``cli/serve.py::build_server`` trains each and
    serves it over HTTP: LR through its rank-2 factors (``topk_serve_matmul``
-   at D = 2), AFM through its masked catalog scores and the plain top-k.
+   at D = 2), AFM through its masked catalog scores and the plain top-k;
+10. din     -- ``run_experiment(PRESETS["din"])`` at full width (embedding 64,
+   attention (128, 64, 1), fc (256, 128, 1), history 10) for DIN_EPOCHS epochs
+   with window serving: training and evaluation through the fused DIN head
+   kernels, the catalog through the DIN attention-pool kernel, one launch a
+   16-user tile. Held against a CPU ``Trainer.fit`` over the same batches and
+   the CPU's window scores of one tile under the same trained weights;
+11. serve_din -- ``cli/serve.py::build_server --model din``: the preset's
+   full-history serving (trained through the DIN head kernels, scored through
+   the masked plain-torch route), answers held against the stable top-k of the
+   served scores, and the full-history scores of a few users (the longest
+   history among them) against the CPU's.
 
-Phases 4-9 are the main paths: each sets the launch counts to 0 just before
+Phases 4-11 are the main paths: each sets the launch counts to 0 just before
 it and reads them just after. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the line before that the ``kernels`` line.
@@ -72,17 +83,23 @@ from deeplearningrecommendationsystem_tpu_torch.experiments import (
 )
 from deeplearningrecommendationsystem_tpu_torch.models import MatrixFactorization, ServingContext
 from deeplearningrecommendationsystem_tpu_torch.ops import afm_attention as afm
+from deeplearningrecommendationsystem_tpu_torch.ops import din_attention as dinatt
+from deeplearningrecommendationsystem_tpu_torch.ops import din_head as dh
 from deeplearningrecommendationsystem_tpu_torch.ops import gather as gat
 from deeplearningrecommendationsystem_tpu_torch.ops import lr_epoch as lre
 from deeplearningrecommendationsystem_tpu_torch.ops import mf_epoch as mfe
 from deeplearningrecommendationsystem_tpu_torch.ops import serving_topk as topk
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import afm_attention as cuda_afm
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import build
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_attention as cuda_dinatt
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_head as cuda_dh
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_gather
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lre
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mfe
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as cuda_topk
+from deeplearningrecommendationsystem_tpu_torch.ops.attention import attention_pool
 from deeplearningrecommendationsystem_tpu_torch.ops.interactions import pairwise_products
+from deeplearningrecommendationsystem_tpu_torch.ops.linear import mlp, mlp_init
 from deeplearningrecommendationsystem_tpu_torch.server import RecommenderServer
 from deeplearningrecommendationsystem_tpu_torch.serving import Recommender
 from deeplearningrecommendationsystem_tpu_torch.train import TrainConfig, Trainer
@@ -126,6 +143,18 @@ LR_CHECK_EPOCHS = 5
 AFM_FWD_RTOL, AFM_BWD_RTOL = 1e-5, 1e-4
 AFM_EPOCHS = 3  # the CPU reference's plain path is slow at full width
 CATALOG_TILE = 64  # users per tile of catalog_scores_from_features
+# the DIN head and pool kernels against their plain versions: largest error
+# within this share of the tensor's largest |value| (float32 sums over D, the
+# widths, the L positions and, for the weight gradients, all rows, in another
+# order). The backward is held so on the rows none of whose relu inputs lies
+# within DIN_KINK of its layer's largest |value| from 0: at such a kink the
+# mask, so the row's gradient, may flip between any two float32 orders of
+# summation, and at the train batch a few rows sit there. d b3 is 0 in exact
+# arithmetic and held to DIN_DB3_ATOL of sum |g|.
+DIN_FWD_RTOL, DIN_BWD_RTOL, DIN_DB3_ATOL, DIN_KINK = 1e-5, 1e-4, 1e-6, 1e-6
+DIN_EPOCHS = 3  # the CPU reference's plain path is slow at full width
+HISTORY_TILE = 16  # users per tile of catalog_scores_from_history
+DIN_ATTENTION, DIN_FC = (128, 64, 1), (256, 128, 1)  # models/din.py's defaults, the preset's
 CSRC = "deeplearningrecommendationsystem_tpu_torch/csrc"
 PALLAS = "deeplearningrecommendationsystem_tpu/ops/pallas"
 KERNELS = {
@@ -147,6 +176,12 @@ KERNELS = {
                            "replaces": f"{PALLAS}/afm_attention.py:57"},
     "afm_attention_pool_bwd": {"route": "cuda", "source": f"{CSRC}/afm_attention.cu",
                                "replaces": f"{PALLAS}/afm_attention.py:175 (backward _pool_bwd)"},
+    "din_head_fused": {"route": "cuda", "source": f"{CSRC}/din_head.cu",
+                       "replaces": f"{PALLAS}/din_head.py:346 (forward, pallas_call :267)"},
+    "din_head_fused_bwd": {"route": "cuda", "source": f"{CSRC}/din_head.cu",
+                           "replaces": f"{PALLAS}/din_head.py:346 (backward, pallas_call :300)"},
+    "din_attention_pool": {"route": "cuda", "source": f"{CSRC}/din_attention.cu",
+                           "replaces": f"{PALLAS}/din_attention.py:82"},
 }
 LAUNCHERS = {"topk_serve_matmul": cuda_topk.topk_serve_matmul,
              "topk_scores": cuda_topk.topk_scores,
@@ -156,7 +191,10 @@ LAUNCHERS = {"topk_serve_matmul": cuda_topk.topk_serve_matmul,
              "lr_fullbatch_train": cuda_lre.lr_fullbatch_train,
              "lr_fullbatch_train_compact": cuda_lre.lr_fullbatch_train_compact,
              "afm_attention_pool": cuda_afm.afm_attention_pool,
-             "afm_attention_pool_bwd": cuda_afm.afm_attention_pool_bwd}
+             "afm_attention_pool_bwd": cuda_afm.afm_attention_pool_bwd,
+             "din_head_fused": cuda_dh.din_head_fused,
+             "din_head_fused_bwd": cuda_dh.din_head_fused_bwd,
+             "din_attention_pool": cuda_dinatt.din_attention_pool}
 
 
 def emit(obj) -> None:
@@ -566,6 +604,129 @@ def check_afm(B: int, D: int, A: int, gen: torch.Generator, label: str, backward
     return row
 
 
+def din_work(B: int, L: int, D: int, A: tuple, F: tuple, part: str):
+    """(operations, bytes) of a DIN kernel on B rows of L positions. Forward,
+    per row: t @ wt (2 D A1); per position h @ wh (2 D A1), the t term, bias
+    and relu (3 A1), the second layer (2 A1 A2 + 2 A2) and the score (2 A2);
+    the softmax (4 L) and the pool (2 L D); for the head, the fc
+    (2 (2D) F1 + 2 F1 + 2 F1 F2 + 2 F2 + 2 F2 + 1). The pool kernel has no fc
+    and no last bias. Backward: the forward again, twice the forward's products
+    (d input and d weight), and per position 6 A1 + 5 A2 + 6 D, per row
+    6 F1 + 4 F2 + 6 D for the masks, sums and the softmax's backward."""
+    A1, A2 = A[0], A[1]
+    F1, F2 = F[0], F[1]
+    att_mm = 2 * D * A1 + L * (2 * D * A1 + 2 * A1 * A2 + 2 * A2)
+    att_ops = att_mm + L * (3 * A1 + 2 * A2) + 4 * L + 2 * L * D
+    att_w = 2 * D * A1 + A1 + A1 * A2 + A2 + A2
+    if part == "pool":
+        return B * att_ops, 4 * (B * L * D + B * D + att_w + B * D)
+    fc_mm = 2 * 2 * D * F1 + 2 * F1 * F2 + 2 * F2
+    fwd = att_ops + fc_mm + 2 * F1 + 4 * F2 + 1 + L  # + b3 on each score
+    weights = att_w + 1 + 2 * D * F1 + F1 + F1 * F2 + F2 + F2 + 1
+    if part == "fwd":
+        return B * fwd, 4 * (B * L * D + B * D + weights + B)
+    bwd = fwd + 2 * (att_mm + 2 * L * D + fc_mm) + L * (6 * A1 + 5 * A2 + 6 * D) + 6 * F1 + 4 * F2 + 6 * D
+    return B * bwd, 4 * (2 * (B * L * D + B * D) + B + 2 * weights)
+
+
+def din_library_fwd(hist, tgt, att, fc):
+    """The eager composition: attention_pool and mlp, torch.matmul throughout."""
+    return mlp(fc, torch.cat([attention_pool(att, hist, tgt), tgt], dim=-1))[:, 0]
+
+
+def din_library_bwd(hist, tgt, att, fc, g):
+    leaves = [hist.detach().requires_grad_(True), tgt.detach().requires_grad_(True)]
+    att = [{k: v.detach().requires_grad_(True) for k, v in layer.items()} for layer in att]
+    fc = [{k: v.detach().requires_grad_(True) for k, v in layer.items()} for layer in fc]
+    params = [v for net in (att, fc) for layer in net for v in layer.values()]
+    return torch.autograd.grad(din_library_fwd(leaves[0], leaves[1], att, fc), leaves + params, g)
+
+
+def din_inputs(B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.Generator):
+    """Normal history and target rows, the two MLPs as DIN draws them (seeded CPU
+    generator, then moved), and a logit cotangent of the loss's scale."""
+    cpu = torch.Generator().manual_seed(B)
+    att = [{k: v.to(DEVICE) for k, v in layer.items()} for layer in mlp_init(cpu, (3 * D,) + A)]
+    fc = [{k: v.to(DEVICE) for k, v in layer.items()} for layer in mlp_init(cpu, (2 * D,) + F)]
+    hist = 0.5 * torch.randn((B, L, D), generator=gen, device=DEVICE)
+    tgt = 0.5 * torch.randn((B, D), generator=gen, device=DEVICE)
+    g = torch.randn((B,), generator=gen, device=DEVICE) / B
+    return hist, tgt, att, fc, g
+
+
+def away_from_kinks(hist, tgt, weights) -> torch.Tensor:
+    """[B] bool: rows none of whose relu inputs (z1, z2, f1 and f2 before the
+    relu, in float64) lies within DIN_KINK of its layer's largest |value|."""
+    wh, wt, b1, w2, b2, w3, b3, u1p, u1t, c1, u2, c2, u3, c3 = (w.double() for w in weights)
+    h, t = hist.double(), tgt.double()
+    z1 = h @ wh + (t @ wt + b1)[:, None, :]
+    z2 = torch.relu(z1) @ w2 + b2
+    w = torch.softmax((torch.relu(z2) @ w3 + b3)[..., 0], dim=-1)
+    y1 = torch.einsum("bl,bld->bd", w, h) @ u1p + t @ u1t + c1
+    y2 = torch.relu(y1) @ u2 + c2
+    ok = torch.ones(h.shape[0], dtype=torch.bool, device=h.device)
+    for z in (z1, z2, y1, y2):
+        z = z.abs().reshape(h.shape[0], -1)
+        ok &= (z > DIN_KINK * z.max()).all(dim=1)
+    return ok
+
+
+def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.Generator,
+              label: str) -> dict:
+    """A DIN kernel ("fwd", "bwd": the fused head; "pool": the attention pool)
+    against its plain version on B rows at the model's scale."""
+    hist, tgt, att, fc, g = din_inputs(B, L, D, A, F, gen)
+    weights = dh.din_head_weights(att, fc, D)
+    if part == "fwd":
+        args, kernel, plain = (hist, tgt, weights), dh.din_head_fwd, dh.din_head_fwd_plain
+        err = normwise_err("din_head_fused", kernel(*args), plain(*args), DIN_FWD_RTOL)
+        library, lib_args = din_library_fwd, (hist, tgt, att, fc)
+        lib_name = "eager: attention_pool and mlp, torch.matmul"
+    elif part == "bwd":
+        args, kernel, plain = (hist, tgt, weights, g), dh.din_head_bwd, dh.din_head_bwd_plain
+        smooth = away_from_kinks(hist, tgt, weights)
+        kinked = int((~smooth).sum())
+        if kinked > B // 20:
+            raise AssertionError(f"din_head_fused_bwd: {kinked} of {B} rows at a relu kink")
+        sub = (hist[smooth].contiguous(), tgt[smooth].contiguous(), weights, g[smooth].contiguous())
+        got, want = kernel(*sub), plain(*sub)
+        names = ("hist", "target") + dh.WEIGHT_NAMES
+        errs = []
+        for n, gt, wt in zip(names, got, want):
+            if n == "b3":  # the sum of ds: 0 up to rounding in both versions
+                e = float((gt - wt).abs().max())
+                if not e <= DIN_DB3_ATOL * float(sub[3].abs().sum()):
+                    raise AssertionError(f"din_head_fused_bwd db3: off by {e}")
+                errs.append(e)
+            else:
+                errs.append(normwise_err(f"din_head_fused_bwd d{n}", gt, wt, DIN_BWD_RTOL))
+        err = max(errs)
+        del sub, got, want
+        library, lib_args = din_library_bwd, (hist, tgt, att, fc, g)
+        lib_name = "eager composition's autograd (forward included)"
+    else:
+        args, kernel, plain = (hist, tgt, att), dinatt.din_attention_pool, dinatt.din_attention_pool_plain
+        err = normwise_err("din_attention_pool", kernel(*args), plain(*args), DIN_FWD_RTOL)
+        library, lib_args = (lambda h, t, a: attention_pool(a, h, t)), (hist, tgt, att)
+        lib_name = "eager attention_pool (the plain version itself)"
+    torch.cuda.synchronize()
+    t_bound, bound_by = bound_of(*din_work(B, L, D, A, F, part))
+    row = {
+        "shape": {"rows": B, "history": L, "dim": D, "attention": list(A), "fc": list(F),
+                  "batch": label},
+        "max_abs_err": err,
+        **({"rows_at_a_kink": kinked} if part == "bwd" else {}),
+        "kernel_ms": time_ms(lambda: kernel(*args)),
+        "plain_ms": time_ms(lambda: plain(*args)),
+        "library_ms": time_ms(lambda: library(*lib_args)),
+        "library": lib_name,
+        "bound_ms": t_bound, "bound_by": bound_by,
+    }
+    del hist, tgt, g, args, lib_args
+    torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------- data
 
 def make_dataset(path: str, seed: int = 0) -> MovieLens100K:
@@ -932,6 +1093,117 @@ def run_serve_feature(ds: MovieLens100K, data_dir: str, name: str, epochs: int,
             "requests": requests, "launches": counts, "stats": stats}
 
 
+# ---------------------------------------------------------------- phases 10-11
+
+def history_tiles(ds: MovieLens100K) -> int:
+    return -(-ds.num_users // HISTORY_TILE)
+
+
+def run_din(ds: MovieLens100K) -> dict:
+    cfg = PRESETS["din"].replace(epochs=DIN_EPOCHS, full_history_serving=False)
+    E = DIN_EPOCHS
+    reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, data=ds, device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launches()  # ... and ends here
+
+    forwards = 3 * E + 3  # train, valid, test an epoch; the final AUCs
+    tiles = history_tiles(ds)  # one attention-pool launch a window tile
+    check_counts("din", counts, {"din_head_fused": forwards, "din_head_fused_bwd": 3 * E,
+                                 "din_attention_pool": tiles, "gather_rows": 2 * (forwards + tiles),
+                                 "onehot_grad": 2 * E})
+    if set(res.history) != HISTORY_KEYS:
+        raise AssertionError(f"din: history keys {sorted(res.history)}")
+    loss = res.history["train_loss"]
+    if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+        raise AssertionError(f"din: the train loss did not fall: {loss.tolist()}")
+
+    # the CPU reference: Trainer.fit over the same batches from the same initial
+    # weights (plain versions), without the full-catalog ranking
+    batches = split_batches(cfg, ds, "cpu")
+    cpu = Trainer(build_model(cfg, ds),
+                  TrainConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                              epochs=E, track_metrics=True, compute_dtype=cfg.compute_dtype),
+                  device="cpu").fit(batches["train"], valid=batches["valid"], test=batches["test"])
+    worst = compare_histories("din", res.history, {k: v.numpy() for k, v in cpu.history.items()},
+                              res.extras, cpu.extras)
+    # the window catalog scores of one tile of users under the card's trained weights
+    model = build_model(cfg, ds)
+    model.load_state_dict({k: v.cpu() for k, v in res.params.items()})
+    tile = ServingContext(torch.from_numpy(ds.user_features[:HISTORY_TILE]),
+                          torch.from_numpy(ds.item_features),
+                          history=res.ctx.history[:HISTORY_TILE].cpu())
+    with torch.no_grad():
+        want = model.score_catalog(tile)
+        got = model.to(DEVICE).score_catalog(tile.to(DEVICE)).cpu()
+    catalog_err = normwise_err("din window tile", got, want, DIN_FWD_RTOL)
+    return {"phase": "din", "config": f"din preset (embedding 64, attention (128, 64, 1), fc "
+                                      f"(256, 128, 1), history 10), window serving, {E} epochs",
+            "rows": res.train_examples, "epochs": E,
+            "train_loss": [float(loss[0]), float(loss[-1])],
+            "ranking_test@10": res.ranking["test@10"], "extras": res.extras,
+            "wall_s": wall_s, "train_time_s": res.train_time_s,
+            "max_rel_loss_diff_vs_cpu": worst,
+            "catalog_tile_max_abs_err_vs_cpu": catalog_err, "launches": counts}
+
+
+def run_serve_din(ds: MovieLens100K, data_dir: str, epochs: int, seed: int = 0) -> dict:
+    args = serve_cli.parser().parse_args(["--model", "din", "--data", data_dir, "--epochs",
+                                          str(epochs), "--port", "0", "--seed", str(seed)])
+    reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
+    server = serve_cli.build_server(args).serve_background()
+    try:
+        rec = server.recommender
+        health = http(server.port, "GET", "/healthz")
+        if (health["num_users"], health["num_items"]) != (ds.num_users, ds.num_items):
+            raise AssertionError(f"/healthz: {health}")
+        rng = np.random.default_rng(seed)
+        batch = sorted(rng.choice(ds.num_users, 32, replace=False).tolist())
+        requests = [recommend_scores(server.port, rec, [12], 10, single=True),
+                    recommend_scores(server.port, rec, batch, 50)]
+        counts = launches()  # ... and ends here
+        wall_s = time.perf_counter() - t0
+        stats = http(server.port, "GET", "/v1/stats")
+        with torch.no_grad():  # the served scores are the trained model's, masked
+            scores = rec.model.score_catalog(rec.ctx)
+        if not torch.equal(rec.scores <= NEG_INF / 2, rec.seen):
+            raise AssertionError("serve_din: the served mask is not the seen items")
+        live = ~rec.seen
+        served_err = float((rec.scores[live] - scores[live]).abs().max())
+        if not served_err <= 1e-6 * float(scores.abs().max()):
+            raise AssertionError(f"serve_din: the served scores are off by {served_err}")
+    finally:
+        server.shutdown()
+    if rec.ctx.full_histories is None:
+        raise AssertionError("serve_din: the preset did not serve full histories")
+    check_counts("serve_din", counts, {"din_head_fused": epochs, "din_head_fused_bwd": 3 * epochs,
+                                       "din_attention_pool": 0, "onehot_grad": 2 * epochs})
+    if counts["gather_rows"] < 1:
+        raise AssertionError("serve_din: no item lookup went through the gather kernel")
+
+    # full-history scores of a few users, the longest history among them, on the CPU
+    full = rec.ctx.full_histories
+    longest = int(np.argmax([len(h) for h in full]))
+    users = [longest, 0, 1, 2, 3]
+    model = build_model(PRESETS["din"], ds)
+    model.load_state_dict({k: v.detach().cpu() for k, v in rec.model.state_dict().items()})
+    ctx = ServingContext(torch.from_numpy(ds.user_features[users]),
+                         torch.from_numpy(ds.item_features),
+                         full_histories=[full[u] for u in users])
+    with torch.no_grad():
+        want = model.score_catalog(ctx)
+    full_err = normwise_err("din full-history scores", scores[users].cpu(), want, DIN_FWD_RTOL)
+    return {"phase": "serve_din",
+            "entry_point": f"cli/serve.py::build_server --model din --epochs {epochs}",
+            "serving": "full histories (masked plain-torch route)",
+            "longest_history": len(full[longest]), "wall_s": wall_s,
+            "full_history_max_abs_err_vs_cpu": full_err,
+            "requests": requests, "launches": counts, "stats": stats}
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -1005,11 +1277,22 @@ def main() -> int:
                                                         backward=True))
         emit({"phase": "kernel_check", "kernel": "afm_attention_pool_bwd",
               **rows["afm_attention_pool_bwd"][-1]})
+        din_cfg = PRESETS["din"]
+        din_dims = (din_cfg.hist_len, din_cfg.model_kwargs["embed_size"], DIN_ATTENTION, DIN_FC)
+        din_rows = int(split_batches(din_cfg, ds, DEVICE)["train"][1].shape[0])
+        for name, part, B, label in (
+                ("din_head_fused", "fwd", din_rows, "train batch"),
+                ("din_head_fused_bwd", "bwd", din_rows, "train batch"),
+                ("din_attention_pool", "pool", HISTORY_TILE * ds.num_items,
+                 f"window tile of {HISTORY_TILE} users")):
+            rows[name].append(check_din(part, B, *din_dims, gen, label))
+            emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
         torch.cuda.empty_cache()
 
         phases = [run_train(ds), run_serve(ds, tmp), run_slice(ds), run_lr(ds), run_afm(ds),
                   run_serve_feature(ds, tmp, "lr", TRAIN_EPOCHS),
-                  run_serve_feature(ds, tmp, "afm", AFM_EPOCHS)]
+                  run_serve_feature(ds, tmp, "afm", AFM_EPOCHS), run_din(ds),
+                  run_serve_din(ds, tmp, DIN_EPOCHS)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for p in phases:

@@ -10,11 +10,12 @@ Device rule: entry points default to ``device="cuda"`` and raise when CUDA is
 absent, unless the caller passes ``device="cpu"``. Nothing falls back to the
 CPU on its own.
 
-Ported so far, for the MF preset: serving (data loader, model, ``Recommender``,
-``RecommenderServer`` and the two serving top-k kernels) and training (the
-negative sampler, ``Trainer``, the pointwise and ranking metrics,
-``experiments.run_experiment``, ``cli/serve.py``, the embedding gather and its
-backward, and the fused MF trainer behind ``MatrixFactorization.fast_fit``).
+Ported so far, for the MF, LR, AFM and DIN presets: serving (data loader,
+models, ``Recommender``, ``RecommenderServer``, the two serving top-k kernels)
+and training (the negative sampler, ``Trainer``, the pointwise and ranking
+metrics, ``experiments.run_experiment``, ``cli/serve.py``, the embedding
+gather and its backward, the fused MF and LR trainers, AFM's attention pool
+and DIN's fused head and attention pool).
 """
 
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device

@@ -1,0 +1,409 @@
+// What the two DIN kernel sources share: the tile layout in shared memory, the
+// block-wide products, the forward of the activation unit, softmax and pool, and
+// the forward kernel (din_fwd_kernel) that din_attention.cu launches without the
+// fc head and din_head.cu with it.
+//
+// A block of kThreads threads walks tiles of R rows (R * L history positions).
+// A tile's history rows, the activations of its R * L positions and its fc
+// activations live in shared memory; the weights are read through the read-only
+// data path (L1, then L2: at the DIN preset they are 361 KB, more than a block's
+// shared memory). Rows past B are staged as zeros and never read from device
+// memory, and their outputs are not written. Every product is float32 FMA on
+// CUDA cores, with a fixed order of summation, so a launch repeats bit for bit.
+//
+// Widths D, A1, A2, F1, F2 must be multiples of 4 (float4 loads), L at most
+// kMaxHistory; the Python launchers check them.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace din {
+
+constexpr int kThreads = 512;
+constexpr int kMaxRows = 16;      // rows of a tile at most
+constexpr int kMaxHistory = 64;   // history length L at most
+constexpr int kPad = 4;           // floats after each staged row: shifts banks, keeps 16-byte alignment
+constexpr size_t kSmemLimit = 232448;  // shared memory a block may use on Hopper
+constexpr unsigned kFull = 0xffffffffu;
+
+// The tile layout: widths, rows and the offsets (in floats) of the regions of
+// shared memory. Regions: H [M][ldh] history rows; X [R][ldx] = [pooled | t];
+// R1 [M][ld1] relu(z1) (the backward turns it into dz1 in place); R2 [M][ld2]
+// relu(z2) (backward only; then dz2); T [R][ldt] t @ wt + b1 (backward: then the
+// sum of dz1 over the positions); Q: the score partials [M][A2 / 4], later f1
+// [R][ldf1] and f2 [R][ldf2]; W [M] softmax weights; S [M] ds; P [R][ldx] =
+// [dpooled | dt]; G [R] the logit cotangent.
+struct Layout {
+  int L, D, A1, A2, F1, F2, R, M;
+  int ldh, ldx, ld1, ld2, ldt, ldf1, ldf2;
+  int oH, oX, oR1, oR2, oT, oQ, oF2, oW, oS, oP, oG, total;
+};
+
+inline int round4(int n) { return (n + 3) & ~3; }
+
+inline Layout make_layout(int L, int D, int A1, int A2, int F1, int F2, int R, bool fc,
+                          bool backward) {
+  Layout s;
+  s.L = L, s.D = D, s.A1 = A1, s.A2 = A2, s.F1 = F1, s.F2 = F2, s.R = R, s.M = R * L;
+  s.ldh = D + kPad, s.ldx = 2 * D + kPad, s.ld1 = A1 + kPad, s.ld2 = A2 + kPad;
+  s.ldt = A1 + kPad, s.ldf1 = F1 + kPad, s.ldf2 = F2 + kPad;
+  int o = 0;
+  auto take = [&o](int n) {
+    const int start = o;
+    o += round4(n);
+    return start;
+  };
+  s.oH = take(s.M * s.ldh);
+  s.oX = take(R * s.ldx);
+  s.oR1 = take(s.M * s.ld1);
+  s.oR2 = backward ? take(s.M * s.ld2) : -1;
+  s.oT = take(R * s.ldt);
+  const int partials = s.M * (A2 / 4);
+  const int fc_floats = fc ? round4(R * s.ldf1) + R * s.ldf2 : 0;
+  s.oQ = take(partials > fc_floats ? partials : fc_floats);
+  s.oF2 = s.oQ + round4(R * s.ldf1);
+  s.oW = take(s.M);
+  s.oS = backward ? take(s.M) : -1;
+  s.oP = backward ? take(R * s.ldx) : -1;
+  s.oG = backward ? take(R) : -1;
+  s.total = o;
+  return s;
+}
+
+inline size_t smem_bytes(const Layout& s) { return sizeof(float) * static_cast<size_t>(s.total); }
+
+// The largest tile (at most kMaxRows rows) whose layout fits a block's shared memory.
+inline bool fit_layout(int L, int D, int A1, int A2, int F1, int F2, bool fc, bool backward,
+                       Layout* out) {
+  for (int R = kMaxRows; R >= 1; --R) {
+    const Layout s = make_layout(L, D, A1, A2, F1, F2, R, fc, backward);
+    if (smem_bytes(s) <= kSmemLimit) {
+      *out = s;
+      return true;
+    }
+  }
+  return false;
+}
+
+inline bool widths_ok(long long B, int L, int D, int A1, int A2, int F1, int F2) {
+  auto ok = [](int n) { return n >= 4 && n % 4 == 0; };
+  return B >= 1 && L >= 1 && L <= kMaxHistory && ok(D) && ok(A1) && ok(A2) && ok(F1) && ok(F2);
+}
+
+// Component q (a constant after unrolling) of a float4.
+__device__ __forceinline__ float at(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4& as4(float* p) { return *reinterpret_cast<float4*>(p); }
+
+__device__ __forceinline__ float relu(float x) { return fmaxf(x, 0.f); }
+
+// C [M][N] = A [M][K] @ B: A in shared memory (row stride lda), B in device
+// memory, [K][N] with row stride ldb, or with kTransB stored transposed, [N][K]
+// with row stride ldb (then C = A @ B^T). Each thread computes patches of TM rows
+// by 4 columns, summing over k in order, and hands each row of a patch that lies
+// below M to epi(row, column, float4). A warp takes 8 row groups by 4 column
+// groups: its loads of B touch 64 contiguous bytes and its loads of A 8 rows, so
+// B leaves L2 about 8 times less often than with one row group a warp.
+template <int TM, bool kTransB, class Epi>
+__device__ __forceinline__ void block_mm(const float* A, int lda, const float* __restrict__ B,
+                                         int ldb, int M, int K, int N, Epi epi) {
+  const int groups = (M + TM - 1) / TM, n4 = N >> 2;
+  const int tile_rows = (groups + 7) >> 3;
+  const int lanes = tile_rows * ((n4 + 3) >> 2) * 32;
+  for (int p = threadIdx.x; p < lanes; p += blockDim.x) {
+    const int tile = p >> 5, lane = p & 31;
+    const int tc = tile / tile_rows;
+    const int rg = (tile - tc * tile_rows) * 8 + (lane & 7), cg = tc * 4 + (lane >> 3);
+    if (rg >= groups || cg >= n4) continue;
+    const int r0 = rg * TM, c0 = cg * 4;
+    const float* arow[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) arow[i] = A + min(r0 + i, M - 1) * lda;
+    float acc[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+    }
+    for (int k = 0; k < K; k += 4) {
+      float4 b[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        b[u] = kTransB ? ldg4(B + static_cast<size_t>(c0 + u) * ldb + k)
+                       : ldg4(B + static_cast<size_t>(k + u) * ldb + c0);
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(arow[i] + k);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float av = at(a, u);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc[i][q] = fmaf(av, kTransB ? at(b[q], u) : at(b[u], q), acc[i][q]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      if (r0 + i < M) epi(r0 + i, c0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    }
+  }
+}
+
+// G [K][N] (device memory, row stride N) += X [M][K]^T Z [M][N], X and Z in shared
+// memory; each thread owns 4 x 4 patches of G and sums over m in order.
+__device__ __forceinline__ void block_mm_tn_acc(const float* X, int ldx, const float* Z, int ldz,
+                                                int M, int K, int N, float* __restrict__ G) {
+  const int n4 = N >> 2;
+  const int patches = (K >> 2) * n4;
+  for (int p = threadIdx.x; p < patches; p += blockDim.x) {
+    const int kg = p / n4;
+    const int k0 = kg * 4, c0 = (p - kg * n4) * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+    }
+    for (int m = 0; m < M; ++m) {
+      const float4 x = *reinterpret_cast<const float4*>(X + m * ldx + k0);
+      const float4 z = *reinterpret_cast<const float4*>(Z + m * ldz + c0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(at(x, i), at(z, q), acc[i][q]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float4& g = as4(G + static_cast<size_t>(k0 + i) * N + c0);
+      float4 v = g;
+      v.x += acc[i][0], v.y += acc[i][1], v.z += acc[i][2], v.w += acc[i][3];
+      g = v;
+    }
+  }
+}
+
+// G [c] (device memory) += sum over m of Z [m][c] (times w [m] when w is given),
+// for c < N; Z in shared memory.
+__device__ __forceinline__ void block_colsum_acc(const float* Z, int ldz, const float* w, int M,
+                                                 int N, float* __restrict__ G) {
+  for (int c = threadIdx.x; c < N; c += blockDim.x) {
+    float acc = 0.f;
+    for (int m = 0; m < M; ++m) acc = w ? fmaf(Z[m * ldz + c], w[m], acc) : acc + Z[m * ldz + c];
+    G[c] += acc;
+  }
+}
+
+// Butterfly sum and max over a warp: every lane ends with the same value.
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+// The tile of rows r0 .. r0 + R - 1 into shared memory: history rows into H,
+// targets into the right half of X, and (given g) the logit cotangent into G.
+// Rows past B are zeros.
+__device__ __forceinline__ void stage_tile(const float* __restrict__ hist,
+                                           const float* __restrict__ tgt,
+                                           const float* __restrict__ g, long long r0,
+                                           long long B, const Layout& s, float* sm) {
+  const int d4 = s.D >> 2;
+  for (int t = threadIdx.x; t < s.M * d4; t += blockDim.x) {
+    const int m = t / d4, d = (t - m * d4) * 4;
+    const bool in = r0 + m / s.L < B;
+    as4(sm + s.oH + m * s.ldh + d) =
+        in ? ldg4(hist + (static_cast<size_t>(r0) * s.L + m) * s.D + d) : make_float4(0, 0, 0, 0);
+  }
+  for (int t = threadIdx.x; t < s.R * d4; t += blockDim.x) {
+    const int r = t / d4, d = (t - r * d4) * 4;
+    const bool in = r0 + r < B;
+    as4(sm + s.oX + r * s.ldx + s.D + d) =
+        in ? ldg4(tgt + static_cast<size_t>(r0 + r) * s.D + d) : make_float4(0, 0, 0, 0);
+  }
+  if (g != nullptr) {
+    for (int r = threadIdx.x; r < s.R; r += blockDim.x) sm[s.oG + r] = r0 + r < B ? g[r0 + r] : 0.f;
+  }
+}
+
+struct AttentionWeights {
+  const float *wh, *wt, *b1, *w2, *b2, *w3, *b3;  // b3 may be null (dropped)
+};
+
+struct FcWeights {
+  const float *u1p, *u1t, *c1, *u2, *c2, *u3, *c3;
+};
+
+// The activation unit, softmax and pool of the staged tile: T = t @ wt + b1,
+// R1 = relu(h @ wh + T), relu(R1 @ w2 + b2) (kept in R2 when the layout has it),
+// scores = that @ w3 (+ b3), W = softmax over the L positions, and the pooled rows
+// into the left half of X. Ends synchronised.
+__device__ __forceinline__ void attention_forward(const AttentionWeights& a, const Layout& s,
+                                                  float* sm) {
+  float* H = sm + s.oH;
+  float* X = sm + s.oX;
+  float* R1 = sm + s.oR1;
+  float* T = sm + s.oT;
+  float* Q = sm + s.oQ;
+  float* W = sm + s.oW;
+  const int n4 = s.A2 >> 2;
+  block_mm<1, false>(X + s.D, s.ldx, a.wt, s.A1, s.R, s.D, s.A1, [&](int r, int c, float4 v) {
+    const float4 b = ldg4(a.b1 + c);
+    as4(T + r * s.ldt + c) = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
+  });
+  __syncthreads();
+  block_mm<10, false>(H, s.ldh, a.wh, s.A1, s.M, s.D, s.A1, [&](int m, int c, float4 v) {
+    const float4 t = as4(T + (m / s.L) * s.ldt + c);
+    as4(R1 + m * s.ld1 + c) =
+        make_float4(relu(v.x + t.x), relu(v.y + t.y), relu(v.z + t.z), relu(v.w + t.w));
+  });
+  __syncthreads();
+  float* R2 = s.oR2 >= 0 ? sm + s.oR2 : nullptr;
+  block_mm<5, false>(R1, s.ld1, a.w2, s.A2, s.M, s.A1, s.A2, [&](int m, int c, float4 v) {
+    const float4 b = ldg4(a.b2 + c);
+    const float4 z = make_float4(relu(v.x + b.x), relu(v.y + b.y), relu(v.z + b.z), relu(v.w + b.w));
+    if (R2 != nullptr) as4(R2 + m * s.ld2 + c) = z;
+    const float4 w3 = ldg4(a.w3 + c);
+    Q[m * n4 + (c >> 2)] = fmaf(z.w, w3.w, fmaf(z.z, w3.z, fmaf(z.y, w3.y, z.x * w3.x)));
+  });
+  __syncthreads();
+  // the softmax of each row by one warp, lane l holding positions l and l + 32
+  const float b3 = a.b3 != nullptr ? __ldg(a.b3) : 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < s.R; r += blockDim.x >> 5) {
+    float sc[kMaxHistory / 32];
+    float mx = -3.402823466e38f;
+#pragma unroll
+    for (int j = 0; j < kMaxHistory / 32; ++j) {
+      const int l = lane + 32 * j;
+      sc[j] = -3.402823466e38f;
+      if (l < s.L) {
+        const float* q = Q + (r * s.L + l) * n4;
+        float acc = 0.f;
+        for (int c = 0; c < n4; ++c) acc += q[c];
+        sc[j] = acc + b3;
+      }
+      mx = fmaxf(mx, sc[j]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxHistory / 32; ++j) {
+      sc[j] = lane + 32 * j < s.L ? expf(sc[j] - mx) : 0.f;
+      sum += sc[j];
+    }
+    sum = warp_sum(sum);
+#pragma unroll
+    for (int j = 0; j < kMaxHistory / 32; ++j) {
+      if (lane + 32 * j < s.L) W[r * s.L + lane + 32 * j] = sc[j] / sum;
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < s.R * s.D; t += blockDim.x) {
+    const int r = t / s.D, d = t - r * s.D;
+    float acc = 0.f;
+    for (int l = 0; l < s.L; ++l) acc = fmaf(W[r * s.L + l], H[(r * s.L + l) * s.ldh + d], acc);
+    X[r * s.ldx + d] = acc;
+  }
+  __syncthreads();
+}
+
+// The fc head's hidden layers of the tile: F1 = relu(pooled @ u1p + t @ u1t + c1),
+// F2 = relu(F1 @ u2 + c2), into Q's f1 and f2 regions. Ends synchronised.
+__device__ __forceinline__ void fc_forward(const FcWeights& f, const Layout& s, float* sm) {
+  float* X = sm + s.oX;
+  float* F1 = sm + s.oQ;
+  float* F2 = sm + s.oF2;
+  block_mm<2, false>(X, s.ldx, f.u1p, s.F1, s.R, s.D, s.F1,
+                     [&](int r, int c, float4 v) { as4(F1 + r * s.ldf1 + c) = v; });
+  __syncthreads();
+  block_mm<2, false>(X + s.D, s.ldx, f.u1t, s.F1, s.R, s.D, s.F1, [&](int r, int c, float4 v) {
+    float4& o = as4(F1 + r * s.ldf1 + c);
+    const float4 p = o, b = ldg4(f.c1 + c);
+    o = make_float4(relu(p.x + v.x + b.x), relu(p.y + v.y + b.y), relu(p.z + v.z + b.z),
+                    relu(p.w + v.w + b.w));
+  });
+  __syncthreads();
+  block_mm<1, false>(F1, s.ldf1, f.u2, s.F2, s.R, s.F1, s.F2, [&](int r, int c, float4 v) {
+    const float4 b = ldg4(f.c2 + c);
+    as4(F2 + r * s.ldf2 + c) =
+        make_float4(relu(v.x + b.x), relu(v.y + b.y), relu(v.z + b.z), relu(v.w + b.w));
+  });
+  __syncthreads();
+}
+
+// The forward over B rows. kFc: the whole DIN head, logits [B] into out; else the
+// pooled rows [B, D] into out (the attention pool, b3 dropped by the caller).
+template <bool kFc>
+__global__ void __launch_bounds__(kThreads, 1)
+din_fwd_kernel(const float* __restrict__ hist, const float* __restrict__ tgt, AttentionWeights a,
+               FcWeights f, float* __restrict__ out, long long B, Layout s) {
+  extern __shared__ __align__(16) float sm[];
+  const long long tiles = (B + s.R - 1) / s.R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long r0 = t * s.R;
+    __syncthreads();  // the previous tile's readers are done
+    stage_tile(hist, tgt, nullptr, r0, B, s, sm);
+    __syncthreads();
+    attention_forward(a, s, sm);
+    if (!kFc) {
+      const int d4 = s.D >> 2;
+      for (int i = threadIdx.x; i < s.R * d4; i += blockDim.x) {
+        const int r = i / d4, d = (i - r * d4) * 4;
+        if (r0 + r < B) {
+          *reinterpret_cast<float4*>(out + static_cast<size_t>(r0 + r) * s.D + d) =
+              as4(sm + s.oX + r * s.ldx + d);
+        }
+      }
+      continue;
+    }
+    fc_forward(f, s, sm);
+    const float* F2 = sm + s.oF2;
+    for (int r = warp; r < s.R; r += kThreads / 32) {
+      float acc = 0.f;
+      for (int c = lane; c < s.F2; c += 32) acc = fmaf(F2[r * s.ldf2 + c], __ldg(f.u3 + c), acc);
+      acc = warp_sum(acc);
+      if (lane == 0 && r0 + r < B) out[r0 + r] = acc + __ldg(f.c3);
+    }
+  }
+}
+
+// Blocks of a persistent launch: every SM filled as far as its shared memory allows.
+template <class Kernel>
+cudaError_t persistent_blocks(Kernel kernel, size_t smem, long long tiles, int* blocks) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long most = static_cast<long long>(sms) * per_sm;
+  *blocks = static_cast<int>(tiles < most ? tiles : most);
+  return cudaSuccess;
+}
+
+}  // namespace din

@@ -1,0 +1,445 @@
+// The fused DIN head for Hopper (sm_90a), forward and backward, with a plain C
+// interface for ctypes.
+//
+// Replaces the Pallas TPU kernels of
+//   deeplearningrecommendationsystem_tpu/ops/pallas/din_head.py (din_head_fused):
+//   * _fwd_kernel (pallas_call :267)  -> din::din_fwd_kernel<true>
+//   * _bwd_kernel (pallas_call :300)  -> din_head_bwd_kernel + din_head_bwd_fc_kernel
+//                                        + din_head_bwd_reduce_kernel
+// Their plain PyTorch versions are din_head_fwd_plain and din_head_bwd_plain in
+// deeplearningrecommendationsystem_tpu_torch/ops/din_head.py.
+//
+// What they compute, per row of history h [L, D] and target t [D], with the 14
+// weights of din_head_weights (wh, wt, b1, w2, b2, w3, b3, u1p, u1t, c1, u2, c2,
+// u3, c3): the attention of din_attention.cu with b3 kept, then
+//   f1 = relu(pooled u1p + t u1t + c1),  f2 = relu(f1 u2 + c2),  logit = f2 u3 + c3.
+// Given the logit cotangent g, the backward recomputes that forward and returns
+// d hist [B, L, D], d target [B, D] and the 14 weight gradients, summed over all
+// rows (and positions):
+//   dzf2 = (f2 > 0) g u3,  dzf1 = (f1 > 0) dzf2 u2^T,  [dpooled | dt] = dzf1 [u1p | u1t]^T,
+//   ds_l = w_l (dpooled . h_l - sum_k w_k dpooled . h_k),  dz2 = (z2 > 0) ds w3,
+//   dz1 = (z1 > 0) dz2 w2^T,  d h_l = w_l dpooled + dz1_l wh^T,  dt += (sum_l dz1_l) wt^T,
+// and the weight gradients as the products of each layer's input and dz.
+//
+// Bound: operations. The forward is about 478k float32 operations a row at the
+// DIN preset (D 64, A 128, 64, F 256, 128, L 10), the backward about three
+// times that, against 2.8 KB read a row. The TPU kernels' point, kept here: the
+// per-position activations never reach device memory, and the backward
+// recomputes them instead of saving them. The forward is din_common.cuh's; the
+// backward keeps a tile's activations in shared memory and turns them into their
+// gradients in place. The weight gradients are 90,916 floats at the preset, so
+// they cannot be one partial per tile: a persistent grid of one block per SM
+// walks the tiles, each block adding into its own slot in device memory (the
+// same thread owns the same elements on every tile, no atomics). The fc head's
+// two large ones (du1, du2: 65,536 floats) would cost a read and a write of
+// 512 KB of slot for every 16 rows, so the backward writes the fc head's rows
+// instead (3 KB a row) and din_head_bwd_fc_kernel sums them over a contiguous run
+// of rows per block, each product held in registers and written once.
+// din_head_bwd_reduce_kernel then sums the slots in block order, so runs repeat
+// bit for bit.
+//
+// Each entry point returns cudaGetLastError() after its launch (or a cudaError_t
+// for arguments it does not take); the Python launcher raises when it is not 0.
+
+#include "din_common.cuh"
+
+namespace {
+
+using din::as4;
+using din::kThreads;
+
+constexpr int kWeights = 14;
+constexpr int kGrads = 13;  // u1p and u1t share one block, u1 [2D, F1]
+
+// Offsets (floats) of the weight gradients in a slot, each padded to 4 floats:
+// wh, wt, b1, w2, b2, w3, b3, u1 = [u1p; u1t], c1, u2, c2, u3, c3.
+struct GradSlots {
+  int wh, wt, b1, w2, b2, w3, b3, u1, c1, u2, c2, u3, c3, total;
+};
+
+GradSlots grad_slots(int D, int A1, int A2, int F1, int F2) {
+  const int sizes[kGrads] = {D * A1, D * A1, A1, A1 * A2, A2, A2, 1, 2 * D * F1, F1, F1 * F2, F2, F2, 1};
+  int off[kGrads];
+  int o = 0;
+  for (int i = 0; i < kGrads; ++i) {
+    off[i] = o;
+    o += din::round4(sizes[i]);
+  }
+  return GradSlots{off[0], off[1], off[2], off[3], off[4],  off[5], off[6],
+                   off[7], off[8], off[9], off[10], off[11], off[12], o};
+}
+
+void split_weights(const void* const* w, din::AttentionWeights* a, din::FcWeights* f) {
+  const float* p[kWeights];
+  for (int i = 0; i < kWeights; ++i) p[i] = static_cast<const float*>(w[i]);
+  *a = din::AttentionWeights{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
+  *f = din::FcWeights{p[7], p[8], p[9], p[10], p[11], p[12], p[13]};
+}
+
+// Rows r0 .. r0 + R - 1 (those below B) of a tile region [R][ld] (width floats
+// each) into dst [B][width].
+__device__ __forceinline__ void store_rows(const float* src, int ld, int width, long long r0,
+                                           long long B, int R, float* __restrict__ dst) {
+  const int w4 = width >> 2;
+  for (int i = threadIdx.x; i < R * w4; i += blockDim.x) {
+    const int r = i / w4, c = (i - r * w4) * 4;
+    if (r0 + r < B) {
+      as4(dst + static_cast<size_t>(r0 + r) * width + c) = *reinterpret_cast<const float4*>(src + r * ld + c);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+din_head_bwd_kernel(const float* __restrict__ hist, const float* __restrict__ tgt,
+                    din::AttentionWeights a, din::FcWeights f, const float* __restrict__ g,
+                    float* __restrict__ dhist, float* __restrict__ dtgt, float* __restrict__ part,
+                    float* __restrict__ rows, long long B, din::Layout s, GradSlots o) {
+  extern __shared__ __align__(16) float sm[];
+  float* slot = part + static_cast<size_t>(blockIdx.x) * o.total;
+  for (int j = threadIdx.x; j < o.total; j += blockDim.x) slot[j] = 0.f;
+  float* xg = rows;  // the fc head's rows for din_head_bwd_fc_kernel
+  float* f1g = xg + static_cast<size_t>(B) * 2 * s.D;
+  float* z1g = f1g + static_cast<size_t>(B) * s.F1;
+  float* z2g = z1g + static_cast<size_t>(B) * s.F1;
+  float* H = sm + s.oH;
+  float* X = sm + s.oX;
+  float* R1 = sm + s.oR1;
+  float* R2 = sm + s.oR2;
+  float* T = sm + s.oT;
+  float* F1 = sm + s.oQ;
+  float* F2 = sm + s.oF2;
+  float* W = sm + s.oW;
+  float* S = sm + s.oS;
+  float* P = sm + s.oP;
+  float* G = sm + s.oG;
+  const int D = s.D, L = s.L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long tiles = (B + s.R - 1) / s.R;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long r0 = t * s.R;
+    __syncthreads();  // the slot is zeroed; the previous tile's readers are done
+    din::stage_tile(hist, tgt, g, r0, B, s, sm);
+    __syncthreads();
+    din::attention_forward(a, s, sm);
+    din::fc_forward(f, s, sm);
+    store_rows(X, s.ldx, 2 * D, r0, B, s.R, xg);
+    store_rows(F1, s.ldf1, s.F1, r0, B, s.R, f1g);
+
+    // ---- the fc head: du3, dc3, then dzf2 in place of f2
+    din::block_colsum_acc(F2, s.ldf2, G, s.R, s.F2, slot + o.u3);
+    din::block_colsum_acc(G, 1, nullptr, s.R, 1, slot + o.c3);
+    __syncthreads();
+    for (int i = threadIdx.x; i < s.R * s.F2; i += blockDim.x) {
+      const int r = i / s.F2, c = i - r * s.F2;
+      float& z = F2[r * s.ldf2 + c];
+      z = z > 0.f ? G[r] * __ldg(f.u3 + c) : 0.f;
+    }
+    __syncthreads();
+    store_rows(F2, s.ldf2, s.F2, r0, B, s.R, z2g);
+    din::block_colsum_acc(F2, s.ldf2, nullptr, s.R, s.F2, slot + o.c2);
+    __syncthreads();
+    // dzf1 = (f1 > 0) dzf2 u2^T, in place of f1
+    din::block_mm<2, true>(F2, s.ldf2, f.u2, s.F2, s.R, s.F2, s.F1, [&](int r, int c, float4 v) {
+      float4& z = as4(F1 + r * s.ldf1 + c);
+      const float4 p = z;
+      z = make_float4(p.x > 0.f ? v.x : 0.f, p.y > 0.f ? v.y : 0.f, p.z > 0.f ? v.z : 0.f,
+                      p.w > 0.f ? v.w : 0.f);
+    });
+    __syncthreads();
+    // dc1; [dpooled | dt] = dzf1 [u1p | u1t]^T
+    store_rows(F1, s.ldf1, s.F1, r0, B, s.R, z1g);
+    din::block_colsum_acc(F1, s.ldf1, nullptr, s.R, s.F1, slot + o.c1);
+    din::block_mm<1, true>(F1, s.ldf1, f.u1p, s.F1, s.R, s.F1, D,
+                           [&](int r, int c, float4 v) { as4(P + r * s.ldx + c) = v; });
+    din::block_mm<1, true>(F1, s.ldf1, f.u1t, s.F1, s.R, s.F1, D,
+                           [&](int r, int c, float4 v) { as4(P + r * s.ldx + D + c) = v; });
+    __syncthreads();
+
+    // ---- the softmax: ds_l = w_l (dw_l - sum_k w_k dw_k), dw_l = dpooled . h_l
+    for (int r = warp; r < s.R; r += kThreads / 32) {
+      for (int l = 0; l < L; ++l) {
+        const int m = r * L + l;
+        float acc = 0.f;
+        for (int d = lane; d < D; d += 32) acc = fmaf(P[r * s.ldx + d], H[m * s.ldh + d], acc);
+        acc = din::warp_sum(acc);
+        if (lane == 0) S[m] = acc;
+      }
+      __syncwarp();
+      float wd = 0.f;
+      for (int l = lane; l < L; l += 32) wd = fmaf(W[r * L + l], S[r * L + l], wd);
+      wd = din::warp_sum(wd);
+      for (int l = lane; l < L; l += 32) S[r * L + l] = W[r * L + l] * (S[r * L + l] - wd);
+    }
+    __syncthreads();
+
+    // ---- the activation unit: dw3, db3, then dz2 in place of r2
+    din::block_colsum_acc(R2, s.ld2, S, s.M, s.A2, slot + o.w3);
+    din::block_colsum_acc(S, 1, nullptr, s.M, 1, slot + o.b3);
+    __syncthreads();
+    for (int i = threadIdx.x; i < s.M * s.A2; i += blockDim.x) {
+      const int m = i / s.A2, c = i - m * s.A2;
+      float& z = R2[m * s.ld2 + c];
+      z = z > 0.f ? S[m] * __ldg(a.w3 + c) : 0.f;
+    }
+    __syncthreads();
+    din::block_mm_tn_acc(R1, s.ld1, R2, s.ld2, s.M, s.A1, s.A2, slot + o.w2);
+    din::block_colsum_acc(R2, s.ld2, nullptr, s.M, s.A2, slot + o.b2);
+    __syncthreads();
+    // dz1 = (z1 > 0) dz2 w2^T, in place of r1
+    din::block_mm<10, true>(R2, s.ld2, a.w2, s.A2, s.M, s.A2, s.A1, [&](int m, int c, float4 v) {
+      float4& z = as4(R1 + m * s.ld1 + c);
+      const float4 p = z;
+      z = make_float4(p.x > 0.f ? v.x : 0.f, p.y > 0.f ? v.y : 0.f, p.z > 0.f ? v.z : 0.f,
+                      p.w > 0.f ? v.w : 0.f);
+    });
+    __syncthreads();
+    // dwh = h^T dz1, db1; the sum of dz1 over the positions into T
+    din::block_mm_tn_acc(H, s.ldh, R1, s.ld1, s.M, D, s.A1, slot + o.wh);
+    din::block_colsum_acc(R1, s.ld1, nullptr, s.M, s.A1, slot + o.b1);
+    for (int i = threadIdx.x; i < s.R * s.A1; i += blockDim.x) {
+      const int r = i / s.A1, c = i - r * s.A1;
+      float acc = 0.f;
+      for (int l = 0; l < L; ++l) acc += R1[(r * L + l) * s.ld1 + c];
+      T[r * s.ldt + c] = acc;
+    }
+    __syncthreads();
+    // dwt = t^T (sum_l dz1_l); d hist = w dpooled + dz1 wh^T; d target = dt + (sum_l dz1_l) wt^T
+    din::block_mm_tn_acc(X + D, s.ldx, T, s.ldt, s.R, D, s.A1, slot + o.wt);
+    din::block_mm<5, true>(R1, s.ld1, a.wh, s.A1, s.M, s.A1, D, [&](int m, int c, float4 v) {
+      const int r = m / L;
+      if (r0 + r < B) {
+        const float w = W[m];
+        const float4 p = as4(P + r * s.ldx + c);
+        as4(dhist + (static_cast<size_t>(r0) * L + m) * D + c) =
+            make_float4(fmaf(w, p.x, v.x), fmaf(w, p.y, v.y), fmaf(w, p.z, v.z), fmaf(w, p.w, v.w));
+      }
+    });
+    din::block_mm<1, true>(T, s.ldt, a.wt, s.A1, s.R, s.A1, D, [&](int r, int c, float4 v) {
+      if (r0 + r < B) {
+        const float4 p = as4(P + r * s.ldx + D + c);
+        as4(dtgt + static_cast<size_t>(r0 + r) * D + c) =
+            make_float4(p.x + v.x, p.y + v.y, p.z + v.z, p.w + v.w);
+      }
+    });
+  }
+}
+
+constexpr int kFcChunk = 16;  // rows staged at a time by din_head_bwd_fc_kernel
+
+// G [K][N] = X [rows][K]^T Z [rows][N] over this block's rows b0 .. b1 - 1, X and Z
+// in device memory, staged kFcChunk rows at a time; G is this block's slot.
+// A thread owns 4 columns and up to 4 groups of 4 k-rows a pass, summing over the
+// rows in order, and writes its part of G once.
+__device__ void fc_weight_grad(const float* __restrict__ X, int K, const float* __restrict__ Z,
+                               int N, long long b0, long long b1, float* sm,
+                               float* __restrict__ G) {
+  const int n4 = N >> 2, k4 = K >> 2;
+  const int per_pass = blockDim.x / n4;  // k-groups a pass takes, 4 a thread
+  const int cg = threadIdx.x % n4, kg0 = threadIdx.x / n4, c0 = cg * 4;
+  const bool active = kg0 < per_pass;
+  float* xs = sm;                       // [kFcChunk][K]
+  float* zs = sm + kFcChunk * K;        // [kFcChunk][N]
+  for (int base = 0; base < k4; base += 4 * per_pass) {
+    float acc[4][4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][i][q] = 0.f;
+      }
+    }
+    for (long long m0 = b0; m0 < b1; m0 += kFcChunk) {
+      const int rows = static_cast<int>(min(static_cast<long long>(kFcChunk), b1 - m0));
+      __syncthreads();  // the previous chunk's readers are done
+      for (int i = threadIdx.x; i < rows * k4; i += blockDim.x) {
+        const int r = i / k4, c = (i - r * k4) * 4;
+        as4(xs + r * K + c) = din::ldg4(X + static_cast<size_t>(m0 + r) * K + c);
+      }
+      for (int i = threadIdx.x; i < rows * n4; i += blockDim.x) {
+        const int r = i / n4, c = (i - r * n4) * 4;
+        as4(zs + r * N + c) = din::ldg4(Z + static_cast<size_t>(m0 + r) * N + c);
+      }
+      __syncthreads();
+      if (!active) continue;
+      for (int m = 0; m < rows; ++m) {
+        const float4 z = *reinterpret_cast<const float4*>(zs + m * N + c0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kg = base + kg0 + j * per_pass;
+          if (kg < k4) {
+            const float4 x = *reinterpret_cast<const float4*>(xs + m * K + kg * 4);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[j][i][q] = fmaf(din::at(x, i), din::at(z, q), acc[j][i][q]);
+            }
+          }
+        }
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kg = base + kg0 + j * per_pass;
+        if (kg < k4) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            as4(G + static_cast<size_t>(kg * 4 + i) * N + c0) =
+                make_float4(acc[j][i][0], acc[j][i][1], acc[j][i][2], acc[j][i][3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The fc head's weight gradients from the rows din_head_bwd_kernel wrote: block b
+// takes a contiguous run of rows and writes du1 = [pooled | t]^T dzf1 and
+// du2 = f1^T dzf2 over them into its slot.
+__global__ void __launch_bounds__(kThreads)
+din_head_bwd_fc_kernel(const float* __restrict__ rows, float* __restrict__ part, long long B,
+                       int D, int F1, int F2, GradSlots o) {
+  extern __shared__ __align__(16) float sm[];
+  const float* xg = rows;
+  const float* f1g = xg + static_cast<size_t>(B) * 2 * D;
+  const float* z1g = f1g + static_cast<size_t>(B) * F1;
+  const float* z2g = z1g + static_cast<size_t>(B) * F1;
+  const long long per = (B + gridDim.x - 1) / gridDim.x;
+  const long long b0 = min(B, per * blockIdx.x), b1 = min(B, b0 + per);
+  float* slot = part + static_cast<size_t>(blockIdx.x) * o.total;
+  fc_weight_grad(xg, 2 * D, z1g, F1, b0, b1, sm, slot + o.u1);
+  fc_weight_grad(f1g, F1, z2g, F2, b0, b1, sm, slot + o.u2);
+}
+
+size_t fc_smem_bytes(int D, int F1, int F2) {
+  const int k = max(2 * D + F1, F1 + F2);
+  return sizeof(float) * static_cast<size_t>(kFcChunk) * k;
+}
+
+// grad [total] = the nparts slots of part [nparts, total], summed in block order.
+__global__ void __launch_bounds__(256)
+din_head_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ grad, int nparts,
+                           int total) {
+  for (int j = blockIdx.x * 256 + threadIdx.x; j < total; j += gridDim.x * 256) {
+    float acc = 0.f;
+    for (int b = 0; b < nparts; ++b) acc += part[static_cast<size_t>(b) * total + j];
+    grad[j] = acc;
+  }
+}
+
+bool layout_for(long long B, int L, int D, int A1, int A2, int F1, int F2, bool backward,
+                din::Layout* s) {
+  return din::widths_ok(B, L, D, A1, A2, F1, F2) &&
+         din::fit_layout(L, D, A1, A2, F1, F2, true, backward, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* din_head_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int din_head_max_history() { return din::kMaxHistory; }
+
+// The slot layout of the weight gradients: the 13 offsets (wh, wt, b1, w2, b2,
+// w3, b3, u1, c1, u2, c2, u3, c3) into offsets, and the slot's size as the result.
+int din_head_grad_offsets(int D, int A1, int A2, int F1, int F2, int* offsets) {
+  const GradSlots o = grad_slots(D, A1, A2, F1, F2);
+  const int values[kGrads] = {o.wh, o.wt, o.b1, o.w2, o.b2, o.w3, o.b3,
+                              o.u1, o.c1, o.u2, o.c2, o.u3, o.c3};
+  for (int i = 0; i < kGrads; ++i) offsets[i] = values[i];
+  return o.total;
+}
+
+// hist [B, L, D], tgt [B, D] and the 14 weights (f32, in din_head_weights' order)
+// -> logits out [B] f32.
+int din_head_fwd(const void* hist, const void* tgt, const void* const* weights, void* out,
+                 long long B, int L, int D, int A1, int A2, int F1, int F2, void* stream) {
+  din::Layout s;
+  if (!layout_for(B, L, D, A1, A2, F1, F2, false, &s)) return cudaErrorInvalidValue;
+  const size_t smem = din::smem_bytes(s);
+  int blocks = 0;
+  const cudaError_t err =
+      din::persistent_blocks(din::din_fwd_kernel<true>, smem, (B + s.R - 1) / s.R, &blocks);
+  if (err != cudaSuccess) return err;
+  din::AttentionWeights a;
+  din::FcWeights f;
+  split_weights(weights, &a, &f);
+  din::din_fwd_kernel<true><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(hist), static_cast<const float*>(tgt), a, f,
+      static_cast<float*>(out), B, s);
+  return cudaGetLastError();
+}
+
+// The number of blocks (slots) din_head_bwd launches, for the launcher to size
+// part [blocks, slot size].
+int din_head_bwd_blocks(long long B, int L, int D, int A1, int A2, int F1, int F2) {
+  din::Layout s;
+  if (!layout_for(B, L, D, A1, A2, F1, F2, true, &s)) return -1;
+  int blocks = 0;
+  if (din::persistent_blocks(din_head_bwd_kernel, din::smem_bytes(s), (B + s.R - 1) / s.R,
+                             &blocks) != cudaSuccess) {
+    return -1;
+  }
+  return blocks;
+}
+
+// The forward's inputs and the logit cotangent g [B] f32 -> dhist [B, L, D],
+// dtgt [B, D], the per-block slots part [blocks, slot size] (all but the fc
+// head's du1, du2) and the fc head's rows for din_head_bwd_fc: rows [B, 2D + 2 F1
+// + F2] as [pooled | t] [B, 2D], f1 [B, F1], dzf1 [B, F1], dzf2 [B, F2]; all f32;
+// `blocks` as din_head_bwd_blocks gave it.
+int din_head_bwd(const void* hist, const void* tgt, const void* const* weights, const void* g,
+                 void* dhist, void* dtgt, void* part, void* rows, long long B, int L, int D,
+                 int A1, int A2, int F1, int F2, int blocks, void* stream) {
+  din::Layout s;
+  if (!layout_for(B, L, D, A1, A2, F1, F2, true, &s) || blocks < 1) return cudaErrorInvalidValue;
+  const size_t smem = din::smem_bytes(s);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        din_head_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  din::AttentionWeights a;
+  din::FcWeights f;
+  split_weights(weights, &a, &f);
+  din_head_bwd_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(hist), static_cast<const float*>(tgt), a, f,
+      static_cast<const float*>(g), static_cast<float*>(dhist), static_cast<float*>(dtgt),
+      static_cast<float*>(part), static_cast<float*>(rows), B, s, grad_slots(D, A1, A2, F1, F2));
+  return cudaGetLastError();
+}
+
+// The fc head's weight gradients into the slots of part, from the rows
+// din_head_bwd wrote; `blocks` as din_head_bwd_blocks gave it.
+int din_head_bwd_fc(const void* rows, void* part, long long B, int D, int A1, int A2, int F1,
+                    int F2, int blocks, void* stream) {
+  if (!din::widths_ok(B, 1, D, A1, A2, F1, F2) || blocks < 1 || F1 > 4 * kThreads ||
+      F2 > 4 * kThreads) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = fc_smem_bytes(D, F1, F2);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        din_head_bwd_fc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  din_head_bwd_fc_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rows), static_cast<float*>(part), B, D, F1, F2,
+      grad_slots(D, A1, A2, F1, F2));
+  return cudaGetLastError();
+}
+
+// grad [total] f32 from the nparts slots of din_head_bwd.
+int din_head_bwd_reduce(const void* part, void* grad, int nparts, int total, void* stream) {
+  if (nparts < 1 || total < 1) return cudaErrorInvalidValue;
+  const int blocks = min((total + 255) / 256, 1024);
+  din_head_bwd_reduce_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(grad), nparts, total);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -5,10 +5,12 @@ far: load ml-100k -> sample per-split negatives -> build full-batch tensors ->
 train N epochs with per-epoch train/valid/test metrics -> score the full
 catalog -> ranking@k on valid and test with seen items excluded.
 
-Ported, full-batch: the 'pair' family for MF (the pattern of scripts/mf.py)
-and the 'feature' family for LR and AFM (the pattern of scripts/lr.py: each
-split's [N, 45] feature matrix). The other presets, families and training
-modes raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Ported, full-batch: the 'pair' family for MF (the pattern of scripts/mf.py),
+the 'feature' family for LR and AFM (the pattern of scripts/lr.py: each
+split's [N, 45] feature matrix) and the 'seq' family for DIN (the pattern of
+scripts/din.py: each split's (history window [N, L], target [N]), the window
+taken from that split's own positives). The other presets, families and
+training modes raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 The initial weights and the negatives are drawn from CPU generators seeded
 from ``cfg.seed`` and then moved to ``device``, so a run on a card and the
@@ -32,6 +34,7 @@ from deeplearningrecommendationsystem_tpu_torch.eval.ranking import ranking_metr
 from deeplearningrecommendationsystem_tpu_torch.eval.recommend import score_ranking, seen_to_tail
 from deeplearningrecommendationsystem_tpu_torch.models import (
     AFM,
+    DIN,
     LogisticRegression,
     MatrixFactorization,
     ServingContext,
@@ -44,16 +47,16 @@ _NOT_PORTED = {
     "deepfm": "item 6", "ffm": "item 8", "widedeep": "item 8", "nfm": "item 8",
     "pnn": "item 8", "deepcross": "item 8", "deepcrossing": "item 8",
     "neuralcf": "item 9", "autorec": "item 9", "i-autorec": "item 9",
-    "din": "item 10", "dien": "item 10",
+    "dien": "item 10",
 }
-FAMILIES = ("pair", "feature")
+FAMILIES = ("pair", "feature", "seq")
 
 
 def build_model(cfg: ExperimentConfig, data: MovieLens100K,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
     """The preset's model on the CPU, its weights drawn from ``generator``
     (a CPU generator; seeded from ``cfg.seed`` when None)."""
-    if cfg.model not in ("mf", "lr", "afm"):
+    if cfg.model not in ("mf", "lr", "afm", "din"):
         where = _NOT_PORTED.get(cfg.model, "§1")
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet; see ROADMAP.md §1 {where}")
     if generator is None:
@@ -63,6 +66,8 @@ def build_model(cfg: ExperimentConfig, data: MovieLens100K,
         return MatrixFactorization(data.num_users, data.num_items, **kw)
     if cfg.model == "lr":
         return LogisticRegression(data.spec, **kw)
+    if cfg.model == "din":
+        return DIN(data.num_items, **kw)
     return AFM(data.spec, **kw)
 
 
@@ -106,8 +111,10 @@ def split_batches(cfg: ExperimentConfig, data: MovieLens100K,
     """{"train", "valid", "test"} -> (batch, labels) on ``device``: each split's
     positives with ``cfg.negatives`` sampled negatives per user, drawn in that
     order from one sampler seeded from ``cfg.seed``. The batch is (users,
-    items) for the pair family and the [N, 45] feature matrix for the feature
-    family."""
+    items) for the pair family, the [N, 45] feature matrix for the feature
+    family and (history [N, hist_len], items) for the seq family, each row's
+    history the user's window over that split's positives
+    (``history_matrix``)."""
     dev = resolve_device(device)
     sampler = NegativeSampler(data.seen_mask(data.train, data.valid, data.test),
                               seed=cfg.seed, device=dev)
@@ -120,6 +127,9 @@ def split_batches(cfg: ExperimentConfig, data: MovieLens100K,
         combined: Split = MovieLens100K.concat_splits(split, sampler.sample(n_neg))
         if cfg.family == "feature":
             batch = torch.from_numpy(data.feature_matrix(combined)).to(dev)
+        elif cfg.family == "seq":
+            hist = data.history_matrix(split, cfg.hist_len)[combined["user"]]
+            batch = (torch.from_numpy(hist).to(dev), torch.from_numpy(combined["item"]).to(dev))
         else:
             batch = (torch.from_numpy(combined["user"]).to(dev),
                      torch.from_numpy(combined["item"]).to(dev))
@@ -162,6 +172,12 @@ def run_experiment(
         user_features=torch.from_numpy(data.user_features).to(dev),
         item_features=torch.from_numpy(data.item_features).to(dev),
     )
+    if cfg.family == "seq":
+        ctx.history = torch.from_numpy(data.history_matrix(data.data, cfg.hist_len)).to(dev)
+        if cfg.full_history_serving:
+            # the reference scores each user's COMPLETE history
+            # (scripts/din.py:99-100 -> model/din.py:55-66)
+            ctx.full_histories = [row[row >= 0] for row in data.itemid_matrix(data.data)]
 
     batches = split_batches(cfg, data, dev)
     train_examples = len(batches["train"][1])

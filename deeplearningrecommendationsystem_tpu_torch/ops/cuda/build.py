@@ -3,8 +3,9 @@
 Each source compiles on its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), for ``sm_90a``.
 Libraries go to ``build/kernels/`` at the repository root, which git ignores,
-named by a hash of the source and the flags: a library is built at its first
-use in a checkout and reused after that. ``build_all`` starts one ``nvcc`` per
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags: a library is built at its first use in a checkout and reused after
+that. ``build_all`` starts one ``nvcc`` per
 source, all at once.
 """
 
@@ -49,7 +50,8 @@ def _nvcc() -> str:
 def library_path(source: str) -> Path:
     """Where the library of ``csrc/<source>`` is built."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{src.stem}_{digest[:16]}.so"
 
 

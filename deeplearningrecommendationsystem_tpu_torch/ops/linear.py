@@ -8,12 +8,13 @@ linear layers with weight and bias drawn from U(-1/sqrt(fan_in),
 
 The draws differ from ``jax.random``'s for the same seed; tests that need
 both packages to hold the same weights copy them across (``weights.py``).
-``mlp`` and ``relu_stack`` come with the models that use them.
+``mlp_init`` and ``mlp`` are DIN's two-hidden-layer nets; ``relu_stack`` comes
+with DeepFM.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import torch
 
@@ -50,3 +51,20 @@ def linear(p: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def mlp_init(generator: torch.Generator, dims: Sequence[int],
+             dtype: torch.dtype = torch.float32) -> List[Dict[str, torch.Tensor]]:
+    """A stack of ``linear_init`` layers with dims [d0, d1, ..., dn]."""
+    return [linear_init(generator, d_in, d_out, dtype=dtype)
+            for d_in, d_out in zip(dims[:-1], dims[1:])]
+
+
+def mlp(layers: Sequence[Mapping[str, torch.Tensor]], x: torch.Tensor,
+        final_activation: bool = False) -> torch.Tensor:
+    """Linear -> ReLU between layers; the last layer linear unless
+    ``final_activation``."""
+    for p in layers[:-1]:
+        x = torch.relu(linear(p, x))
+    x = linear(layers[-1], x)
+    return torch.relu(x) if final_activation else x

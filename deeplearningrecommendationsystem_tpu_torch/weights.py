@@ -5,8 +5,9 @@ holds the port against the JAX package gives both the same weights: the JAX
 params pytree, as NumPy arrays, copied into the port's module. The ported
 models keep the JAX pytree's names, a nested dict becoming a submodule, so a
 module's state-dict names are the pytree's leaves under dotted names
-({"wide": {"w": ...}} -> "wide.w"). A model whose names differ would add its
-own mapping here.
+({"wide": {"w": ...}} -> "wide.w"; a list's items under their index, DIN's
+{"att": [{"w": ...}, ...]} -> "att.0.w"). A model whose names differ would add
+its own mapping here.
 
 ``opt_state_from_jax`` does the same for the optimizer: it turns an optax Adam
 state (``ScaleByAdamState``: ``count``, ``mu``, ``nu``, alone or inside the
@@ -25,15 +26,18 @@ from torch import nn
 
 from deeplearningrecommendationsystem_tpu_torch.models import (
     AFM,
+    DIN,
     LogisticRegression,
     MatrixFactorization,
 )
 
 
 def _flat(params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    """The leaves of a nested dict under dotted names."""
+    """The leaves of nested dicts and lists under dotted names."""
     out: Dict[str, np.ndarray] = {}
     for key, value in params.items():
+        if isinstance(value, (list, tuple)):
+            value = {str(i): v for i, v in enumerate(value)}
         if isinstance(value, Mapping):
             out.update(_flat(value, f"{prefix}{key}."))
         else:
@@ -43,8 +47,9 @@ def _flat(params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 # MF: user [U, D], item [I, D]. LR: user_bias, item_bias, wide.{w, b}. AFM:
 # tables.{user, item, gender, occupation, genre}, att_{w, b, h}, att_out.{w, b},
-# wide.{user_bias, item_bias, wide.{w, b}}.
-_PORTED = (MatrixFactorization, LogisticRegression, AFM)
+# wide.{user_bias, item_bias, wide.{w, b}}. DIN: item, att.{0,1,2}.{w, b},
+# fc.{0,1,2}.{w, b}.
+_PORTED = (MatrixFactorization, LogisticRegression, AFM, DIN)
 
 
 def _to_state(model: nn.Module, tree: Mapping) -> Dict[str, np.ndarray]:

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 serving top-k kernels, the embedding gather and its backward, the fused MF
-trainer, the fused LR trainers (wide and compact) and the AFM attention pool
-(forward and backward). Every test here needs an NVIDIA GPU with nvcc and skips elsewhere; run
+trainer, the fused LR trainers (wide and compact), the AFM attention pool
+(forward and backward), the fused DIN head (forward and backward) and the DIN
+attention pool. Every test here needs an NVIDIA GPU with nvcc and skips elsewhere; run
 them on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -22,16 +23,21 @@ import pytest
 import torch
 
 from deeplearningrecommendationsystem_tpu_torch.ops import afm_attention as afm
+from deeplearningrecommendationsystem_tpu_torch.ops import din_attention as dinatt
+from deeplearningrecommendationsystem_tpu_torch.ops import din_head as dh
 from deeplearningrecommendationsystem_tpu_torch.ops import gather as gat
 from deeplearningrecommendationsystem_tpu_torch.ops import lr_epoch as lre
 from deeplearningrecommendationsystem_tpu_torch.ops import mf_epoch as mfe
 from deeplearningrecommendationsystem_tpu_torch.ops import serving_topk as topk
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import afm_attention as cuda_afm
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_attention as cuda_dinatt
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_head as cuda_dh
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_gather
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lre
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mfe
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as cuda_topk
 from deeplearningrecommendationsystem_tpu_torch.ops.embedding import gather_rows
+from deeplearningrecommendationsystem_tpu_torch.ops.linear import mlp_init
 
 pytestmark = pytest.mark.cuda
 
@@ -415,3 +421,139 @@ def test_afm_launchers_check_their_inputs(cuda):
             cuda_afm.afm_attention_pool(*args)
     with pytest.raises(ValueError):
         cuda_afm.afm_attention_pool_bwd(fields, w, b, h, cot[:5].contiguous())
+
+
+# ---- the fused DIN head and the DIN attention pool (csrc/din_head.cu, din_attention.cu)
+
+def _din_inputs(cuda, B, L, D, A, F, seed):
+    """Embeddings at the scale of the model's tables, the two MLPs as DIN draws
+    them (biases included), and a logit cotangent."""
+    gen = torch.Generator().manual_seed(seed)
+    att = mlp_init(gen, (3 * D,) + A)
+    fc = mlp_init(gen, (2 * D,) + F)
+    att = [{k: v.to(cuda) for k, v in layer.items()} for layer in att]
+    fc = [{k: v.to(cuda) for k, v in layer.items()} for layer in fc]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    hist = 0.5 * torch.randn((B, L, D), generator=g, device=cuda)
+    tgt = 0.5 * torch.randn((B, D), generator=g, device=cuda)
+    cot = torch.randn((B,), generator=g, device=cuda)
+    return att, fc, hist, tgt, cot
+
+
+# (B, L, D, (A1, A2, 1), (F1, F2, 1)): the CPU tests' width at a ragged batch,
+# the DIN preset at a ragged batch and at one window tile of 16 users, odd
+# history lengths (the longest the kernels take among them) and narrow widths
+DIN_SHAPES = [(70, 10, 16, (32, 16, 1), (64, 32, 1)),
+              (5_003, 10, 64, (128, 64, 1), (256, 128, 1)),
+              (26_912, 10, 64, (128, 64, 1), (256, 128, 1)),
+              (301, 7, 8, (12, 8, 1), (20, 12, 1)),
+              (40, 64, 16, (16, 8, 1), (16, 8, 1))]
+
+
+DB3 = 8  # d b3 among (d hist, d target, d wh, d wt, d b1, d w2, d b2, d w3, d b3, ...)
+
+
+def _close_db3(got, want, cot):
+    """d b3 = sum of ds, which is 0 in exact arithmetic (the softmax does not
+    see a shift of every score): both versions give rounding noise, held to
+    1e-6 of sum |g|."""
+    assert float((got - want).abs().max()) <= 1e-6 * float(cot.abs().sum())
+
+
+@pytest.mark.parametrize("B,L,D,A,F", DIN_SHAPES)
+def test_din_head_fused_matches_plain(cuda, B, L, D, A, F):
+    att, fc, hist, tgt, _ = _din_inputs(cuda, B, L, D, A, F, seed=B + L)
+    weights = dh.din_head_weights(att, fc, D)
+    before = cuda_dh.din_head_fused.launches
+    got = dh.din_head_fwd(hist, tgt, weights)
+    torch.cuda.synchronize()
+    assert cuda_dh.din_head_fused.launches == before + 1
+    assert got.shape == (B,) and got.dtype == torch.float32
+    _close(got, dh.din_head_fwd_plain(hist, tgt, weights), 1e-5)
+
+
+@pytest.mark.parametrize("B,L,D,A,F", [s for s in DIN_SHAPES if s[0] < 20_000])
+def test_din_head_fused_bwd_matches_plain(cuda, B, L, D, A, F):
+    att, fc, hist, tgt, cot = _din_inputs(cuda, B, L, D, A, F, seed=B + D)
+    weights = dh.din_head_weights(att, fc, D)
+    before = cuda_dh.din_head_fused_bwd.launches
+    got = dh.din_head_bwd(hist, tgt, weights, cot)
+    torch.cuda.synchronize()
+    assert cuda_dh.din_head_fused_bwd.launches == before + 3
+    want = dh.din_head_bwd_plain(hist, tgt, weights, cot)
+    assert len(got) == len(want) == 16
+    for i, (gt, wt) in enumerate(zip(got, want)):
+        assert gt.shape == wt.shape and gt.dtype == torch.float32
+        if i == DB3:
+            _close_db3(gt, wt, cot)
+        else:
+            _close(gt, wt, 1e-4)
+    # the same gradients every run: the block slots are summed in a fixed order
+    for a, b_ in zip(dh.din_head_bwd(hist, tgt, weights, cot), got):
+        assert torch.equal(a, b_)
+
+
+def test_din_head_autograd_on_the_card(cuda):
+    """DinHead under autograd: one forward and three backward launches; the
+    gradients of the MLPs' params (through the decomposition) and of the
+    embeddings are those of the CPU plain versions."""
+    att, fc, hist, tgt, cot = _din_inputs(cuda, 300, 10, 16, (32, 16, 1), (64, 32, 1), seed=3)
+
+    def leaves(device):
+        tree = [[{k: v.detach().to(device).requires_grad_(True) for k, v in layer.items()}
+                 for layer in net] for net in (att, fc)]
+        return tree, hist.detach().to(device).requires_grad_(True), \
+            tgt.detach().to(device).requires_grad_(True)
+
+    (a_card, f_card), h_card, t_card = leaves(cuda)
+    before = cuda_dh.din_head_fused.launches, cuda_dh.din_head_fused_bwd.launches
+    (dh.din_head(a_card, f_card, h_card, t_card) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert (cuda_dh.din_head_fused.launches, cuda_dh.din_head_fused_bwd.launches) == (
+        before[0] + 1, before[1] + 3)
+    (a_cpu, f_cpu), h_cpu, t_cpu = leaves("cpu")
+    (dh.din_head(a_cpu, f_cpu, h_cpu, t_cpu) * cot.cpu()).sum().backward()
+    _close_db3(a_card[2]["b"].grad.cpu(), a_cpu[2]["b"].grad, cot)
+    pairs = [(h_card, h_cpu), (t_card, t_cpu)] + [
+        (lc[k], lp[k]) for nc, npu in ((a_card, a_cpu), (f_card, f_cpu))
+        for lc, lp in zip(nc, npu) for k in lc if lc is not a_card[2] or k != "b"]
+    for got, want in pairs:
+        _close(got.grad.cpu(), want.grad, 1e-4)
+
+
+@pytest.mark.parametrize("B,L,D,A,F", DIN_SHAPES)
+def test_din_attention_pool_matches_plain(cuda, B, L, D, A, F):
+    """The kernel drops the last layer's bias, which cancels in the softmax; the
+    plain version keeps it (a nonzero bias here), so they agree to rounding."""
+    att, _, hist, tgt, _ = _din_inputs(cuda, B, L, D, A, F, seed=B * L)
+    before = cuda_dinatt.din_attention_pool.launches
+    got = dinatt.din_attention_pool(hist, tgt, att)
+    torch.cuda.synchronize()
+    assert cuda_dinatt.din_attention_pool.launches == before + 1
+    assert got.shape == (B, D) and got.dtype == torch.float32
+    _close(got, dinatt.din_attention_pool_plain(hist, tgt, att), 1e-5)
+
+
+def test_din_launchers_check_their_inputs(cuda):
+    att, fc, hist, tgt, cot = _din_inputs(cuda, 10, 10, 8, (12, 8, 1), (16, 8, 1), seed=0)
+    weights = dh.din_head_weights(att, fc, 8)
+    long_att, long_fc, long_hist, long_tgt, _ = _din_inputs(cuda, 4, 65, 8, (12, 8, 1),
+                                                            (16, 8, 1), seed=1)
+    odd_att, odd_fc, odd_hist, odd_tgt, _ = _din_inputs(cuda, 4, 5, 6, (12, 8, 1), (16, 8, 1),
+                                                        seed=2)
+    for args, err in [((hist.double(), tgt, weights), TypeError),
+                      ((hist, tgt[:5].contiguous(), weights), ValueError),
+                      ((hist.transpose(0, 1), tgt, weights), ValueError),
+                      ((hist, tgt, weights[:13]), ValueError),
+                      ((long_hist, long_tgt, dh.din_head_weights(long_att, long_fc, 8)), ValueError),
+                      ((odd_hist, odd_tgt, dh.din_head_weights(odd_att, odd_fc, 6)), ValueError)]:
+        with pytest.raises(err):
+            cuda_dh.din_head_fused(*args)
+    with pytest.raises(ValueError):
+        cuda_dh.din_head_fused_bwd(hist, tgt, weights, cot[:5].contiguous())
+    for args in [(long_hist, long_tgt, long_att), (odd_hist, odd_tgt, odd_att),
+                 (hist, tgt, att[:2])]:
+        with pytest.raises(ValueError):
+            cuda_dinatt.din_attention_pool(*args)
+    with pytest.raises(TypeError):
+        cuda_dinatt.din_attention_pool(hist.double(), tgt, att)

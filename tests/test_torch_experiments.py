@@ -209,7 +209,7 @@ def test_feature_ranking_matches_jax(feature_runs):
 
 def test_other_presets_name_their_roadmap_item(dataset_dir):
     pt = MovieLens100K(dataset_dir, seed=0)
-    for name in ("deepfm", "neuralcf", "din", "autorec", "nfm"):
+    for name in ("deepfm", "neuralcf", "dien", "autorec", "nfm"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             experiments.run_experiment(PRESETS[name].replace(epochs=1), data=pt, device="cpu")
     for over in ({"train_mode": "minibatch"}, {"mesh_shape": (1, 2)}):

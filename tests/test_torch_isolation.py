@@ -5,8 +5,12 @@
 * Entry points default to CUDA and raise where it is absent, unless the caller
   passes ``device="cpu"``.
 * A CUDA tensor given to a kernel wrapper (top-k, gather, onehot_grad, the
-  fused MF and LR trainers, the AFM attention pool and its backward) goes to
-  its kernel launcher and never to the plain version; there is no fallback.
+  fused MF and LR trainers, the AFM attention pool and its backward, the
+  fused DIN head and its backward, the DIN attention pool) goes to its kernel
+  launcher and never to the plain version; there is no fallback.
+* DIN's routes: training and evaluation go through the DIN head wrappers,
+  the window catalog scorer through the DIN attention pool, the masked
+  routes through neither.
 
 This file imports neither JAX nor the JAX package, so its CUDA test also runs
 on a machine that has only the port (``-m cuda --noconftest``).
@@ -28,13 +32,17 @@ from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
 from deeplearningrecommendationsystem_tpu_torch.features import FeatureSpec
 from deeplearningrecommendationsystem_tpu_torch.models import (
     AFM,
+    DIN,
     LogisticRegression,
     MatrixFactorization,
     ServingContext,
 )
 from deeplearningrecommendationsystem_tpu_torch.ops import afm_attention, gather, lr_epoch, mf_epoch
+from deeplearningrecommendationsystem_tpu_torch.ops import din_attention, din_head
 from deeplearningrecommendationsystem_tpu_torch.ops import serving_topk as topk
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import afm_attention as cuda_afm
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_attention as cuda_din_attention
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_head as cuda_din_head
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_gather
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lr_epoch
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mf_epoch
@@ -77,6 +85,11 @@ def test_port_files_are_found():
             "deeplearningrecommendationsystem_tpu_torch/ops/afm_attention.py",
             "deeplearningrecommendationsystem_tpu_torch/models/lr.py",
             "deeplearningrecommendationsystem_tpu_torch/models/afm.py",
+            "deeplearningrecommendationsystem_tpu_torch/models/din.py",
+            "deeplearningrecommendationsystem_tpu_torch/ops/din_head.py",
+            "deeplearningrecommendationsystem_tpu_torch/ops/din_attention.py",
+            "deeplearningrecommendationsystem_tpu_torch/ops/cuda/din_head.py",
+            "deeplearningrecommendationsystem_tpu_torch/ops/cuda/din_attention.py",
             "deeplearningrecommendationsystem_tpu_torch/train/trainer.py",
             "deeplearningrecommendationsystem_tpu_torch/experiments.py",
             "deeplearningrecommendationsystem_tpu_torch/cli/serve.py"} <= names
@@ -112,6 +125,7 @@ ENTRY_POINTS = {
     "MatrixFactorization": lambda: MatrixFactorization(4, 6, 8),
     "LogisticRegression": lambda: LogisticRegression(),
     "AFM": lambda: AFM(),
+    "DIN": lambda: DIN(10),
     "Recommender": lambda: Recommender(MatrixFactorization(4, 6, 8, device="cpu"), _ctx()),
     "Trainer": lambda: Trainer(MatrixFactorization(4, 6, 8, device="cpu"), TrainConfig()),
     "NegativeSampler": lambda: NegativeSampler(np.zeros((4, 6), dtype=bool), seed=0),
@@ -248,8 +262,28 @@ TRAIN_WRAPPERS = {
     "afm_attention_pool_bwd": (afm_attention, cuda_afm, "afm_attention_pool_bwd",
                                lambda make: (make(5, 6, 8), make(8, 4), make(4), make(4, 1),
                                              make(5, 8))),
+    "din_head_fwd": (din_head, cuda_din_head, "din_head_fused",
+                     lambda make: (make(5, 3, 8), make(5, 8), _din_weights(make))),
+    "din_head_bwd": (din_head, cuda_din_head, "din_head_fused_bwd",
+                     lambda make: (make(5, 3, 8), make(5, 8), _din_weights(make), make(5))),
+    "din_attention_pool": (din_attention, cuda_din_attention, "din_attention_pool",
+                           lambda make: (make(5, 3, 8), make(5, 8), _din_att(make))),
 }
-FLOAT_ONLY = ("lr_fullbatch_train", "afm_attention_pool", "afm_attention_pool_bwd")
+FLOAT_ONLY = ("lr_fullbatch_train", "afm_attention_pool", "afm_attention_pool_bwd",
+              "din_head_fwd", "din_head_bwd", "din_attention_pool")
+
+
+def _din_weights(make, D=8, A1=4, A2=4, F1=4, F2=4):
+    """The 14 DIN head weights (ops/din_head.py::din_head_weights' shapes)."""
+    shapes = [(D, A1), (D, A1), (1, A1), (A1, A2), (1, A2), (A2, 1), (1, 1),
+              (D, F1), (D, F1), (1, F1), (F1, F2), (1, F2), (F2, 1), (1, 1)]
+    return tuple(make(*shape) for shape in shapes)
+
+
+def _din_att(make, D=8, A1=4, A2=4):
+    """An attention MLP 3D -> A1 -> A2 -> 1."""
+    return [{"w": make(3 * D, A1), "b": make(A1)}, {"w": make(A1, A2), "b": make(A2)},
+            {"w": make(A2, 1), "b": make(1)}]
 
 
 def _int_or(make):
@@ -296,7 +330,8 @@ def test_train_launchers_reject_cpu_tensors(name):
         getattr(launchers, launcher)(*_cpu_args(name))
 
 
-@pytest.mark.parametrize("module", [gather, mf_epoch, lr_epoch, afm_attention],
+@pytest.mark.parametrize("module", [gather, mf_epoch, lr_epoch, afm_attention, din_head,
+                                    din_attention],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_train_wrapper_sources_have_no_fallback(module):
     """As for the top-k wrappers: no ``try``; the plain version is called once,
@@ -312,7 +347,8 @@ def test_train_wrapper_sources_have_no_fallback(module):
         assert _calls(branch.test) == ["_on_cpu"]
         plain = [c for c in _calls(fn) if c.endswith("_plain")]
         assert plain == [f"{name}_plain"] == [c for c in _calls(branch) if c.endswith("_plain")]
-    for launchers in (cuda_gather, cuda_mf_epoch, cuda_lr_epoch, cuda_afm):
+    for launchers in (cuda_gather, cuda_mf_epoch, cuda_lr_epoch, cuda_afm, cuda_din_head,
+                      cuda_din_attention):
         text = pathlib.Path(launchers.__file__).read_text()
         assert "_plain" not in text and "try:" not in text
 
@@ -362,3 +398,38 @@ def test_lr_fast_fit_goes_through_its_wrapper(monkeypatch, mode):
     params, losses = model.fast_fit(model.params(), x, torch.ones(3), 2, 0.05, mode=mode)
     assert calls == [name] and losses.shape == (2,)
     assert params.keys() == model.params().keys()
+
+
+def _din_batch():
+    hist = torch.tensor([[0, 0, 3, 5], [1, 2, 3, 4], [0, 6, 0, 2]])
+    return hist, torch.tensor([4, 0, 6])
+
+
+@pytest.mark.parametrize("route", ["train", "window", "masked", "full_history"])
+def test_din_routes(monkeypatch, route):
+    """Unmasked training and evaluation take the DIN head wrappers (forward,
+    then backward), the window catalog scorer the attention pool, and the
+    masked routes neither: no kernel takes a mask."""
+    seen = []
+    for name in ("din_head_fwd", "din_head_bwd"):
+        plain = getattr(din_head, f"{name}_plain")
+        monkeypatch.setattr(din_head, name, lambda *a, _n=name, _p=plain: seen.append(_n) or _p(*a))
+    from deeplearningrecommendationsystem_tpu_torch.models import din as din_model
+
+    monkeypatch.setattr(din_model, "din_attention_pool", lambda *a: seen.append("pool") or
+                        din_attention.din_attention_pool_plain(*a))
+    kw = dict(embed_size=8, attention_units=(4, 4, 1), fc_units=(4, 4, 1), device="cpu")
+    model = DIN(7, mask_padding=route == "masked", **kw)
+    if route in ("train", "masked"):
+        model(_din_batch()).sum().backward()
+        assert model.att[0].w.grad is not None and model.item.grad is not None
+        assert seen == (["din_head_fwd", "din_head_bwd"] if route == "train" else [])
+        return
+    hist = _din_batch()[0]
+    ctx = ServingContext(torch.zeros((3, 24)), torch.zeros((7, 19)), history=hist,
+                         full_histories=[h.numpy() for h in hist] if route == "full_history"
+                         else None)
+    with torch.no_grad():
+        scores = model.score_catalog(ctx)
+    assert scores.shape == (3, 7)
+    assert seen == (["pool"] if route == "window" else [])

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 tools/profile_torch_train.py [--model mf|lr|afm ...] [--epochs 20]
+    python3 tools/profile_torch_train.py [--model mf|lr|afm|din ...] [--epochs 20]
 
 On a synthetic ml-100k-format dataset at each preset's full width it runs,
 under ``torch.profiler`` (CPU and CUDA activity), after one warm-up run each:
@@ -11,7 +11,8 @@ under ``torch.profiler`` (CPU and CUDA activity), after one warm-up run each:
 * ``Trainer.fit`` with per-epoch metrics (``run_experiment``'s training call);
 * ``Trainer.fit`` without them (``cli/serve.py``'s training call);
 * for MF, ``MatrixFactorization.fast_fit`` (the fused kernel), float32; for
-  LR, ``LogisticRegression.fast_fit`` in its compact and wide modes.
+  LR, ``LogisticRegression.fast_fit`` in its compact and wide modes. DIN
+  has no fused trainer: its two runs go through the fused DIN head kernels.
 
 For each it prints one JSON line: the wall time of the call (host clock, after
 a synchronise) with and without the profiler, the summed device time of every
@@ -104,7 +105,7 @@ def runs(name: str, ds: MovieLens100K, epochs: int, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", nargs="+", choices=["mf", "lr", "afm"], default=["mf"])
+    ap.add_argument("--model", nargs="+", choices=["mf", "lr", "afm", "din"], default=["mf"])
     ap.add_argument("--epochs", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
