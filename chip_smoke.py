@@ -15,7 +15,11 @@ no result line.
    the shapes the main paths give it: integer-valued inputs must agree exactly
    (ties included), normal inputs within a stated tolerance. Times of the
    kernel, its plain version and one PyTorch library call, beside the card's
-   bound;
+   bound. The lookup pair (gather_rows, onehot_grad) is also checked at the
+   other main paths' shapes (DIN's history batch and full-history target tile,
+   LR's bias tables); its rows carry ``host_us``, the host's time per launcher
+   call, and ``library_host_us``, the same for the library call; where a call
+   is host-bound, kernel and library are timed in turns;
 4. train   -- the MF training path (slice 2) through the entry points a user
    calls: ``run_experiment(PRESETS["mf"])`` for 20 epochs at full width on a
    synthetic ml-100k-format dataset, then ``MatrixFactorization.fast_fit`` on
@@ -62,6 +66,7 @@ from __future__ import annotations
 
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -155,6 +160,15 @@ DIN_FWD_RTOL, DIN_BWD_RTOL, DIN_DB3_ATOL, DIN_KINK = 1e-5, 1e-4, 1e-6, 1e-6
 DIN_EPOCHS = 3  # the CPU reference's plain path is slow at full width
 HISTORY_TILE = 16  # users per tile of catalog_scores_from_history
 DIN_ATTENTION, DIN_FC = (128, 64, 1), (256, 128, 1)  # models/din.py's defaults, the preset's
+# The lookup pair (gather_rows, onehot_grad): where the kernel takes under
+# LOOKUP_INTERLEAVE_MS a call is bound by the host, whose speed drifts within a
+# run, so kernel and library are timed in turns (kernel, library, library,
+# kernel, ...), LOOKUP_RUNS runs each of LOOKUP_BUDGET_MS, and each reports its
+# median. host_us and library_host_us: the host clock over HOST_CALLS calls
+# of the launcher and of the library call, no synchronise, per call.
+LOOKUP_INTERLEAVE_MS, LOOKUP_RUNS, LOOKUP_BUDGET_MS = 0.1, 5, 20.0
+HOST_CALLS = 1_000
+DIN_TARGET_TILE = 512  # serve_din's smallest target tile: 2 users x 256 catalog items
 CSRC = "deeplearningrecommendationsystem_tpu_torch/csrc"
 PALLAS = "deeplearningrecommendationsystem_tpu/ops/pallas"
 KERNELS = {
@@ -351,21 +365,57 @@ def check_topk(name: str, U: int, I: int, D: int, k: int, gen: torch.Generator) 
     return row
 
 
+def host_us(fn) -> float:
+    """Host microseconds per call of ``fn`` over HOST_CALLS calls without a
+    synchronise (where the card is slower than the host, the launch queue fills
+    and this reads the card's rate)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(HOST_CALLS):
+        fn()
+    elapsed = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return elapsed / HOST_CALLS / 1e3
+
+
+def lookup_times(kernel, plain, library, launcher) -> dict:
+    """kernel_ms, plain_ms, library_ms, host_us and library_host_us of a
+    lookup row (see LOOKUP_INTERLEAVE_MS)."""
+    times = {"kernel_ms": time_ms(kernel, LOOKUP_BUDGET_MS),
+             "plain_ms": time_ms(plain, LOOKUP_BUDGET_MS)}
+    if times["kernel_ms"] < LOOKUP_INTERLEAVE_MS:
+        fns = {"kernel_ms": kernel, "library_ms": library}
+        runs = {key: [] for key in fns}
+        for i in range(LOOKUP_RUNS):
+            for key in (("kernel_ms", "library_ms") if i % 2 == 0 else ("library_ms", "kernel_ms")):
+                runs[key].append(time_ms(fns[key], LOOKUP_BUDGET_MS))
+        times.update({key: statistics.median(v) for key, v in runs.items()},
+                     timing=f"median of {LOOKUP_RUNS} interleaved runs")
+    else:
+        times.update(library_ms=time_ms(library, LOOKUP_BUDGET_MS), timing="one run")
+    times.update(host_us=host_us(launcher), library_host_us=host_us(library))
+    return times
+
+
 def check_gather(table_name: str, table: torch.Tensor, ids: torch.Tensor) -> dict:
-    """gather_rows_kernel against its plain version: bit-equal on any input."""
+    """gather_rows_kernel against its plain version: bit-equal on any input.
+    The bound reads only the table rows the ids touch (wrapped, then clamped)."""
     got = gat.gather_rows_kernel(table, ids)
     if not torch.equal(got, gat.gather_rows_kernel_plain(table, ids)):
         raise AssertionError(f"gather_rows ({table_name}): kernel != plain version")
     (V, D), B = table.shape, ids.shape[0]
     es = table.element_size()
-    t_bound, bound_by = bound_of(0, B * D * es + B * ids.element_size() + V * D * es)
+    touched = torch.where(ids < 0, ids + V, ids).clamp(0, V - 1).unique().numel()
+    t_bound, bound_by = bound_of(0, B * D * es + B * ids.element_size() + touched * D * es)
     return {
         "shape": {"table": table_name, "vocab": V, "dim": D, "ids": B,
                   "dtype": str(table.dtype).split(".")[1]},
         "exact": True, "max_abs_err": 0.0,
-        "kernel_ms": time_ms(lambda: gat.gather_rows_kernel(table, ids)),
-        "plain_ms": time_ms(lambda: gat.gather_rows_kernel_plain(table, ids)),
-        "library_ms": time_ms(lambda: torch.index_select(table, 0, ids)),
+        **lookup_times(lambda: gat.gather_rows_kernel(table, ids),
+                       lambda: gat.gather_rows_kernel_plain(table, ids),
+                       lambda: torch.index_select(table, 0, ids),
+                       lambda: cuda_gather.gather_rows(table, ids)),
         "bound_ms": t_bound, "bound_by": bound_by,
     }
 
@@ -405,11 +455,12 @@ def check_grad(table_name: str, ids: torch.Tensor, V: int, D: int, dtype,
                   "dtype": str(dtype).split(".")[1]},
         "exact_on_integer_inputs": True,
         "max_abs_err": float((got - want).abs().max()),
-        "kernel_ms": time_ms(lambda: gat.onehot_grad(ids, g, V)),
-        "plain_ms": time_ms(lambda: gat.onehot_grad_plain(ids, g, V)),
         # index_add_ takes float32 sources only into a float32 table: bf16 pays a cast
-        "library_ms": time_ms(lambda: torch.zeros((V, D), device=DEVICE).index_add_(
-            0, ids64, g if g.dtype == torch.float32 else g.float())),
+        **lookup_times(lambda: gat.onehot_grad(ids, g, V),
+                       lambda: gat.onehot_grad_plain(ids, g, V),
+                       lambda: torch.zeros((V, D), device=DEVICE).index_add_(
+                           0, ids64, g if g.dtype == torch.float32 else g.float()),
+                       lambda: cuda_gather.onehot_grad(ids, g, V)),
         "bound_ms": t_bound, "bound_by": bound_by,
     }
 
@@ -1228,6 +1279,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="ml100k_synthetic_")
     try:
         ds = make_dataset(tmp)
+        t0 = time.perf_counter()
         rows = {name: [] for name in KERNELS}
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         for U, I, D, k in KERNEL_SHAPES:
@@ -1247,6 +1299,27 @@ def main() -> int:
                 emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
                 rows["onehot_grad"].append(check_grad(tname, ids, V, D, dtype, gen))
                 emit({"phase": "kernel_check", "kernel": "onehot_grad", **rows["onehot_grad"][-1]})
+        # the lookup pair at the other main paths' shapes, float32: serve_din's
+        # smallest target tile, LR's bias lookups, DIN's history batch
+        lr_cfg, din_cfg = PRESETS["lr"], PRESETS["din"]
+        x, y = split_batches(lr_cfg, ds, DEVICE)["train"]
+        lr_model = build_model(lr_cfg, ds).to(DEVICE)
+        lr_user, lr_item = lr_model.spec.ids(x)
+        (din_hist, _), din_y = split_batches(din_cfg, ds, DEVICE)["train"]
+        din_rows = int(din_y.shape[0])
+        lookups = [("din target tile", ds.num_items, EMBEDDING_DIM,
+                    torch.arange(DIN_TARGET_TILE, device=DEVICE) % 256),
+                   ("lr user bias", ds.num_users, 1, lr_user),
+                   ("lr item bias", ds.num_items, 1, lr_item),
+                   ("din history", ds.num_items, din_cfg.model_kwargs["embed_size"],
+                    din_hist.reshape(-1))]
+        for tname, V, D, ids in lookups:
+            table = torch.randn((V, D), generator=gen, device=DEVICE)
+            rows["gather_rows"].append(check_gather(tname, table, ids))
+            emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
+            rows["onehot_grad"].append(check_grad(tname, ids, V, D, torch.float32, gen))
+            emit({"phase": "kernel_check", "kernel": "onehot_grad", **rows["onehot_grad"][-1]})
+        del lookups, table, din_hist, din_y, lr_user, lr_item
         for dtype in ("float32", "bfloat16"):
             rows["mf_fullbatch_train"].append(
                 check_mf_epoch(batch, ds.num_users, ds.num_items, dtype, gen, TRAIN_EPOCHS))
@@ -1257,9 +1330,6 @@ def main() -> int:
 
         rows["topk_serve_matmul"].append(check_topk("topk_serve_matmul", *LR_SERVING_SHAPE, gen))
         emit({"phase": "kernel_check", "kernel": "topk_serve_matmul", **rows["topk_serve_matmul"][-1]})
-        lr_cfg = PRESETS["lr"]
-        x, y = split_batches(lr_cfg, ds, DEVICE)["train"]
-        lr_model = build_model(lr_cfg, ds).to(DEVICE)
         for mode, name in (("wide", "lr_fullbatch_train"), ("compact", "lr_fullbatch_train_compact")):
             rows[name].append(check_lr(lr_model, lr_model.params(), x, y, mode,
                                        lr_cfg.learning_rate, TRAIN_EPOCHS))
@@ -1277,9 +1347,7 @@ def main() -> int:
                                                         backward=True))
         emit({"phase": "kernel_check", "kernel": "afm_attention_pool_bwd",
               **rows["afm_attention_pool_bwd"][-1]})
-        din_cfg = PRESETS["din"]
         din_dims = (din_cfg.hist_len, din_cfg.model_kwargs["embed_size"], DIN_ATTENTION, DIN_FC)
-        din_rows = int(split_batches(din_cfg, ds, DEVICE)["train"][1].shape[0])
         for name, part, B, label in (
                 ("din_head_fused", "fwd", din_rows, "train batch"),
                 ("din_head_fused_bwd", "bwd", din_rows, "train batch"),
@@ -1288,6 +1356,7 @@ def main() -> int:
             rows[name].append(check_din(part, B, *din_dims, gen, label))
             emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
         torch.cuda.empty_cache()
+        emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0})
 
         phases = [run_train(ds), run_serve(ds, tmp), run_slice(ds), run_lr(ds), run_afm(ds),
                   run_serve_feature(ds, tmp, "lr", TRAIN_EPOCHS),

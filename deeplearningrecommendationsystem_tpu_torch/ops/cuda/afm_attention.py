@@ -89,7 +89,8 @@ def afm_attention_pool(fields, att_w, att_b, att_h):
     out = torch.empty((B, D), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         code = lib.afm_attention_fwd(fields.data_ptr(), att_w.data_ptr(), att_b.data_ptr(),
-                                     att_h.data_ptr(), out.data_ptr(), B, D, A, stream(device))
+                                     att_h.data_ptr(), out.data_ptr(), B, D, A,
+                                     stream(device.index))
     raise_on(lib.afm_attention_error_string, code, "afm_attention_pool")
     afm_attention_pool.launches += 1
     return out
@@ -118,7 +119,7 @@ def afm_attention_pool_bwd(fields, att_w, att_b, att_h, g):
         dw_part = torch.empty((blocks, D, A), dtype=torch.float32, device=device)
         db_part = torch.empty((blocks, A), dtype=torch.float32, device=device)
         dh_part = torch.empty((blocks, A), dtype=torch.float32, device=device)
-        s = stream(device)
+        s = stream(device.index)
         code = lib.afm_attention_bwd(fields.data_ptr(), att_w.data_ptr(), att_b.data_ptr(),
                                      att_h.data_ptr(), g.data_ptr(), de.data_ptr(),
                                      dw_part.data_ptr(), db_part.data_ptr(), dh_part.data_ptr(),

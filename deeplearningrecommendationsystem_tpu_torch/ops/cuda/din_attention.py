@@ -79,7 +79,7 @@ def din_attention_pool(hist_e, target_e, att):
     out = torch.empty((B, D), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         code = lib.din_attention_fwd(*(t.data_ptr() for t in args), out.data_ptr(), B, L, D, A1,
-                                     A2, stream(device))
+                                     A2, stream(device.index))
     raise_on(lib.din_attention_error_string, code, "din_attention_pool")
     din_attention_pool.launches += 1
     return out

@@ -106,7 +106,7 @@ def din_head_fused(hist_e, target_e, weights):
     out = torch.empty((dims[0],), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         code = lib.din_head_fwd(hist_e.data_ptr(), target_e.data_ptr(), _pointers(weights),
-                                out.data_ptr(), *dims, stream(device))
+                                out.data_ptr(), *dims, stream(device.index))
     raise_on(lib.din_head_error_string, code, "din_head_fused")
     din_head_fused.launches += 1
     return out
@@ -135,7 +135,7 @@ def din_head_fused_bwd(hist_e, target_e, weights, g):
             raise RuntimeError("din_head_fused_bwd: no launch configuration for this card")
         part = torch.empty((blocks, total), dtype=torch.float32, device=device)
         rows = torch.empty((B * (2 * D + 2 * F1 + F2),), dtype=torch.float32, device=device)
-        s = stream(device)
+        s = stream(device.index)
         code = lib.din_head_bwd(hist_e.data_ptr(), target_e.data_ptr(), _pointers(weights),
                                 g.data_ptr(), dhist.data_ptr(), dtgt.data_ptr(), part.data_ptr(),
                                 rows.data_ptr(), *dims, blocks, s)

@@ -29,9 +29,14 @@ def require_cuda(name: str, device: torch.device) -> None:
         raise ValueError(f"{name} launches on CUDA tensors, got {device}")
 
 
-def stream(device: torch.device) -> int:
-    """The current stream of ``device`` as an integer handle for ctypes."""
-    return torch.cuda.current_stream(device).cuda_stream
+def stream(index: int) -> int:
+    """The current stream of CUDA device ``index`` as an integer handle for
+    ctypes: the one ``torch.cuda.stream(...)`` selects, else the default.
+
+    ``torch._C._cuda_getCurrentRawStream`` is the lookup PyTorch's own
+    generated kernel launchers make; unlike ``torch.cuda.current_stream`` it
+    builds no ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def raise_on(error_string, code: int, name: str) -> None:

@@ -107,7 +107,7 @@ def lr_fullbatch_train(x_aug, y, w0, epochs: int, learning_rate: float,
     losses = torch.zeros(epochs, dtype=torch.float32, device=device)
     hyper = _hyper(learning_rate, b1, b2, eps)
     with torch.cuda.device(device):
-        s = stream(device)
+        s = stream(device.index)
         for e in range(epochs):
             code = lib.lr_wide_epoch(x_aug.data_ptr(), y.data_ptr(), w.data_ptr(),
                                      dw_part.data_ptr(), loss_part.data_ptr(), B, Fw, R, blocks, s)
@@ -155,7 +155,7 @@ def lr_fullbatch_train_compact(uid, iid, dense_aug, y, w0, epochs: int, learning
     losses = torch.zeros(epochs, dtype=torch.float32, device=device)
     hyper = _hyper(learning_rate, b1, b2, eps)
     with torch.cuda.device(device):
-        s = stream(device)
+        s = stream(device.index)
         for e in range(epochs):
             code = lib.lr_compact_epoch(uid.data_ptr(), iid.data_ptr(), dense_aug.data_ptr(),
                                         y.data_ptr(), w.data_ptr(), dg.data_ptr(),

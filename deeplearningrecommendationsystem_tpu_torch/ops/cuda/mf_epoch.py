@@ -80,7 +80,7 @@ def mf_fullbatch_train(uid, iid, y, pu0, pi0, epochs: int, learning_rate: float,
              math.log(b1), math.log(b2))
     bf16 = int(compute_dtype == "bfloat16")
     with torch.cuda.device(device):
-        s = stream(device)
+        s = stream(device.index)
         for e in range(epochs):
             code = lib.mf_epoch_forward_backward(
                 uid.data_ptr(), iid.data_ptr(), y.data_ptr(), pu.data_ptr(), pi.data_ptr(),

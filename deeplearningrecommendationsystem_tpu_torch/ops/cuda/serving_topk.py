@@ -82,7 +82,7 @@ def topk_serve_matmul(P: torch.Tensor, Q: torch.Tensor, seen: torch.Tensor, k: i
     with torch.cuda.device(device):
         code = lib.serving_topk_matmul_f32(
             P.data_ptr(), Q.data_ptr(), seen.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-            U, I, D, k, stream(device),
+            U, I, D, k, stream(device.index),
         )
     raise_on(lib.serving_topk_error_string, code, "topk_serve_matmul")
     topk_serve_matmul.launches += 1
@@ -105,7 +105,7 @@ def topk_scores(scores: torch.Tensor, seen: torch.Tensor, k: int):
     with torch.cuda.device(device):
         code = lib.serving_topk_scores_f32(
             scores.data_ptr(), seen.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-            U, I, k, stream(device),
+            U, I, k, stream(device.index),
         )
     raise_on(lib.serving_topk_error_string, code, "topk_scores")
     topk_scores.launches += 1

@@ -200,6 +200,109 @@ def test_gather_launchers_check_their_inputs(cuda):
         cuda_gather.onehot_grad(ids, torch.randn((5, 8), device=cuda), 10)
 
 
+def _within_summation_bound(got, ids, cot, V):
+    """Each sum within the float32 bound of recursive summation in any order,
+    n u sum|g| (n the row's count, u = 2^-24), of the float64 sum; ids outside
+    [0, V) after one wrap are dropped."""
+    idx = ids.long()
+    idx = torch.where(idx < 0, idx + V, idx)
+    keep = (idx >= 0) & (idx < V)
+    idx, cot = idx[keep], cot[keep].double()
+    ref = torch.zeros((V, cot.shape[1]), dtype=torch.float64, device=cot.device)
+    ref.index_add_(0, idx, cot)
+    mass = torch.zeros_like(ref).index_add_(0, idx, cot.abs())
+    bound = torch.bincount(idx, minlength=V).double()[:, None] * 2.0 ** -24 * mass
+    return bool(((got.double() - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 31, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_lookup_pair_at_narrow_and_odd_widths(cuda, D, dtype, id_dtype):
+    """Rows narrower than a warp (lanes on rows, shuffle sums) and just wider
+    (lanes on columns, a second pass for column 32): the gather bit-equal, the
+    backward exact on integer cotangents and within the summation bound on
+    normal ones, ids out of range mixed in."""
+    V, N = 97, 3000
+    g = torch.Generator(device=cuda).manual_seed(D * 10 + dtype.itemsize)
+    table = torch.randn((V, D), generator=g, device=cuda).to(dtype)
+    ids = torch.randint(-V - 2, V + 2, (N,), generator=g, device=cuda).to(id_dtype)
+    assert torch.equal(gat.gather_rows_kernel(table, ids), gat.gather_rows_kernel_plain(table, ids))
+    cot = torch.randint(-8, 9, (N, D), generator=g, device=cuda).to(dtype)
+    assert torch.equal(gat.onehot_grad(ids, cot, V), gat.onehot_grad_plain(ids, cot, V))
+    cot = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    assert _within_summation_bound(gat.onehot_grad(ids, cot, V), ids, cot.float(), V)
+
+
+def _id_pattern(name, N, V, cuda):
+    """N ids into [0, V): all equal; two alternating; or a DIN history batch
+    (rows of one user's 10 items, 10 rows a user) with out-of-range ids mixed in."""
+    if name == "equal":
+        return torch.full((N,), 5, device=cuda)
+    if name == "alternating":
+        return torch.tensor([3, V - 1], device=cuda).repeat(N // 2)
+    g = torch.Generator(device=cuda).manual_seed(N)
+    items = torch.randint(0, V, (N // 100, 1, 10), generator=g, device=cuda)
+    ids = items.expand(-1, 10, -1).reshape(-1).clone()
+    ids[::37] = V + 4
+    ids[5::41] = -V - 1
+    ids[7::43] = -1
+    return ids
+
+
+@pytest.mark.parametrize("pattern", ["equal", "alternating", "history"])
+@pytest.mark.parametrize("D", [1, 64, 1030])  # 1030: split groups go to the table directly
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_onehot_grad_repeated_id_patterns(cuda, pattern, D, id_dtype):
+    """Ids that repeat inside a tile, within a warp and across warps: the
+    on-chip group sums and the split-group buffer must give the plain sums."""
+    V, N = 300, 20_000
+    ids = _id_pattern(pattern, N, V, cuda).to(id_dtype)
+    g = torch.Generator(device=cuda).manual_seed(D)
+    cot = torch.randint(-8, 9, (ids.shape[0], D), generator=g, device=cuda).float()
+    assert torch.equal(gat.onehot_grad(ids, cot, V), gat.onehot_grad_plain(ids, cot, V))
+    cot = torch.randn((ids.shape[0], D), generator=g, device=cuda)
+    assert _within_summation_bound(gat.onehot_grad(ids, cot, V), ids, cot, V)
+    table = torch.randn((V, D), generator=g, device=cuda)
+    assert torch.equal(gat.gather_rows_kernel(table, ids), gat.gather_rows_kernel_plain(table, ids))
+
+
+def test_lookup_pair_runs_on_the_callers_stream(cuda):
+    """Under ``torch.cuda.stream(s)`` both kernels (and the backward's zero
+    fill) go on s: their inputs are written on s after a sleep, so a launch on
+    any other stream would read them before they are written."""
+    V, D, N = 50, 16, 4000
+    g = torch.Generator(device=cuda).manual_seed(0)
+    src = torch.randn((V, D), generator=g, device=cuda)
+    cot_src = torch.randint(-8, 9, (N, D), generator=g, device=cuda).float()
+    ids = torch.randint(0, V, (N,), generator=g, device=cuda)
+    table, cot = torch.zeros_like(src), torch.zeros_like(cot_src)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        table.copy_(src)
+        cot.copy_(cot_src)
+        out = gat.gather_rows_kernel(table, ids)
+        grad = gat.onehot_grad(ids, cot, V)
+    side.synchronize()
+    assert torch.equal(out, src[ids])
+    assert torch.equal(grad, gat.onehot_grad_plain(ids, cot_src, V))
+
+
+def test_onehot_grad_of_an_empty_batch_is_zeros(cuda):
+    """No rows: no kernel launch, and the output is the memset's zeros (in a
+    block the allocator has just freed with other values in it)."""
+    stale = torch.full((30, 8), 7.0, device=cuda)
+    del stale
+    before = cuda_gather.onehot_grad.launches
+    got = gat.onehot_grad(torch.zeros(0, dtype=torch.int64, device=cuda),
+                          torch.zeros((0, 8), device=cuda), 30)
+    torch.cuda.synchronize()
+    assert cuda_gather.onehot_grad.launches == before
+    assert got.shape == (30, 8) and not bool(got.any())
+
+
 # ---- the fused MF trainer (csrc/mf_epoch.cu)
 
 def _mf_inputs(cuda, U, I, D, B, seed):

@@ -47,16 +47,35 @@ def _f32(x) -> np.ndarray:
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-# (V, D, B): ragged against the Pallas block sizes, a bias table, the MF user width
-GATHER_CASES = [(500, 128, 300), (943, 64, 530), (37, 1, 77), (1682, 16, 8)]
+def _ids(rng, n, V: int) -> np.ndarray:
+    """int32 ids into [0, V): ``n`` random ones, or for ``n`` = (rows, L) a DIN
+    history batch: rows of one user's L items, each user's row repeated L times
+    (rows are user-major, so an id recurs every L ids, never twice in a row)."""
+    if isinstance(n, int):
+        return rng.integers(0, V, n).astype(np.int32)
+    rows, L = n
+    users = [rng.choice(V, L, replace=False) for _ in range(rows // L)]
+    return np.concatenate([np.tile(items, L) for items in users]).astype(np.int32)
+
+
+def _count(n) -> int:
+    return n if isinstance(n, int) else n[0] * n[1]
+
+
+# (V, D, B): ragged against the Pallas block sizes, a bias table, the MF user
+# width, LR's user-bias table at a ragged batch, DIN's history pattern (40
+# rows of 10 ids), DIN's smallest full-history target tile (512 ids)
+GATHER_CASES = [(500, 128, 300), (943, 64, 530), (37, 1, 77), (1682, 16, 8), (943, 1, 2_000),
+                (300, 16, (40, 10)), (1682, 64, 512)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("V,D,B", GATHER_CASES)
 def test_gather_plain_equals_pallas(V, D, B, dtype):
-    rng = np.random.default_rng(V + B)
+    rng = np.random.default_rng(V + _count(B))
     table = _values(rng, (V, D), dtype)
-    ids = rng.integers(0, V, B).astype(np.int32)
+    ids = _ids(rng, B, V)
+    B = _count(B)
     jt, tt = _both(table, dtype)
     got = port.gather_rows_kernel_plain(tt, torch.from_numpy(ids))
     assert got.dtype == tt.dtype and got.shape == (B, D)
@@ -68,14 +87,19 @@ def test_gather_plain_equals_pallas(V, D, B, dtype):
                                   _f32(got))
 
 
-# the (N, V, D) cases of tests/test_kernels.py::test_onehot_grad_kernel_matches_scatter_add
-GRAD_CASES = [(530, 1682, 16, "float32"), (256, 943, 1, "float32"), (200, 100, 32, "bfloat16")]
+# the (N, V, D) cases of tests/test_kernels.py::test_onehot_grad_kernel_matches_scatter_add,
+# then a bias table at LR's width, DIN's history pattern (40 rows of 10 ids,
+# in both dtypes) and a 512-id batch into DIN's item table
+GRAD_CASES = [(530, 1682, 16, "float32"), (256, 943, 1, "float32"), (200, 100, 32, "bfloat16"),
+              (2_000, 943, 1, "float32"), ((40, 10), 300, 16, "float32"),
+              ((40, 10), 300, 16, "bfloat16"), (512, 1682, 64, "float32")]
 
 
 @pytest.mark.parametrize("N,V,D,dtype", GRAD_CASES)
 def test_onehot_grad_plain_matches_pallas(N, V, D, dtype):
     rng = np.random.default_rng(7)
-    ids = rng.integers(0, V, N).astype(np.int32)
+    ids = _ids(rng, N, V)
+    N = _count(N)
     g = _values(rng, (N, D), dtype)
     jg, tg = _both(g, dtype)
     want = jax_onehot_grad(jnp.asarray(ids), jg, V, block_rows=128, interpret=True)
