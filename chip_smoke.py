@@ -17,9 +17,11 @@ no result line.
    kernel, its plain version and one PyTorch library call, beside the card's
    bound. The lookup pair (gather_rows, onehot_grad) is also checked at the
    other main paths' shapes (DIN's history batch and full-history target tile,
-   LR's bias tables); its rows carry ``host_us``, the host's time per launcher
-   call, and ``library_host_us``, the same for the library call; where a call
-   is host-bound, kernel and library are timed in turns;
+   LR's bias tables); its rows and the top-k rows of at most 32 users (a
+   served batch, a single-user request) carry ``host_us``, the host's time per
+   launcher call, and ``library_host_us``, the same for the library call; where
+   a call is host-bound, kernel and library are timed in turns. The DIN head
+   is checked in float32 and in bfloat16;
 4. train   -- the MF training path (slice 2) through the entry points a user
    calls: ``run_experiment(PRESETS["mf"])`` for 20 epochs at full width on a
    synthetic ml-100k-format dataset, then ``MatrixFactorization.fast_fit`` on
@@ -50,13 +52,16 @@ no result line.
    kernels, the catalog through the DIN attention-pool kernel, one launch a
    16-user tile. Held against a CPU ``Trainer.fit`` over the same batches and
    the CPU's window scores of one tile under the same trained weights;
-11. serve_din -- ``cli/serve.py::build_server --model din``: the preset's
+11. din_bf16 -- DIN as ``bench.py`` trains it, ``compute_dtype="bfloat16"`` and
+   ``indirect_hist=True``, for DIN_BF16_EPOCHS epochs through ``run_experiment``:
+   the DIN head kernels' bf16 path, held against a CPU ``Trainer.fit`` in bf16;
+12. serve_din -- ``cli/serve.py::build_server --model din``: the preset's
    full-history serving (trained through the DIN head kernels, scored through
    the masked plain-torch route), answers held against the stable top-k of the
    served scores, and the full-history scores of a few users (the longest
    history among them) against the CPU's.
 
-Phases 4-11 are the main paths: each sets the launch counts to 0 just before
+Phases 4-12 are the main paths: each sets the launch counts to 0 just before
 it and reads them just after. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the line before that the ``kernels`` line.
@@ -116,6 +121,8 @@ NEG_INF = topk.NEG_INF
 # first and its bytes (each input read once, each output written once) over the
 # second.
 PEAK_F32_FLOP_S = 67e12
+PEAK_TF32_FLOP_S = 495e12  # the tensor cores' dense TF32 rate
+PEAK_BF16_FLOP_S = 989e12  # the tensor cores' dense bf16 rate (float32 accumulation)
 PEAK_BYTES_S = 3.35e12
 # Top-k values within RTOL of the row's largest |score| count as equal (float32
 # sums in another order than cuBLAS); integer-valued inputs must agree exactly.
@@ -133,9 +140,11 @@ TRAIN_EPOCHS = 20
 EMBEDDING_DIM = 64
 SEEN_DENSITY = 100_000 / (943 * 1682)  # ml-100k: every rating is a seen item
 # (users, items, dim, k): all users of the MF preset, one batched request of
-# the slice below, and the JAX package's large-catalog serving shape
+# the slice below, the single-user request of every serve phase, and the JAX
+# package's large-catalog serving shape
 KERNEL_SHAPES = [(943, 1682, EMBEDDING_DIM, 50), (32, 1682, EMBEDDING_DIM, 50),
-                 (2048, 131072, EMBEDDING_DIM, 50)]
+                 (1, 1682, EMBEDDING_DIM, 10), (2048, 131072, EMBEDDING_DIM, 50)]
+HOST_TIMED_USERS = 32  # top-k rows of at most this many users also carry host_us
 LR_SERVING_SHAPE = (943, 1682, 2, 50)  # LR's rank-2 serving factors, all users
 # the fused LR trainers against their plain versions over LR_CHECK_EPOCHS
 # epochs: (loss rtol, weight atol), float32 sums in another order (block
@@ -157,15 +166,39 @@ CATALOG_TILE = 64  # users per tile of catalog_scores_from_features
 # summation, and at the train batch a few rows sit there. d b3 is 0 in exact
 # arithmetic and held to DIN_DB3_ATOL of sum |g|.
 DIN_FWD_RTOL, DIN_BWD_RTOL, DIN_DB3_ATOL, DIN_KINK = 1e-5, 1e-4, 1e-6, 1e-6
+# The head's bf16 path against its bf16 plain version. Both round the same
+# operands to bf16 and sum in float32, but a sum in another order can put a
+# value that is then rounded on the other bf16 neighbour. Forward: at most
+# DIN_BF16_LOGITS_OFF of the bf16 logits may differ at all, each within one bf16
+# ulp of its own plain value past DIN_BF16_FWD_ATOL of the largest |logit|
+# (measured at the train batch on an H100, three seeds: 7-14 logits differ, all
+# by one ulp). Backward: a flip can put a relu input on the other side of 0 and
+# flip a row's d hist and d target: at most DIN_BF16_ROWS_OFF rows (observed
+# 0-2, fewer than a 16-row tile) may be off by more than DIN_BF16_BWD_RTOL of
+# the tensor's largest |value|, each with a relu input within DIN_BF16_KINK of
+# its layer's largest |value| from 0 on the bf16 path (observed 1.3e-6 to
+# 6.2e-5). Without those rows every gradient lies within DIN_BF16_BWD_RTOL of
+# its tensor's largest |value| (observed at most 2.4e-4). The same values through
+# the plain head in float32 throughout (no operand rounded) must fail both
+# checks (observed: 21,400 logits differ; each rounded gradient 2.6e-3 to 0.17
+# off), so they tell rounding where the head rounds from not rounding.
+DIN_BF16_LOGITS_OFF, DIN_BF16_FWD_ATOL = 64, 2.0 ** -10
+DIN_BF16_ROWS_OFF, DIN_BF16_BWD_RTOL, DIN_BF16_KINK = 4, 1e-3, 2e-4
+# the gradients that the rounding moves (d b3 is 0 in exact arithmetic, d c3 the
+# sum of g, d c2 a masked product of g alone)
+DIN_BF16_ROUNDED = ("hist", "target", "wh", "wt", "b1", "w2", "b2", "w3", "u1p", "u1t", "c1",
+                    "u2", "u3")
 DIN_EPOCHS = 3  # the CPU reference's plain path is slow at full width
+DIN_BF16_EPOCHS = 2  # DIN under bf16 compute: fewer epochs, for the run's time
 HISTORY_TILE = 16  # users per tile of catalog_scores_from_history
 DIN_ATTENTION, DIN_FC = (128, 64, 1), (256, 128, 1)  # models/din.py's defaults, the preset's
-# The lookup pair (gather_rows, onehot_grad): where the kernel takes under
-# LOOKUP_INTERLEAVE_MS a call is bound by the host, whose speed drifts within a
-# run, so kernel and library are timed in turns (kernel, library, library,
-# kernel, ...), LOOKUP_RUNS runs each of LOOKUP_BUDGET_MS, and each reports its
-# median. host_us and library_host_us: the host clock over HOST_CALLS calls
-# of the launcher and of the library call, no synchronise, per call.
+# The lookup pair (gather_rows, onehot_grad) and the serving top-k pair: where
+# the kernel takes under LOOKUP_INTERLEAVE_MS a call is bound by the host, whose
+# speed drifts within a run, so kernel and library are timed in turns (kernel,
+# library, library, kernel, ...), LOOKUP_RUNS runs each of LOOKUP_BUDGET_MS, and
+# each reports its median. host_us and library_host_us: the host clock over
+# HOST_CALLS calls of the launcher and of the library call, no synchronise, per
+# call.
 LOOKUP_INTERLEAVE_MS, LOOKUP_RUNS, LOOKUP_BUDGET_MS = 0.1, 5, 20.0
 HOST_CALLS = 1_000
 DIN_TARGET_TILE = 512  # serve_din's smallest target tile: 2 users x 256 catalog items
@@ -257,16 +290,22 @@ def time_ms(fn, budget_ms: float = 150.0) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_of(flops: float, nbytes: float):
-    """(bound_ms, bound_by) for this work on the card's peaks."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOP_S * 1e3, nbytes / PEAK_BYTES_S * 1e3
+def bound_of(flops: float, nbytes: float, tf32_flops: float = 0.0, bf16_flops: float = 0.0):
+    """(bound_ms, bound_by) for this work on the card's peaks: float32 operations
+    on the CUDA cores, TF32 and bf16 ones on the tensor cores (which run beside
+    the CUDA cores: the larger time counts), against the bytes."""
+    t_ops = max(flops / PEAK_F32_FLOP_S, tf32_flops / PEAK_TF32_FLOP_S,
+                bf16_flops / PEAK_BF16_FLOP_S) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def topk_bound(name: str, U: int, I: int, D: int, k: int):
     out_bytes = U * k * (4 + 4)
-    if name == "topk_serve_matmul":  # float32 FMA work; P, Q, seen (1 byte), outputs
-        return bound_of(2 * U * I * D, U * D * 4 + I * D * 4 + U * I + out_bytes)
+    if name == "topk_serve_matmul":
+        # the 3xTF32 products (3 x 2 U I D on the tensor cores) and one float32
+        # compare per score; P, Q, seen (1 byte), outputs
+        return bound_of(U * I, U * D * 4 + I * D * 4 + U * I + out_bytes, 3 * 2 * U * I * D)
     return bound_of(U * I, U * I * 4 + U * I + out_bytes)  # one compare per score
 
 
@@ -349,14 +388,14 @@ def check_topk(name: str, U: int, I: int, D: int, k: int, gen: torch.Generator) 
     torch.cuda.synchronize()
     err = check_close(name, got, plain(*args, k=min(k + 1, I)), masked)
     t_bound, bound_by = topk_bound(name, U, I, D, k)
+    launcher = getattr(cuda_topk, name)
     row = {
         "shape": {"users": U, "items": I, "dim": D, "k": k} if name == "topk_serve_matmul"
         else {"users": U, "items": I, "k": k},
         "exact_on_integer_inputs": True,
         "max_abs_err": err,
-        "kernel_ms": time_ms(lambda: kernel(*args, k=k)),
-        "plain_ms": time_ms(lambda: plain(*args, k=k)),
-        "library_ms": time_ms(library),
+        **lookup_times(lambda: kernel(*args, k=k), lambda: plain(*args, k=k), library,
+                       (lambda: launcher(*args, k)) if U <= HOST_TIMED_USERS else None),
         "bound_ms": t_bound,
         "bound_by": bound_by,
     }
@@ -379,12 +418,15 @@ def host_us(fn) -> float:
     return elapsed / HOST_CALLS / 1e3
 
 
-def lookup_times(kernel, plain, library, launcher) -> dict:
-    """kernel_ms, plain_ms, library_ms, host_us and library_host_us of a
-    lookup row (see LOOKUP_INTERLEAVE_MS)."""
-    times = {"kernel_ms": time_ms(kernel, LOOKUP_BUDGET_MS),
-             "plain_ms": time_ms(plain, LOOKUP_BUDGET_MS)}
-    if times["kernel_ms"] < LOOKUP_INTERLEAVE_MS:
+def lookup_times(kernel, plain, library, launcher=None) -> dict:
+    """kernel_ms, plain_ms, library_ms and, given the launcher, host_us and
+    library_host_us of a lookup or top-k row (see LOOKUP_INTERLEAVE_MS)."""
+    times = {"kernel_ms": time_ms(kernel, LOOKUP_BUDGET_MS)}
+    fast = times["kernel_ms"] < LOOKUP_INTERLEAVE_MS
+    if not fast:  # a slow call: timed again at time_ms's usual budget
+        times["kernel_ms"] = time_ms(kernel)
+    times["plain_ms"] = time_ms(plain, LOOKUP_BUDGET_MS) if fast else time_ms(plain)
+    if fast:
         fns = {"kernel_ms": kernel, "library_ms": library}
         runs = {key: [] for key in fns}
         for i in range(LOOKUP_RUNS):
@@ -393,8 +435,9 @@ def lookup_times(kernel, plain, library, launcher) -> dict:
         times.update({key: statistics.median(v) for key, v in runs.items()},
                      timing=f"median of {LOOKUP_RUNS} interleaved runs")
     else:
-        times.update(library_ms=time_ms(library, LOOKUP_BUDGET_MS), timing="one run")
-    times.update(host_us=host_us(launcher), library_host_us=host_us(library))
+        times.update(library_ms=time_ms(library), timing="one run")
+    if launcher is not None:
+        times.update(host_us=host_us(launcher), library_host_us=host_us(library))
     return times
 
 
@@ -531,12 +574,15 @@ def library_epoch(params, loss_fn, learning_rate: float):
 
 def lr_bound(mode: str, args, epochs: int):
     """(bound_ms, bound_by) of ``epochs`` fused LR epochs. Bytes: every input
-    read once and w and the losses written once, for the whole call. Operations
-    per epoch: the row's score and its gradient (2 per column each, the dense
-    product counted whole in the wide mode), 20 for the loss and g, 15 per
-    weight for Adam."""
+    read once and w and the losses written once, for the whole call, except
+    that the wide mode reads its design matrix once an epoch: at 737 MB it is
+    far beyond the card's 50 MB L2, and each epoch's scores need the weights
+    of the epoch before. Operations per epoch: the row's score and its
+    gradient (2 per column each, the dense product counted whole in the wide
+    mode), 20 for the loss and g, 15 per weight for Adam."""
     nbytes = sum(t.numel() * t.element_size() for t in args) + args[-1].numel() * 4 + epochs * 4
     if mode == "wide":
+        nbytes += (epochs - 1) * args[0].numel() * args[0].element_size()
         (B, F), cols = args[0].shape, args[0].shape[1]
     else:
         B, cols = args[2].shape[0], args[2].shape[1] + 2
@@ -655,29 +701,35 @@ def check_afm(B: int, D: int, A: int, gen: torch.Generator, label: str, backward
     return row
 
 
-def din_work(B: int, L: int, D: int, A: tuple, F: tuple, part: str):
-    """(operations, bytes) of a DIN kernel on B rows of L positions. Forward,
-    per row: t @ wt (2 D A1); per position h @ wh (2 D A1), the t term, bias
-    and relu (3 A1), the second layer (2 A1 A2 + 2 A2) and the score (2 A2);
-    the softmax (4 L) and the pool (2 L D); for the head, the fc
-    (2 (2D) F1 + 2 F1 + 2 F1 F2 + 2 F2 + 2 F2 + 1). The pool kernel has no fc
-    and no last bias. Backward: the forward again, twice the forward's products
-    (d input and d weight), and per position 6 A1 + 5 A2 + 6 D, per row
-    6 F1 + 4 F2 + 6 D for the masks, sums and the softmax's backward."""
+def din_work(B: int, L: int, D: int, A: tuple, F: tuple, part: str, es: int = 4):
+    """(products, other operations, bytes) of a DIN kernel on B rows of L
+    positions, its inputs ``es`` bytes an element. Products (the operations
+    whose operands the head's bf16 path rounds, ``_mdot``/``_cdot``), per row:
+    t @ wt (2 D A1); per position h @ wh (2 D A1), the second layer
+    (2 A1 A2 + 2 A2) and the score (2 A2); for the head, the fc (2 (2D) F1 +
+    2 F1 F2 + 2 F2); the backward takes them three times (the forward again,
+    d input and d weight). Other operations: per position the t term, bias and
+    relu (3 A1 + 2 A2), the softmax (4 L) and the float32 pool (2 L D); the
+    head's fc biases and relus (2 F1 + 4 F2 + 1) and b3 (L); the backward adds
+    the pool's backward (4 L D), per position 6 A1 + 5 A2 + 6 D and per row
+    6 F1 + 4 F2 + 6 D for the masks, sums and the softmax's backward. The pool
+    kernel has no fc and no last bias. Bytes: each input once (the logits in
+    the inputs' dtype), the backward's gradients in float32."""
     A1, A2 = A[0], A[1]
     F1, F2 = F[0], F[1]
     att_mm = 2 * D * A1 + L * (2 * D * A1 + 2 * A1 * A2 + 2 * A2)
-    att_ops = att_mm + L * (3 * A1 + 2 * A2) + 4 * L + 2 * L * D
+    att_ops = L * (3 * A1 + 2 * A2) + 4 * L + 2 * L * D
     att_w = 2 * D * A1 + A1 + A1 * A2 + A2 + A2
     if part == "pool":
-        return B * att_ops, 4 * (B * L * D + B * D + att_w + B * D)
+        return B * att_mm, B * att_ops, es * (B * L * D + B * D + att_w) + 4 * B * D
     fc_mm = 2 * 2 * D * F1 + 2 * F1 * F2 + 2 * F2
-    fwd = att_ops + fc_mm + 2 * F1 + 4 * F2 + 1 + L  # + b3 on each score
+    fwd = att_ops + 2 * F1 + 4 * F2 + 1 + L
     weights = att_w + 1 + 2 * D * F1 + F1 + F1 * F2 + F2 + F2 + 1
+    inputs = B * L * D + B * D + weights
     if part == "fwd":
-        return B * fwd, 4 * (B * L * D + B * D + weights + B)
-    bwd = fwd + 2 * (att_mm + 2 * L * D + fc_mm) + L * (6 * A1 + 5 * A2 + 6 * D) + 6 * F1 + 4 * F2 + 6 * D
-    return B * bwd, 4 * (2 * (B * L * D + B * D) + B + 2 * weights)
+        return B * (att_mm + fc_mm), B * fwd, es * (inputs + B)
+    bwd = fwd + 4 * L * D + L * (6 * A1 + 5 * A2 + 6 * D) + 6 * F1 + 4 * F2 + 6 * D
+    return 3 * B * (att_mm + fc_mm), B * bwd, es * (inputs + B) + 4 * inputs
 
 
 def din_library_fwd(hist, tgt, att, fc):
@@ -705,68 +757,164 @@ def din_inputs(B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.Generator)
     return hist, tgt, att, fc, g
 
 
-def away_from_kinks(hist, tgt, weights) -> torch.Tensor:
-    """[B] bool: rows none of whose relu inputs (z1, z2, f1 and f2 before the
-    relu, in float64) lies within DIN_KINK of its layer's largest |value|."""
+def kink_distance(hist, tgt, weights) -> torch.Tensor:
+    """[B]: each row's least |relu input| (z1, z2, f1 and f2 before the relu)
+    over its layer's largest |value|, in float64, each product's operand
+    rounded to the weights' dtype where the head rounds it (``_mdot``)."""
+    dt = weights[0].dtype
     wh, wt, b1, w2, b2, w3, b3, u1p, u1t, c1, u2, c2, u3, c3 = (w.double() for w in weights)
     h, t = hist.double(), tgt.double()
+
+    def rnd(x):
+        return x.to(dt).double()
+
     z1 = h @ wh + (t @ wt + b1)[:, None, :]
-    z2 = torch.relu(z1) @ w2 + b2
-    w = torch.softmax((torch.relu(z2) @ w3 + b3)[..., 0], dim=-1)
-    y1 = torch.einsum("bl,bld->bd", w, h) @ u1p + t @ u1t + c1
-    y2 = torch.relu(y1) @ u2 + c2
-    ok = torch.ones(h.shape[0], dtype=torch.bool, device=h.device)
+    z2 = rnd(torch.relu(z1)) @ w2 + b2
+    w = torch.softmax((rnd(torch.relu(z2)) @ w3 + b3)[..., 0], dim=-1)
+    y1 = rnd(torch.einsum("bl,bld->bd", w, h)) @ u1p + t @ u1t + c1
+    y2 = rnd(torch.relu(y1)) @ u2 + c2
+    dist = torch.full((h.shape[0],), float("inf"), dtype=torch.float64, device=h.device)
     for z in (z1, z2, y1, y2):
         z = z.abs().reshape(h.shape[0], -1)
-        ok &= (z > DIN_KINK * z.max()).all(dim=1)
-    return ok
+        dist = torch.minimum(dist, z.amin(dim=1) / z.max())
+    return dist
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| past DIN_BF16_FWD_ATOL of the largest |want|, in
+    bf16 ulps of each element of ``want``."""
+    want = want.float()
+    _, e = torch.frexp(want.abs())  # |want| = m 2^e, m in [0.5, 1): ulp 2^(e - 8)
+    slack = DIN_BF16_FWD_ATOL * float(want.abs().max())
+    return float((((got.float() - want).abs() - slack).clamp_min(0)
+                  / torch.ldexp(torch.ones_like(want), e - 8)).max())
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def check_din_bf16_fwd(hist, tgt, weights) -> dict:
+    """The bf16 head forward against its plain version: at most
+    DIN_BF16_LOGITS_OFF logits differ, each by at most one ulp past
+    DIN_BF16_FWD_ATOL; the unrounded float32 head differs in ten times as many."""
+    want = dh.din_head_fwd_plain(hist, tgt, weights)
+    got = dh.din_head_fwd(hist, tgt, weights)
+    unrounded = dh.din_head_fwd_plain(hist.float(), tgt.float(),
+                                      tuple(w.float() for w in weights)).to(want.dtype)
+    off, ulps = int((got != want).sum()), bf16_ulps(got, want)
+    unrounded_off = int((unrounded != want).sum())
+    if off > DIN_BF16_LOGITS_OFF or not ulps <= 1:
+        raise AssertionError(f"din_head_fused bf16: {off} logits off, up to {ulps} bf16 ulps")
+    if not unrounded_off > 10 * DIN_BF16_LOGITS_OFF:
+        raise AssertionError(f"din_head_fused bf16: the unrounded head passes too "
+                             f"({unrounded_off} logits off)")
+    return {"max_abs_err": float((got.float() - want.float()).abs().max()), "logits_off": off,
+            "ulps": ulps, "unrounded_logits_off": unrounded_off}
+
+
+def check_din_bf16_bwd(sub, dist) -> dict:
+    """The bf16 head backward against its plain version on the rows ``sub``
+    (their kink distances ``dist``): at most DIN_BF16_ROWS_OFF rows off in d hist
+    or d target, each at a bf16 kink; without them, every gradient within
+    DIN_BF16_BWD_RTOL of its tensor's largest |value|, where the unrounded
+    float32 head is not; d b3 as in float32."""
+    def rows_beyond(got, want):
+        return ((got - want).abs().reshape(got.shape[0], -1).amax(dim=1)
+                > DIN_BF16_BWD_RTOL * float(want.abs().max()))
+
+    got, want = dh.din_head_bwd(*sub), dh.din_head_bwd_plain(*sub)
+    off = rows_beyond(got[0], want[0]) | rows_beyond(got[1], want[1])
+    rows_off, off_dist = int(off.sum()), dist[off]
+    if rows_off > DIN_BF16_ROWS_OFF or not bool((off_dist <= DIN_BF16_KINK).all()):
+        raise AssertionError(f"din_head_fused_bwd bf16: {rows_off} rows off, kink distances "
+                             f"{off_dist.tolist()[:8]}")
+    if rows_off:  # the weight gradients sum over every row: again without the off rows
+        keep = ~off
+        sub = tuple(x[keep].contiguous() if i != 2 else x for i, x in enumerate(sub))
+        got, want = dh.din_head_bwd(*sub), dh.din_head_bwd_plain(*sub)
+    unrounded = dh.din_head_bwd_plain(sub[0].float(), sub[1].float(),
+                                      tuple(w.float() for w in sub[2]), sub[3].float())
+    errs, rels, gaps = [], {}, {}
+    for n, gt, wt, ut in zip(("hist", "target") + dh.WEIGHT_NAMES, got, want, unrounded):
+        errs.append(float((gt - wt).abs().max()))
+        if n == "b3":  # the sum of ds: 0 up to rounding in all three
+            if not errs[-1] <= DIN_DB3_ATOL * float(sub[3].float().abs().sum()):
+                raise AssertionError(f"din_head_fused_bwd bf16 db3: off by {errs[-1]}")
+        else:
+            rels[n], gaps[n] = rel_err(gt, wt), rel_err(ut, wt)
+    worst = max(rels, key=rels.get)
+    if rels[worst] > DIN_BF16_BWD_RTOL:
+        raise AssertionError(f"din_head_fused_bwd bf16 d{worst}: {rels[worst]} of its largest")
+    gap = min(gaps[n] for n in DIN_BF16_ROUNDED)
+    if not gap > DIN_BF16_BWD_RTOL:
+        raise AssertionError(f"din_head_fused_bwd bf16: the unrounded head passes too: {gaps}")
+    return {"max_abs_err": max(errs), "rows_off": rows_off, "off_rows_kink": off_dist.tolist(),
+            "rows_near_a_bf16_kink": int((dist <= DIN_BF16_KINK).sum()),
+            "rtol": rels[worst], "rtol_of": f"d{worst}", "unrounded_min_rtol": gap}
 
 
 def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.Generator,
-              label: str) -> dict:
+              label: str, dtype: torch.dtype = torch.float32) -> dict:
     """A DIN kernel ("fwd", "bwd": the fused head; "pool": the attention pool)
-    against its plain version on B rows at the model's scale."""
+    against its plain version on B rows at the model's scale, its inputs in
+    ``dtype`` (the head takes float32 or bfloat16, the pool float32)."""
     hist, tgt, att, fc, g = din_inputs(B, L, D, A, F, gen)
+    if dtype != torch.float32:
+        hist, tgt, g = hist.to(dtype), tgt.to(dtype), g.to(dtype)
+        att, fc = ([{k: v.to(dtype) for k, v in layer.items()} for layer in net] for net in (att, fc))
     weights = dh.din_head_weights(att, fc, D)
+    checked = {}
     if part == "fwd":
         args, kernel, plain = (hist, tgt, weights), dh.din_head_fwd, dh.din_head_fwd_plain
-        err = normwise_err("din_head_fused", kernel(*args), plain(*args), DIN_FWD_RTOL)
+        if dtype == torch.bfloat16:
+            checked = check_din_bf16_fwd(*args)
+        else:
+            checked["max_abs_err"] = normwise_err("din_head_fused", kernel(*args), plain(*args),
+                                                  DIN_FWD_RTOL)
         library, lib_args = din_library_fwd, (hist, tgt, att, fc)
         lib_name = "eager: attention_pool and mlp, torch.matmul"
     elif part == "bwd":
         args, kernel, plain = (hist, tgt, weights, g), dh.din_head_bwd, dh.din_head_bwd_plain
-        smooth = away_from_kinks(hist, tgt, weights)
+        dist = kink_distance(hist, tgt, weights)
+        smooth = dist > DIN_KINK
         kinked = int((~smooth).sum())
         if kinked > B // 20:
             raise AssertionError(f"din_head_fused_bwd: {kinked} of {B} rows at a relu kink")
         sub = (hist[smooth].contiguous(), tgt[smooth].contiguous(), weights, g[smooth].contiguous())
-        got, want = kernel(*sub), plain(*sub)
-        names = ("hist", "target") + dh.WEIGHT_NAMES
-        errs = []
-        for n, gt, wt in zip(names, got, want):
-            if n == "b3":  # the sum of ds: 0 up to rounding in both versions
-                e = float((gt - wt).abs().max())
-                if not e <= DIN_DB3_ATOL * float(sub[3].abs().sum()):
-                    raise AssertionError(f"din_head_fused_bwd db3: off by {e}")
-                errs.append(e)
-            else:
-                errs.append(normwise_err(f"din_head_fused_bwd d{n}", gt, wt, DIN_BWD_RTOL))
-        err = max(errs)
-        del sub, got, want
+        if dtype == torch.bfloat16:
+            checked = check_din_bf16_bwd(sub, dist[smooth])
+        else:
+            got, want = kernel(*sub), plain(*sub)
+            errs = []
+            for n, gt, wt in zip(("hist", "target") + dh.WEIGHT_NAMES, got, want):
+                if n == "b3":  # the sum of ds: 0 up to rounding in both versions
+                    e = float((gt - wt).abs().max())
+                    if not e <= DIN_DB3_ATOL * float(sub[3].float().abs().sum()):
+                        raise AssertionError(f"din_head_fused_bwd db3: off by {e}")
+                    errs.append(e)
+                else:
+                    errs.append(normwise_err(f"din_head_fused_bwd d{n}", gt, wt, DIN_BWD_RTOL))
+            checked["max_abs_err"] = max(errs)
+            del got, want
+        checked = {"max_abs_err": checked.pop("max_abs_err"), "rows_at_a_kink": kinked, **checked}
+        del sub, dist
         library, lib_args = din_library_bwd, (hist, tgt, att, fc, g)
         lib_name = "eager composition's autograd (forward included)"
     else:
         args, kernel, plain = (hist, tgt, att), dinatt.din_attention_pool, dinatt.din_attention_pool_plain
-        err = normwise_err("din_attention_pool", kernel(*args), plain(*args), DIN_FWD_RTOL)
+        checked["max_abs_err"] = normwise_err("din_attention_pool", kernel(*args), plain(*args),
+                                              DIN_FWD_RTOL)
         library, lib_args = (lambda h, t, a: attention_pool(a, h, t)), (hist, tgt, att)
         lib_name = "eager attention_pool (the plain version itself)"
     torch.cuda.synchronize()
-    t_bound, bound_by = bound_of(*din_work(B, L, D, A, F, part))
+    mm, ops, nbytes = din_work(B, L, D, A, F, part, hist.element_size())
+    t_bound, bound_by = (bound_of(ops, nbytes, bf16_flops=mm) if dtype == torch.bfloat16
+                         else bound_of(mm + ops, nbytes))
     row = {
         "shape": {"rows": B, "history": L, "dim": D, "attention": list(A), "fc": list(F),
-                  "batch": label},
-        "max_abs_err": err,
-        **({"rows_at_a_kink": kinked} if part == "bwd" else {}),
+                  "batch": label, "dtype": str(dtype).split(".")[1]},
+        **checked,
         "kernel_ms": time_ms(lambda: kernel(*args)),
         "plain_ms": time_ms(lambda: plain(*args)),
         "library_ms": time_ms(lambda: library(*lib_args)),
@@ -1200,6 +1348,49 @@ def run_din(ds: MovieLens100K) -> dict:
             "catalog_tile_max_abs_err_vs_cpu": catalog_err, "launches": counts}
 
 
+def run_din_bf16(ds: MovieLens100K) -> dict:
+    """DIN as ``bench.py`` trains it: ``compute_dtype="bfloat16"`` and
+    ``indirect_hist=True`` (``run_experiment`` builds the standard (history,
+    item) batches, which the flag leaves on the standard route), window
+    serving, DIN_BF16_EPOCHS epochs. The train forward and backward run the
+    DIN head kernels in bf16; evaluation runs them in float32 on the master
+    weights. Held against a CPU ``Trainer.fit`` in bf16 over the same batches."""
+    cfg = PRESETS["din"].replace(
+        epochs=DIN_BF16_EPOCHS, full_history_serving=False, compute_dtype="bfloat16",
+        model_kwargs=dict(PRESETS["din"].model_kwargs, indirect_hist=True))
+    E = DIN_BF16_EPOCHS
+    reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, data=ds, device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launches()  # ... and ends here
+
+    forwards = 3 * E + 3  # train (bf16), valid and test (f32) an epoch; the final AUCs
+    tiles = history_tiles(ds)
+    check_counts("din_bf16", counts, {"din_head_fused": forwards, "din_head_fused_bwd": 3 * E,
+                                      "din_attention_pool": tiles,
+                                      "gather_rows": 2 * (forwards + tiles), "onehot_grad": 2 * E})
+    loss = res.history["train_loss"]
+    if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+        raise AssertionError(f"din_bf16: the train loss did not fall: {loss.tolist()}")
+    batches = split_batches(cfg, ds, "cpu")
+    cpu = Trainer(build_model(cfg, ds),
+                  TrainConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                              epochs=E, track_metrics=True, compute_dtype=cfg.compute_dtype),
+                  device="cpu").fit(batches["train"], valid=batches["valid"], test=batches["test"])
+    worst = compare_histories("din_bf16", res.history,
+                              {k: v.numpy() for k, v in cpu.history.items()}, res.extras,
+                              cpu.extras)
+    return {"phase": "din_bf16",
+            "config": f"din preset, compute_dtype bfloat16, indirect_hist, window serving, {E} epochs",
+            "rows": res.train_examples, "epochs": E,
+            "train_loss": [float(loss[0]), float(loss[-1])],
+            "ranking_test@10": res.ranking["test@10"], "extras": res.extras,
+            "wall_s": wall_s, "train_time_s": res.train_time_s,
+            "max_rel_loss_diff_vs_cpu": worst, "launches": counts}
+
+
 def run_serve_din(ds: MovieLens100K, data_dir: str, epochs: int, seed: int = 0) -> dict:
     args = serve_cli.parser().parse_args(["--model", "din", "--data", data_dir, "--epochs",
                                           str(epochs), "--port", "0", "--seed", str(seed)])
@@ -1348,19 +1539,21 @@ def main() -> int:
         emit({"phase": "kernel_check", "kernel": "afm_attention_pool_bwd",
               **rows["afm_attention_pool_bwd"][-1]})
         din_dims = (din_cfg.hist_len, din_cfg.model_kwargs["embed_size"], DIN_ATTENTION, DIN_FC)
-        for name, part, B, label in (
-                ("din_head_fused", "fwd", din_rows, "train batch"),
-                ("din_head_fused_bwd", "bwd", din_rows, "train batch"),
+        for name, part, B, label, dtype in (
+                ("din_head_fused", "fwd", din_rows, "train batch", torch.float32),
+                ("din_head_fused_bwd", "bwd", din_rows, "train batch", torch.float32),
                 ("din_attention_pool", "pool", HISTORY_TILE * ds.num_items,
-                 f"window tile of {HISTORY_TILE} users")):
-            rows[name].append(check_din(part, B, *din_dims, gen, label))
+                 f"window tile of {HISTORY_TILE} users", torch.float32),
+                ("din_head_fused", "fwd", din_rows, "train batch", torch.bfloat16),
+                ("din_head_fused_bwd", "bwd", din_rows, "train batch", torch.bfloat16)):
+            rows[name].append(check_din(part, B, *din_dims, gen, label, dtype))
             emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
         torch.cuda.empty_cache()
         emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0})
 
         phases = [run_train(ds), run_serve(ds, tmp), run_slice(ds), run_lr(ds), run_afm(ds),
                   run_serve_feature(ds, tmp, "lr", TRAIN_EPOCHS),
-                  run_serve_feature(ds, tmp, "afm", AFM_EPOCHS), run_din(ds),
+                  run_serve_feature(ds, tmp, "afm", AFM_EPOCHS), run_din(ds), run_din_bf16(ds),
                   run_serve_din(ds, tmp, DIN_EPOCHS)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

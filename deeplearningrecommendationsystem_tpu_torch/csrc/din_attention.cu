@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel of
 //   deeplearningrecommendationsystem_tpu/ops/pallas/din_attention.py:
-//   * din_attention_pool_pallas (_kernel)  -> din::din_fwd_kernel<false>
+//   * din_attention_pool_pallas (_kernel)  -> din::din_fwd_kernel<false, float>
 // Its plain PyTorch version is din_attention_pool_plain in
 // deeplearningrecommendationsystem_tpu_torch/ops/din_attention.py.
 //
@@ -44,14 +44,14 @@ int din_attention_fwd(const void* hist, const void* tgt, const void* wh, const v
   const size_t smem = din::smem_bytes(s);
   int blocks = 0;
   const cudaError_t err =
-      din::persistent_blocks(din::din_fwd_kernel<false>, smem, (B + s.R - 1) / s.R, &blocks);
+      din::persistent_blocks(din::din_fwd_kernel<false, float>, smem, (B + s.R - 1) / s.R, &blocks);
   if (err != cudaSuccess) return err;
-  const din::AttentionWeights a{static_cast<const float*>(wh), static_cast<const float*>(wt),
+  const din::AttentionWeights<float> a{static_cast<const float*>(wh), static_cast<const float*>(wt),
                                 static_cast<const float*>(b1), static_cast<const float*>(w2),
                                 static_cast<const float*>(b2), static_cast<const float*>(w3),
                                 nullptr};
-  const din::FcWeights f{};
-  din::din_fwd_kernel<false><<<blocks, din::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const din::FcWeights<float> f{};
+  din::din_fwd_kernel<false, float><<<blocks, din::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(hist), static_cast<const float*>(tgt), a, f,
       static_cast<float*>(out), B, s);
   return cudaGetLastError();

@@ -11,14 +11,26 @@
 // memory, and their outputs are not written. Every product is float32 FMA on
 // CUDA cores, with a fixed order of summation, so a launch repeats bit for bit.
 //
-// Widths D, A1, A2, F1, F2 must be multiples of 4 (float4 loads), L at most
-// kMaxHistory; the Python launchers check them.
+// Storage type T: float, or __nv_bfloat16 for the DIN head's bf16 path. History,
+// target and weights are read in T and widened to float32 as they are staged or
+// loaded; shared memory holds float32 only. Under bf16 the products follow the
+// JAX kernel's precision (ops/pallas/din_head.py, _mdot and _cdot): each operand
+// of a product is rounded to bf16 as it enters the product (op<T>), never as it
+// is stored, because the same values also feed float32 sums that the JAX kernel
+// does not round (the biases' gradients, the softmax's backward, the pool).
+// Accumulation, z, the relu masks, the softmax and the pooled vector stay
+// float32.
+//
+// Widths D, A1, A2, F1, F2 must be multiples of 4 (float4 loads, or 8-byte
+// quads of bf16), L at most kMaxHistory; the Python launchers check them.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace din {
 
@@ -104,17 +116,52 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
 
 __device__ __forceinline__ float4& as4(float* p) { return *reinterpret_cast<float4*>(p); }
 
+// Four neighbouring values of device memory as float32, read through the
+// read-only path: a float4, or an 8-byte quad of bf16 (a bf16 is the high half
+// of the float32 with the same bits).
+__device__ __forceinline__ float4 load4(const float* p) { return ldg4(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+                         << 16);
+}
+
+// x as an operand of a product in storage type T: itself for float32, rounded
+// to the nearest bf16 for bf16 (the JAX kernel's cast before its dot).
+template <class T>
+__device__ __forceinline__ float op(float x) {
+  if constexpr (std::is_same_v<T, float>) {
+    return x;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+}
+
+template <class T>
+__device__ __forceinline__ float4 op4(float4 v) {
+  return make_float4(op<T>(v.x), op<T>(v.y), op<T>(v.z), op<T>(v.w));
+}
+
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
 __device__ __forceinline__ float relu(float x) { return fmaxf(x, 0.f); }
 
 // C [M][N] = A [M][K] @ B: A in shared memory (row stride lda), B in device
-// memory, [K][N] with row stride ldb, or with kTransB stored transposed, [N][K]
-// with row stride ldb (then C = A @ B^T). Each thread computes patches of TM rows
+// memory (type T), [K][N] with row stride ldb, or with kTransB stored transposed,
+// [N][K] with row stride ldb (then C = A @ B^T); A's values enter the product as
+// op<T>. Each thread computes patches of TM rows
 // by 4 columns, summing over k in order, and hands each row of a patch that lies
 // below M to epi(row, column, float4). A warp takes 8 row groups by 4 column
 // groups: its loads of B touch 64 contiguous bytes and its loads of A 8 rows, so
 // B leaves L2 about 8 times less often than with one row group a warp.
-template <int TM, bool kTransB, class Epi>
-__device__ __forceinline__ void block_mm(const float* A, int lda, const float* __restrict__ B,
+template <int TM, bool kTransB, class T, class Epi>
+__device__ __forceinline__ void block_mm(const float* A, int lda, const T* __restrict__ B,
                                          int ldb, int M, int K, int N, Epi epi) {
   const int groups = (M + TM - 1) / TM, n4 = N >> 2;
   const int tile_rows = (groups + 7) >> 3;
@@ -138,12 +185,12 @@ __device__ __forceinline__ void block_mm(const float* A, int lda, const float* _
       float4 b[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        b[u] = kTransB ? ldg4(B + static_cast<size_t>(c0 + u) * ldb + k)
-                       : ldg4(B + static_cast<size_t>(k + u) * ldb + c0);
+        b[u] = kTransB ? load4(B + static_cast<size_t>(c0 + u) * ldb + k)
+                       : load4(B + static_cast<size_t>(k + u) * ldb + c0);
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(arow[i] + k);
+        const float4 a = op4<T>(*reinterpret_cast<const float4*>(arow[i] + k));
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const float av = at(a, u);
@@ -162,7 +209,9 @@ __device__ __forceinline__ void block_mm(const float* A, int lda, const float* _
 }
 
 // G [K][N] (device memory, row stride N) += X [M][K]^T Z [M][N], X and Z in shared
-// memory; each thread owns 4 x 4 patches of G and sums over m in order.
+// memory, both entering the product as op<T>; each thread owns 4 x 4 patches of G
+// and sums over m in order.
+template <class T>
 __device__ __forceinline__ void block_mm_tn_acc(const float* X, int ldx, const float* Z, int ldz,
                                                 int M, int K, int N, float* __restrict__ G) {
   const int n4 = N >> 2;
@@ -177,8 +226,8 @@ __device__ __forceinline__ void block_mm_tn_acc(const float* X, int ldx, const f
       for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
     }
     for (int m = 0; m < M; ++m) {
-      const float4 x = *reinterpret_cast<const float4*>(X + m * ldx + k0);
-      const float4 z = *reinterpret_cast<const float4*>(Z + m * ldz + c0);
+      const float4 x = op4<T>(*reinterpret_cast<const float4*>(X + m * ldx + k0));
+      const float4 z = op4<T>(*reinterpret_cast<const float4*>(Z + m * ldz + c0));
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -195,13 +244,17 @@ __device__ __forceinline__ void block_mm_tn_acc(const float* X, int ldx, const f
   }
 }
 
-// G [c] (device memory) += sum over m of Z [m][c] (times w [m] when w is given),
-// for c < N; Z in shared memory.
+// G [c] (device memory) += sum over m of Z [m][c], for c < N; Z in shared
+// memory. Given w, the sum is of the products op<T>(Z [m][c]) op<T>(w [m]) (a
+// weight gradient); without, of Z itself in float32 (a bias gradient).
+template <class T>
 __device__ __forceinline__ void block_colsum_acc(const float* Z, int ldz, const float* w, int M,
                                                  int N, float* __restrict__ G) {
   for (int c = threadIdx.x; c < N; c += blockDim.x) {
     float acc = 0.f;
-    for (int m = 0; m < M; ++m) acc = w ? fmaf(Z[m * ldz + c], w[m], acc) : acc + Z[m * ldz + c];
+    for (int m = 0; m < M; ++m) {
+      acc = w ? fmaf(op<T>(Z[m * ldz + c]), op<T>(w[m]), acc) : acc + Z[m * ldz + c];
+    }
     G[c] += acc;
   }
 }
@@ -217,11 +270,12 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// The tile of rows r0 .. r0 + R - 1 into shared memory: history rows into H,
-// targets into the right half of X, and (given g) the logit cotangent into G.
-// Rows past B are zeros.
-__device__ __forceinline__ void stage_tile(const float* __restrict__ hist,
-                                           const float* __restrict__ tgt,
+// The tile of rows r0 .. r0 + R - 1 into shared memory, widened to float32:
+// history rows into H, targets into the right half of X, and (given g) the logit
+// cotangent into G. Rows past B are zeros.
+template <class T>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ hist,
+                                           const T* __restrict__ tgt,
                                            const float* __restrict__ g, long long r0,
                                            long long B, const Layout& s, float* sm) {
   const int d4 = s.D >> 2;
@@ -229,62 +283,65 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ hist,
     const int m = t / d4, d = (t - m * d4) * 4;
     const bool in = r0 + m / s.L < B;
     as4(sm + s.oH + m * s.ldh + d) =
-        in ? ldg4(hist + (static_cast<size_t>(r0) * s.L + m) * s.D + d) : make_float4(0, 0, 0, 0);
+        in ? load4(hist + (static_cast<size_t>(r0) * s.L + m) * s.D + d) : make_float4(0, 0, 0, 0);
   }
   for (int t = threadIdx.x; t < s.R * d4; t += blockDim.x) {
     const int r = t / d4, d = (t - r * d4) * 4;
     const bool in = r0 + r < B;
     as4(sm + s.oX + r * s.ldx + s.D + d) =
-        in ? ldg4(tgt + static_cast<size_t>(r0 + r) * s.D + d) : make_float4(0, 0, 0, 0);
+        in ? load4(tgt + static_cast<size_t>(r0 + r) * s.D + d) : make_float4(0, 0, 0, 0);
   }
   if (g != nullptr) {
     for (int r = threadIdx.x; r < s.R; r += blockDim.x) sm[s.oG + r] = r0 + r < B ? g[r0 + r] : 0.f;
   }
 }
 
+template <class T>
 struct AttentionWeights {
-  const float *wh, *wt, *b1, *w2, *b2, *w3, *b3;  // b3 may be null (dropped)
+  const T *wh, *wt, *b1, *w2, *b2, *w3, *b3;  // b3 may be null (dropped)
 };
 
+template <class T>
 struct FcWeights {
-  const float *u1p, *u1t, *c1, *u2, *c2, *u3, *c3;
+  const T *u1p, *u1t, *c1, *u2, *c2, *u3, *c3;
 };
 
 // The activation unit, softmax and pool of the staged tile: T = t @ wt + b1,
 // R1 = relu(h @ wh + T), relu(R1 @ w2 + b2) (kept in R2 when the layout has it),
 // scores = that @ w3 (+ b3), W = softmax over the L positions, and the pooled rows
 // into the left half of X. Ends synchronised.
-__device__ __forceinline__ void attention_forward(const AttentionWeights& a, const Layout& s,
+template <class T>
+__device__ __forceinline__ void attention_forward(const AttentionWeights<T>& a, const Layout& s,
                                                   float* sm) {
   float* H = sm + s.oH;
   float* X = sm + s.oX;
   float* R1 = sm + s.oR1;
-  float* T = sm + s.oT;
+  float* Tt = sm + s.oT;
   float* Q = sm + s.oQ;
   float* W = sm + s.oW;
   const int n4 = s.A2 >> 2;
   block_mm<1, false>(X + s.D, s.ldx, a.wt, s.A1, s.R, s.D, s.A1, [&](int r, int c, float4 v) {
-    const float4 b = ldg4(a.b1 + c);
-    as4(T + r * s.ldt + c) = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
+    const float4 b = load4(a.b1 + c);
+    as4(Tt + r * s.ldt + c) = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
   });
   __syncthreads();
   block_mm<10, false>(H, s.ldh, a.wh, s.A1, s.M, s.D, s.A1, [&](int m, int c, float4 v) {
-    const float4 t = as4(T + (m / s.L) * s.ldt + c);
+    const float4 t = as4(Tt + (m / s.L) * s.ldt + c);
     as4(R1 + m * s.ld1 + c) =
         make_float4(relu(v.x + t.x), relu(v.y + t.y), relu(v.z + t.z), relu(v.w + t.w));
   });
   __syncthreads();
   float* R2 = s.oR2 >= 0 ? sm + s.oR2 : nullptr;
   block_mm<5, false>(R1, s.ld1, a.w2, s.A2, s.M, s.A1, s.A2, [&](int m, int c, float4 v) {
-    const float4 b = ldg4(a.b2 + c);
+    const float4 b = load4(a.b2 + c);
     const float4 z = make_float4(relu(v.x + b.x), relu(v.y + b.y), relu(v.z + b.z), relu(v.w + b.w));
     if (R2 != nullptr) as4(R2 + m * s.ld2 + c) = z;
-    const float4 w3 = ldg4(a.w3 + c);
-    Q[m * n4 + (c >> 2)] = fmaf(z.w, w3.w, fmaf(z.z, w3.z, fmaf(z.y, w3.y, z.x * w3.x)));
+    const float4 w3 = load4(a.w3 + c), zo = op4<T>(z);
+    Q[m * n4 + (c >> 2)] = fmaf(zo.w, w3.w, fmaf(zo.z, w3.z, fmaf(zo.y, w3.y, zo.x * w3.x)));
   });
   __syncthreads();
   // the softmax of each row by one warp, lane l holding positions l and l + 32
-  const float b3 = a.b3 != nullptr ? __ldg(a.b3) : 0.f;
+  const float b3 = a.b3 != nullptr ? load1(a.b3) : 0.f;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < s.R; r += blockDim.x >> 5) {
     float sc[kMaxHistory / 32];
@@ -326,7 +383,8 @@ __device__ __forceinline__ void attention_forward(const AttentionWeights& a, con
 
 // The fc head's hidden layers of the tile: F1 = relu(pooled @ u1p + t @ u1t + c1),
 // F2 = relu(F1 @ u2 + c2), into Q's f1 and f2 regions. Ends synchronised.
-__device__ __forceinline__ void fc_forward(const FcWeights& f, const Layout& s, float* sm) {
+template <class T>
+__device__ __forceinline__ void fc_forward(const FcWeights<T>& f, const Layout& s, float* sm) {
   float* X = sm + s.oX;
   float* F1 = sm + s.oQ;
   float* F2 = sm + s.oF2;
@@ -335,25 +393,26 @@ __device__ __forceinline__ void fc_forward(const FcWeights& f, const Layout& s, 
   __syncthreads();
   block_mm<2, false>(X + s.D, s.ldx, f.u1t, s.F1, s.R, s.D, s.F1, [&](int r, int c, float4 v) {
     float4& o = as4(F1 + r * s.ldf1 + c);
-    const float4 p = o, b = ldg4(f.c1 + c);
+    const float4 p = o, b = load4(f.c1 + c);
     o = make_float4(relu(p.x + v.x + b.x), relu(p.y + v.y + b.y), relu(p.z + v.z + b.z),
                     relu(p.w + v.w + b.w));
   });
   __syncthreads();
   block_mm<1, false>(F1, s.ldf1, f.u2, s.F2, s.R, s.F1, s.F2, [&](int r, int c, float4 v) {
-    const float4 b = ldg4(f.c2 + c);
+    const float4 b = load4(f.c2 + c);
     as4(F2 + r * s.ldf2 + c) =
         make_float4(relu(v.x + b.x), relu(v.y + b.y), relu(v.z + b.z), relu(v.w + b.w));
   });
   __syncthreads();
 }
 
-// The forward over B rows. kFc: the whole DIN head, logits [B] into out; else the
-// pooled rows [B, D] into out (the attention pool, b3 dropped by the caller).
-template <bool kFc>
+// The forward over B rows. kFc: the whole DIN head, logits [B] (type T) into
+// out; else the pooled rows [B, D] into out (the attention pool, float32 only,
+// b3 dropped by the caller).
+template <bool kFc, class T>
 __global__ void __launch_bounds__(kThreads, 1)
-din_fwd_kernel(const float* __restrict__ hist, const float* __restrict__ tgt, AttentionWeights a,
-               FcWeights f, float* __restrict__ out, long long B, Layout s) {
+din_fwd_kernel(const T* __restrict__ hist, const T* __restrict__ tgt, AttentionWeights<T> a,
+               FcWeights<T> f, T* __restrict__ out, long long B, Layout s) {
   extern __shared__ __align__(16) float sm[];
   const long long tiles = (B + s.R - 1) / s.R;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -363,7 +422,8 @@ din_fwd_kernel(const float* __restrict__ hist, const float* __restrict__ tgt, At
     stage_tile(hist, tgt, nullptr, r0, B, s, sm);
     __syncthreads();
     attention_forward(a, s, sm);
-    if (!kFc) {
+    if constexpr (!kFc) {
+      static_assert(std::is_same_v<T, float>, "the attention pool is float32");
       const int d4 = s.D >> 2;
       for (int i = threadIdx.x; i < s.R * d4; i += blockDim.x) {
         const int r = i / d4, d = (i - r * d4) * 4;
@@ -378,9 +438,9 @@ din_fwd_kernel(const float* __restrict__ hist, const float* __restrict__ tgt, At
     const float* F2 = sm + s.oF2;
     for (int r = warp; r < s.R; r += kThreads / 32) {
       float acc = 0.f;
-      for (int c = lane; c < s.F2; c += 32) acc = fmaf(F2[r * s.ldf2 + c], __ldg(f.u3 + c), acc);
+      for (int c = lane; c < s.F2; c += 32) acc = fmaf(op<T>(F2[r * s.ldf2 + c]), load1(f.u3 + c), acc);
       acc = warp_sum(acc);
-      if (lane == 0 && r0 + r < B) out[r0 + r] = acc + __ldg(f.c3);
+      if (lane == 0 && r0 + r < B) store1(out + r0 + r, acc + load1(f.c3));
     }
   }
 }

@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernels of
 //   deeplearningrecommendationsystem_tpu/ops/pallas/din_head.py (din_head_fused):
-//   * _fwd_kernel (pallas_call :267)  -> din::din_fwd_kernel<true>
+//   * _fwd_kernel (pallas_call :267)  -> din::din_fwd_kernel<true, T>
 //   * _bwd_kernel (pallas_call :300)  -> din_head_bwd_kernel + din_head_bwd_fc_kernel
 //                                        + din_head_bwd_reduce_kernel
 // Their plain PyTorch versions are din_head_fwd_plain and din_head_bwd_plain in
@@ -38,6 +38,15 @@
 // din_head_bwd_reduce_kernel then sums the slots in block order, so runs repeat
 // bit for bit.
 //
+// Dtypes. float32, or bfloat16 for hist, target and the 14 weights alike (the
+// entries' `bf16` flag), as the JAX kernel takes both: the bf16 path reads bf16
+// from device memory (the 225 MB float32 history of the DIN train batch becomes
+// 112 MB), computes in float32 with each product's operands rounded to bf16
+// where the JAX kernel casts them (din_common.cuh, op<T>), writes bf16 logits,
+// and emits float32 gradients, which the caller casts to each input's dtype.
+// The fc head's rows for din_head_bwd_fc_kernel stay float32 and are rounded
+// as they are staged there.
+//
 // Each entry point returns cudaGetLastError() after its launch (or a cudaError_t
 // for arguments it does not take); the Python launcher raises when it is not 0.
 
@@ -47,6 +56,9 @@ namespace {
 
 using din::as4;
 using din::kThreads;
+using din::load1;
+using din::op;
+using Bf16 = __nv_bfloat16;
 
 constexpr int kWeights = 14;
 constexpr int kGrads = 13;  // u1p and u1t share one block, u1 [2D, F1]
@@ -69,11 +81,12 @@ GradSlots grad_slots(int D, int A1, int A2, int F1, int F2) {
                    off[7], off[8], off[9], off[10], off[11], off[12], o};
 }
 
-void split_weights(const void* const* w, din::AttentionWeights* a, din::FcWeights* f) {
-  const float* p[kWeights];
-  for (int i = 0; i < kWeights; ++i) p[i] = static_cast<const float*>(w[i]);
-  *a = din::AttentionWeights{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
-  *f = din::FcWeights{p[7], p[8], p[9], p[10], p[11], p[12], p[13]};
+template <class T>
+void split_weights(const void* const* w, din::AttentionWeights<T>* a, din::FcWeights<T>* f) {
+  const T* p[kWeights];
+  for (int i = 0; i < kWeights; ++i) p[i] = static_cast<const T*>(w[i]);
+  *a = din::AttentionWeights<T>{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
+  *f = din::FcWeights<T>{p[7], p[8], p[9], p[10], p[11], p[12], p[13]};
 }
 
 // Rows r0 .. r0 + R - 1 (those below B) of a tile region [R][ld] (width floats
@@ -89,9 +102,10 @@ __device__ __forceinline__ void store_rows(const float* src, int ld, int width, 
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads, 1)
-din_head_bwd_kernel(const float* __restrict__ hist, const float* __restrict__ tgt,
-                    din::AttentionWeights a, din::FcWeights f, const float* __restrict__ g,
+din_head_bwd_kernel(const T* __restrict__ hist, const T* __restrict__ tgt,
+                    din::AttentionWeights<T> a, din::FcWeights<T> f, const float* __restrict__ g,
                     float* __restrict__ dhist, float* __restrict__ dtgt, float* __restrict__ part,
                     float* __restrict__ rows, long long B, din::Layout s, GradSlots o) {
   extern __shared__ __align__(16) float sm[];
@@ -105,7 +119,7 @@ din_head_bwd_kernel(const float* __restrict__ hist, const float* __restrict__ tg
   float* X = sm + s.oX;
   float* R1 = sm + s.oR1;
   float* R2 = sm + s.oR2;
-  float* T = sm + s.oT;
+  float* Tt = sm + s.oT;
   float* F1 = sm + s.oQ;
   float* F2 = sm + s.oF2;
   float* W = sm + s.oW;
@@ -126,17 +140,17 @@ din_head_bwd_kernel(const float* __restrict__ hist, const float* __restrict__ tg
     store_rows(F1, s.ldf1, s.F1, r0, B, s.R, f1g);
 
     // ---- the fc head: du3, dc3, then dzf2 in place of f2
-    din::block_colsum_acc(F2, s.ldf2, G, s.R, s.F2, slot + o.u3);
-    din::block_colsum_acc(G, 1, nullptr, s.R, 1, slot + o.c3);
+    din::block_colsum_acc<T>(F2, s.ldf2, G, s.R, s.F2, slot + o.u3);
+    din::block_colsum_acc<T>(G, 1, nullptr, s.R, 1, slot + o.c3);
     __syncthreads();
     for (int i = threadIdx.x; i < s.R * s.F2; i += blockDim.x) {
       const int r = i / s.F2, c = i - r * s.F2;
       float& z = F2[r * s.ldf2 + c];
-      z = z > 0.f ? G[r] * __ldg(f.u3 + c) : 0.f;
+      z = z > 0.f ? op<T>(G[r]) * load1(f.u3 + c) : 0.f;
     }
     __syncthreads();
     store_rows(F2, s.ldf2, s.F2, r0, B, s.R, z2g);
-    din::block_colsum_acc(F2, s.ldf2, nullptr, s.R, s.F2, slot + o.c2);
+    din::block_colsum_acc<T>(F2, s.ldf2, nullptr, s.R, s.F2, slot + o.c2);
     __syncthreads();
     // dzf1 = (f1 > 0) dzf2 u2^T, in place of f1
     din::block_mm<2, true>(F2, s.ldf2, f.u2, s.F2, s.R, s.F2, s.F1, [&](int r, int c, float4 v) {
@@ -148,7 +162,7 @@ din_head_bwd_kernel(const float* __restrict__ hist, const float* __restrict__ tg
     __syncthreads();
     // dc1; [dpooled | dt] = dzf1 [u1p | u1t]^T
     store_rows(F1, s.ldf1, s.F1, r0, B, s.R, z1g);
-    din::block_colsum_acc(F1, s.ldf1, nullptr, s.R, s.F1, slot + o.c1);
+    din::block_colsum_acc<T>(F1, s.ldf1, nullptr, s.R, s.F1, slot + o.c1);
     din::block_mm<1, true>(F1, s.ldf1, f.u1p, s.F1, s.R, s.F1, D,
                            [&](int r, int c, float4 v) { as4(P + r * s.ldx + c) = v; });
     din::block_mm<1, true>(F1, s.ldf1, f.u1t, s.F1, s.R, s.F1, D,
@@ -173,17 +187,17 @@ din_head_bwd_kernel(const float* __restrict__ hist, const float* __restrict__ tg
     __syncthreads();
 
     // ---- the activation unit: dw3, db3, then dz2 in place of r2
-    din::block_colsum_acc(R2, s.ld2, S, s.M, s.A2, slot + o.w3);
-    din::block_colsum_acc(S, 1, nullptr, s.M, 1, slot + o.b3);
+    din::block_colsum_acc<T>(R2, s.ld2, S, s.M, s.A2, slot + o.w3);
+    din::block_colsum_acc<T>(S, 1, nullptr, s.M, 1, slot + o.b3);
     __syncthreads();
     for (int i = threadIdx.x; i < s.M * s.A2; i += blockDim.x) {
       const int m = i / s.A2, c = i - m * s.A2;
       float& z = R2[m * s.ld2 + c];
-      z = z > 0.f ? S[m] * __ldg(a.w3 + c) : 0.f;
+      z = z > 0.f ? op<T>(S[m]) * load1(a.w3 + c) : 0.f;
     }
     __syncthreads();
-    din::block_mm_tn_acc(R1, s.ld1, R2, s.ld2, s.M, s.A1, s.A2, slot + o.w2);
-    din::block_colsum_acc(R2, s.ld2, nullptr, s.M, s.A2, slot + o.b2);
+    din::block_mm_tn_acc<T>(R1, s.ld1, R2, s.ld2, s.M, s.A1, s.A2, slot + o.w2);
+    din::block_colsum_acc<T>(R2, s.ld2, nullptr, s.M, s.A2, slot + o.b2);
     __syncthreads();
     // dz1 = (z1 > 0) dz2 w2^T, in place of r1
     din::block_mm<10, true>(R2, s.ld2, a.w2, s.A2, s.M, s.A2, s.A1, [&](int m, int c, float4 v) {
@@ -194,17 +208,17 @@ din_head_bwd_kernel(const float* __restrict__ hist, const float* __restrict__ tg
     });
     __syncthreads();
     // dwh = h^T dz1, db1; the sum of dz1 over the positions into T
-    din::block_mm_tn_acc(H, s.ldh, R1, s.ld1, s.M, D, s.A1, slot + o.wh);
-    din::block_colsum_acc(R1, s.ld1, nullptr, s.M, s.A1, slot + o.b1);
+    din::block_mm_tn_acc<T>(H, s.ldh, R1, s.ld1, s.M, D, s.A1, slot + o.wh);
+    din::block_colsum_acc<T>(R1, s.ld1, nullptr, s.M, s.A1, slot + o.b1);
     for (int i = threadIdx.x; i < s.R * s.A1; i += blockDim.x) {
       const int r = i / s.A1, c = i - r * s.A1;
       float acc = 0.f;
       for (int l = 0; l < L; ++l) acc += R1[(r * L + l) * s.ld1 + c];
-      T[r * s.ldt + c] = acc;
+      Tt[r * s.ldt + c] = acc;
     }
     __syncthreads();
     // dwt = t^T (sum_l dz1_l); d hist = w dpooled + dz1 wh^T; d target = dt + (sum_l dz1_l) wt^T
-    din::block_mm_tn_acc(X + D, s.ldx, T, s.ldt, s.R, D, s.A1, slot + o.wt);
+    din::block_mm_tn_acc<T>(X + D, s.ldx, Tt, s.ldt, s.R, D, s.A1, slot + o.wt);
     din::block_mm<5, true>(R1, s.ld1, a.wh, s.A1, s.M, s.A1, D, [&](int m, int c, float4 v) {
       const int r = m / L;
       if (r0 + r < B) {
@@ -214,7 +228,7 @@ din_head_bwd_kernel(const float* __restrict__ hist, const float* __restrict__ tg
             make_float4(fmaf(w, p.x, v.x), fmaf(w, p.y, v.y), fmaf(w, p.z, v.z), fmaf(w, p.w, v.w));
       }
     });
-    din::block_mm<1, true>(T, s.ldt, a.wt, s.A1, s.R, s.A1, D, [&](int r, int c, float4 v) {
+    din::block_mm<1, true>(Tt, s.ldt, a.wt, s.A1, s.R, s.A1, D, [&](int r, int c, float4 v) {
       if (r0 + r < B) {
         const float4 p = as4(P + r * s.ldx + D + c);
         as4(dtgt + static_cast<size_t>(r0 + r) * D + c) =
@@ -227,9 +241,11 @@ din_head_bwd_kernel(const float* __restrict__ hist, const float* __restrict__ tg
 constexpr int kFcChunk = 16;  // rows staged at a time by din_head_bwd_fc_kernel
 
 // G [K][N] = X [rows][K]^T Z [rows][N] over this block's rows b0 .. b1 - 1, X and Z
-// in device memory, staged kFcChunk rows at a time; G is this block's slot.
+// in device memory (float32), staged kFcChunk rows at a time as op<T> of their
+// values (they feed nothing but this product); G is this block's slot.
 // A thread owns 4 columns and up to 4 groups of 4 k-rows a pass, summing over the
 // rows in order, and writes its part of G once.
+template <class T>
 __device__ void fc_weight_grad(const float* __restrict__ X, int K, const float* __restrict__ Z,
                                int N, long long b0, long long b1, float* sm,
                                float* __restrict__ G) {
@@ -254,11 +270,11 @@ __device__ void fc_weight_grad(const float* __restrict__ X, int K, const float* 
       __syncthreads();  // the previous chunk's readers are done
       for (int i = threadIdx.x; i < rows * k4; i += blockDim.x) {
         const int r = i / k4, c = (i - r * k4) * 4;
-        as4(xs + r * K + c) = din::ldg4(X + static_cast<size_t>(m0 + r) * K + c);
+        as4(xs + r * K + c) = din::op4<T>(din::ldg4(X + static_cast<size_t>(m0 + r) * K + c));
       }
       for (int i = threadIdx.x; i < rows * n4; i += blockDim.x) {
         const int r = i / n4, c = (i - r * n4) * 4;
-        as4(zs + r * N + c) = din::ldg4(Z + static_cast<size_t>(m0 + r) * N + c);
+        as4(zs + r * N + c) = din::op4<T>(din::ldg4(Z + static_cast<size_t>(m0 + r) * N + c));
       }
       __syncthreads();
       if (!active) continue;
@@ -297,6 +313,7 @@ __device__ void fc_weight_grad(const float* __restrict__ X, int K, const float* 
 // The fc head's weight gradients from the rows din_head_bwd_kernel wrote: block b
 // takes a contiguous run of rows and writes du1 = [pooled | t]^T dzf1 and
 // du2 = f1^T dzf2 over them into its slot.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
 din_head_bwd_fc_kernel(const float* __restrict__ rows, float* __restrict__ part, long long B,
                        int D, int F1, int F2, GradSlots o) {
@@ -308,8 +325,8 @@ din_head_bwd_fc_kernel(const float* __restrict__ rows, float* __restrict__ part,
   const long long per = (B + gridDim.x - 1) / gridDim.x;
   const long long b0 = min(B, per * blockIdx.x), b1 = min(B, b0 + per);
   float* slot = part + static_cast<size_t>(blockIdx.x) * o.total;
-  fc_weight_grad(xg, 2 * D, z1g, F1, b0, b1, sm, slot + o.u1);
-  fc_weight_grad(f1g, F1, z2g, F2, b0, b1, sm, slot + o.u2);
+  fc_weight_grad<T>(xg, 2 * D, z1g, F1, b0, b1, sm, slot + o.u1);
+  fc_weight_grad<T>(f1g, F1, z2g, F2, b0, b1, sm, slot + o.u2);
 }
 
 size_t fc_smem_bytes(int D, int F1, int F2) {
@@ -334,6 +351,57 @@ bool layout_for(long long B, int L, int D, int A1, int A2, int F1, int F2, bool 
          din::fit_layout(L, D, A1, A2, F1, F2, true, backward, s);
 }
 
+template <class T>
+int launch_fwd(const void* hist, const void* tgt, const void* const* weights, void* out,
+               long long B, const din::Layout& s, cudaStream_t stream) {
+  const size_t smem = din::smem_bytes(s);
+  int blocks = 0;
+  const cudaError_t err =
+      din::persistent_blocks(din::din_fwd_kernel<true, T>, smem, (B + s.R - 1) / s.R, &blocks);
+  if (err != cudaSuccess) return err;
+  din::AttentionWeights<T> a;
+  din::FcWeights<T> f;
+  split_weights(weights, &a, &f);
+  din::din_fwd_kernel<true, T><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(hist), static_cast<const T*>(tgt), a, f, static_cast<T*>(out), B, s);
+  return cudaGetLastError();
+}
+
+template <class T>
+int launch_bwd(const void* hist, const void* tgt, const void* const* weights, const void* g,
+               void* dhist, void* dtgt, void* part, void* rows, long long B, const din::Layout& s,
+               GradSlots o, int blocks, cudaStream_t stream) {
+  const size_t smem = din::smem_bytes(s);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        din_head_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  din::AttentionWeights<T> a;
+  din::FcWeights<T> f;
+  split_weights(weights, &a, &f);
+  din_head_bwd_kernel<T><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(hist), static_cast<const T*>(tgt), a, f, static_cast<const float*>(g),
+      static_cast<float*>(dhist), static_cast<float*>(dtgt), static_cast<float*>(part),
+      static_cast<float*>(rows), B, s, o);
+  return cudaGetLastError();
+}
+
+template <class T>
+int launch_bwd_fc(const void* rows, void* part, long long B, int D, int F1, int F2, GradSlots o,
+                  int blocks, cudaStream_t stream) {
+  const size_t smem = fc_smem_bytes(D, F1, F2);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        din_head_bwd_fc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  din_head_bwd_fc_kernel<T><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const float*>(rows), static_cast<float*>(part), B, D, F1, F2, o);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -354,83 +422,61 @@ int din_head_grad_offsets(int D, int A1, int A2, int F1, int F2, int* offsets) {
   return o.total;
 }
 
-// hist [B, L, D], tgt [B, D] and the 14 weights (f32, in din_head_weights' order)
-// -> logits out [B] f32.
+// hist [B, L, D], tgt [B, D] and the 14 weights (in din_head_weights' order), all
+// f32 (bf16 = 0) or all bf16 (bf16 = 1) -> logits out [B] in the same dtype.
 int din_head_fwd(const void* hist, const void* tgt, const void* const* weights, void* out,
-                 long long B, int L, int D, int A1, int A2, int F1, int F2, void* stream) {
+                 long long B, int L, int D, int A1, int A2, int F1, int F2, int bf16,
+                 void* stream) {
   din::Layout s;
   if (!layout_for(B, L, D, A1, A2, F1, F2, false, &s)) return cudaErrorInvalidValue;
-  const size_t smem = din::smem_bytes(s);
-  int blocks = 0;
-  const cudaError_t err =
-      din::persistent_blocks(din::din_fwd_kernel<true>, smem, (B + s.R - 1) / s.R, &blocks);
-  if (err != cudaSuccess) return err;
-  din::AttentionWeights a;
-  din::FcWeights f;
-  split_weights(weights, &a, &f);
-  din::din_fwd_kernel<true><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(hist), static_cast<const float*>(tgt), a, f,
-      static_cast<float*>(out), B, s);
-  return cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fwd<Bf16>(hist, tgt, weights, out, B, s, st)
+              : launch_fwd<float>(hist, tgt, weights, out, B, s, st);
 }
 
 // The number of blocks (slots) din_head_bwd launches, for the launcher to size
 // part [blocks, slot size].
-int din_head_bwd_blocks(long long B, int L, int D, int A1, int A2, int F1, int F2) {
+int din_head_bwd_blocks(long long B, int L, int D, int A1, int A2, int F1, int F2, int bf16) {
   din::Layout s;
   if (!layout_for(B, L, D, A1, A2, F1, F2, true, &s)) return -1;
   int blocks = 0;
-  if (din::persistent_blocks(din_head_bwd_kernel, din::smem_bytes(s), (B + s.R - 1) / s.R,
-                             &blocks) != cudaSuccess) {
-    return -1;
-  }
-  return blocks;
+  const long long tiles = (B + s.R - 1) / s.R;
+  const cudaError_t err =
+      bf16 ? din::persistent_blocks(din_head_bwd_kernel<Bf16>, din::smem_bytes(s), tiles, &blocks)
+           : din::persistent_blocks(din_head_bwd_kernel<float>, din::smem_bytes(s), tiles, &blocks);
+  return err == cudaSuccess ? blocks : -1;
 }
 
-// The forward's inputs and the logit cotangent g [B] f32 -> dhist [B, L, D],
-// dtgt [B, D], the per-block slots part [blocks, slot size] (all but the fc
-// head's du1, du2) and the fc head's rows for din_head_bwd_fc: rows [B, 2D + 2 F1
-// + F2] as [pooled | t] [B, 2D], f1 [B, F1], dzf1 [B, F1], dzf2 [B, F2]; all f32;
-// `blocks` as din_head_bwd_blocks gave it.
+// The forward's inputs (f32, or bf16 with bf16 = 1) and the logit cotangent g [B]
+// f32 -> dhist [B, L, D], dtgt [B, D], the per-block slots part [blocks, slot
+// size] (all but the fc head's du1, du2) and the fc head's rows for
+// din_head_bwd_fc: rows [B, 2D + 2 F1 + F2] as [pooled | t] [B, 2D], f1 [B, F1],
+// dzf1 [B, F1], dzf2 [B, F2]; all outputs f32; `blocks` as din_head_bwd_blocks
+// gave it.
 int din_head_bwd(const void* hist, const void* tgt, const void* const* weights, const void* g,
                  void* dhist, void* dtgt, void* part, void* rows, long long B, int L, int D,
-                 int A1, int A2, int F1, int F2, int blocks, void* stream) {
+                 int A1, int A2, int F1, int F2, int blocks, int bf16, void* stream) {
   din::Layout s;
   if (!layout_for(B, L, D, A1, A2, F1, F2, true, &s) || blocks < 1) return cudaErrorInvalidValue;
-  const size_t smem = din::smem_bytes(s);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        din_head_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  din::AttentionWeights a;
-  din::FcWeights f;
-  split_weights(weights, &a, &f);
-  din_head_bwd_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(hist), static_cast<const float*>(tgt), a, f,
-      static_cast<const float*>(g), static_cast<float*>(dhist), static_cast<float*>(dtgt),
-      static_cast<float*>(part), static_cast<float*>(rows), B, s, grad_slots(D, A1, A2, F1, F2));
-  return cudaGetLastError();
+  const GradSlots o = grad_slots(D, A1, A2, F1, F2);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd<Bf16>(hist, tgt, weights, g, dhist, dtgt, part, rows, B, s, o, blocks, st)
+              : launch_bwd<float>(hist, tgt, weights, g, dhist, dtgt, part, rows, B, s, o, blocks, st);
 }
 
 // The fc head's weight gradients into the slots of part, from the rows
-// din_head_bwd wrote; `blocks` as din_head_bwd_blocks gave it.
+// din_head_bwd wrote (rounded to bf16 as they enter the products when bf16 = 1);
+// `blocks` as din_head_bwd_blocks gave it.
 int din_head_bwd_fc(const void* rows, void* part, long long B, int D, int A1, int A2, int F1,
-                    int F2, int blocks, void* stream) {
+                    int F2, int blocks, int bf16, void* stream) {
   if (!din::widths_ok(B, 1, D, A1, A2, F1, F2) || blocks < 1 || F1 > 4 * kThreads ||
       F2 > 4 * kThreads) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = fc_smem_bytes(D, F1, F2);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        din_head_bwd_fc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  din_head_bwd_fc_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rows), static_cast<float*>(part), B, D, F1, F2,
-      grad_slots(D, A1, A2, F1, F2));
-  return cudaGetLastError();
+  const GradSlots o = grad_slots(D, A1, A2, F1, F2);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_fc<Bf16>(rows, part, B, D, F1, F2, o, blocks, st)
+              : launch_bwd_fc<float>(rows, part, B, D, F1, F2, o, blocks, st);
 }
 
 // grad [total] f32 from the nparts slots of din_head_bwd.

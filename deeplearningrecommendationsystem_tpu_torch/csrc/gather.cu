@@ -78,6 +78,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -88,25 +90,6 @@ constexpr int kHashBits = 9;
 constexpr int kHashSlots = 1 << kHashBits;  // twice the tile: probes stay short
 constexpr int kUnroll = 8;                  // rows whose loads a lane issues before adding
 constexpr int kSplitMaxD = 1024;            // widest row whose split sums stay in shared memory
-
-// Makes `device` current for the entry point's calls and restores the previous
-// device after; sets nothing when it is current already.
-class DeviceGuard {
- public:
-  explicit DeviceGuard(int device) : target_(device) {
-    error_ = cudaGetDevice(&previous_);
-    if (error_ == cudaSuccess && previous_ != device) error_ = cudaSetDevice(device);
-  }
-  ~DeviceGuard() {
-    if (previous_ >= 0 && previous_ != target_) cudaSetDevice(previous_);
-  }
-  cudaError_t error() const { return error_; }
-
- private:
-  int target_;
-  int previous_ = -1;
-  cudaError_t error_;
-};
 
 template <class Id>
 __device__ __forceinline__ long long wrapped(const Id* ids, long long n, int V) {

@@ -12,10 +12,10 @@ Three parts, as there:
   so autograd maps the kernel's dwh, dwt, du1p and du1t back onto
   ``att.0.w`` [3D, A1] and ``fc.0.w`` [2D, F1];
 * two public wrappers, each with its plain PyTorch version beside it:
-  ``din_head_fwd(hist_e, target_e, weights)`` -> logits [B], and
-  ``din_head_bwd(hist_e, target_e, weights, g)`` -> (d hist [B, L, D],
-  d target [B, D], the 14 weight gradients), float32 as the Pallas backward
-  writes them before its cast;
+  ``din_head_fwd(hist_e, target_e, weights)`` -> logits [B] in the inputs'
+  dtype, and ``din_head_bwd(hist_e, target_e, weights, g)`` -> (d hist
+  [B, L, D], d target [B, D], the 14 weight gradients), float32 as the Pallas
+  backward writes them before its cast;
 * ``DinHead``, the differentiable head: its forward is the first wrapper and
   its backward the second, cast to each input's dtype as ``_din_head_bwd``
   casts.
@@ -23,7 +23,12 @@ Three parts, as there:
 The structure is the kernel's: two hidden layers in each net, attention
 3D -> A1 -> A2 -> 1 and fc 2D -> F1 -> F2 -> 1 (reference model/din.py:14-29).
 Dispatch is by device only: CPU tensors take the plain versions, CUDA
-tensors launch the kernels (``ops/cuda/din_head.py``; float32) or raise.
+tensors launch the kernels (``ops/cuda/din_head.py``) or raise.
+
+Precision follows the JAX kernel on float32 and on bfloat16 inputs alike (one
+dtype for all 16 inputs): every product takes its operands in the weights'
+dtype with float32 accumulation (``_mdot``, ``_cdot``); z, the relus, the
+softmax weights, the pooled vector, the biases and every sum stay float32.
 """
 
 from __future__ import annotations
@@ -65,26 +70,77 @@ def din_head_weights(att: Layers, fc: Layers, D: int) -> Tuple[torch.Tensor, ...
     )
 
 
+def _mdot(a, b):
+    """``a @ b`` with ``a`` cast to ``b``'s dtype, in float32: the JAX kernel's
+    ``_mdot`` (operands in the weights' dtype, float32 accumulation)."""
+    return a.to(b.dtype).float() @ b.float()
+
+
+def _cdot(a, b, dtype):
+    """``a^T @ b`` over the rows, both operands cast to ``dtype``, in float32:
+    the JAX kernel's ``_cdot`` (a weight gradient)."""
+    return a.to(dtype).float().T @ b.to(dtype).float()
+
+
+def _forward(hist_e, target_e, weights):
+    """The forward's intermediates, float32, positions flattened to rows:
+    (z1, z2 [B L, A], w [B, L], pooled [B, D], f1, f2 [B, F], logit [B, 1])."""
+    wh, wt, b1, w2, b2, w3, b3, u1p, u1t, c1, u2, c2, u3, c3 = weights
+    B, L, D = hist_e.shape
+    h = hist_e.reshape(B * L, D)
+    t_term = _mdot(target_e, wt) + b1.float()  # [B, A1]
+    z1 = _mdot(h, wh) + t_term.repeat_interleave(L, dim=0)
+    z2 = _mdot(torch.relu(z1), w2) + b2.float()
+    scores = (_mdot(torch.relu(z2), w3) + b3.float()).reshape(B, L)
+    w = torch.softmax(scores, dim=-1)
+    pooled = torch.einsum("bl,bld->bd", w, hist_e.float())
+    f1 = torch.relu(_mdot(pooled, u1p) + _mdot(target_e, u1t) + c1.float())
+    f2 = torch.relu(_mdot(f1, u2) + c2.float())
+    return z1, z2, w, pooled, f1, f2, _mdot(f2, u3) + c3.float()
+
+
 def din_head_fwd_plain(hist_e, target_e, weights):
     """Plain version of :func:`din_head_fwd`: ``attention_pool`` + ``mlp`` on the
-    decomposed weights, in the kernel's order of operations."""
-    wh, wt, b1, w2, b2, w3, b3, u1p, u1t, c1, u2, c2, u3, c3 = weights
-    z1 = hist_e @ wh + (target_e @ wt + b1)[:, None, :]
-    scores = (torch.relu(torch.relu(z1) @ w2 + b2) @ w3 + b3)[..., 0]  # [B, L]
-    w = torch.softmax(scores, dim=-1)
-    pooled = torch.einsum("bl,bld->bd", w, hist_e)
-    f1 = torch.relu(pooled @ u1p + target_e @ u1t + c1)
-    f2 = torch.relu(f1 @ u2 + c2)
-    return (f2 @ u3 + c3)[:, 0]
+    decomposed weights, in the kernel's order of operations and its precision.
+    The products take their operands in the weights' dtype (``_mdot``); sums,
+    relus, the softmax and the pool are float32; the logits come out in
+    ``hist_e``'s dtype."""
+    return _forward(hist_e, target_e, weights)[-1][:, 0].to(hist_e.dtype)
 
 
 def din_head_bwd_plain(hist_e, target_e, weights, g):
-    """Plain version of :func:`din_head_bwd`: autograd through the plain
-    forward, in float32."""
-    inputs = [t.detach().float().requires_grad_(True) for t in (hist_e, target_e, *weights)]
-    with torch.enable_grad():
-        out = din_head_fwd_plain(inputs[0], inputs[1], inputs[2:])
-        return torch.autograd.grad(out, inputs, g.float())
+    """Plain version of :func:`din_head_bwd`: the JAX kernel's backward written
+    out (``_bwd_kernel``), float32 gradients. Each product's operands are cast
+    to the weights' dtype (``_mdot``, ``_cdot``); the relu masks, the softmax's
+    backward, the bias sums and every accumulation stay float32."""
+    wh, wt, b1, w2, b2, w3, b3, u1p, u1t, c1, u2, c2, u3, c3 = weights
+    dt = wh.dtype
+    B, L, D = hist_e.shape
+    z1, z2, w, pooled, f1, f2, _ = _forward(hist_e, target_e, weights)
+    h, t = hist_e.reshape(B * L, D), target_e
+    gf = g.float()[:, None]  # [B, 1]
+    # the fc head
+    du3, dc3 = _cdot(f2, gf, dt), gf.sum(0, keepdim=True)
+    dzf2 = _mdot(gf, u3.T) * (f2 > 0)
+    du2, dc2 = _cdot(f1, dzf2, dt), dzf2.sum(0, keepdim=True)
+    dzf1 = _mdot(dzf2, u2.T) * (f1 > 0)
+    du1p, du1t, dc1 = _cdot(pooled, dzf1, dt), _cdot(t, dzf1, dt), dzf1.sum(0, keepdim=True)
+    dpooled, dtgt = _mdot(dzf1, u1p.T), _mdot(dzf1, u1t.T)
+    # the softmax: ds_l = w_l (dpooled . h_l - sum_k w_k dpooled . h_k)
+    dw_cols = torch.einsum("bd,bld->bl", dpooled, hist_e.float())
+    ds = (w * (dw_cols - (w * dw_cols).sum(-1, keepdim=True))).reshape(B * L, 1)
+    # the activation unit
+    dz2 = _mdot(ds, w3.T) * (z2 > 0)
+    dw3, db3 = _cdot(torch.relu(z2), ds, dt), ds.sum(0, keepdim=True)
+    dw2, db2 = _cdot(torch.relu(z1), dz2, dt), dz2.sum(0, keepdim=True)
+    dz1 = _mdot(dz2, w2.T) * (z1 > 0)
+    dwh, db1 = _cdot(h, dz1, dt), dz1.sum(0, keepdim=True)
+    dz1_rows = dz1.reshape(B, L, -1).sum(1)  # [B, A1]
+    dwt = _cdot(t, dz1_rows, dt)
+    dtgt = dtgt + _mdot(dz1_rows, wt.T)
+    dhist = w[..., None] * dpooled[:, None, :] + _mdot(dz1, wh.T).reshape(B, L, D)
+    return (dhist, dtgt, dwh, dwt, db1, dw2, db2, dw3, db3,
+            du1p, du1t, dc1, du2, dc2, du3, dc3)
 
 
 def din_head_fwd(hist_e, target_e, weights):

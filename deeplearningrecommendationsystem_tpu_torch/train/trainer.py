@@ -25,9 +25,12 @@ initial weights when it is built. ``fit(params=..., opt_state=...)`` resumes
 from a ``TrainResult``'s ``params`` and ``opt_state`` (or from the JAX
 package's, through ``weights.py``).
 
-Row-sharded tables (``mesh``) are not ported yet (``ROADMAP.md`` §1 item 13).
-The JAX config's gather-route flags have no counterpart: every route is the
-same kernel pair here (``ops/embedding.py``).
+Row-sharded tables (``mesh``, with the JAX config's ``ep_strategy`` and
+``unshard_params``) are not ported yet (``ROADMAP.md`` §1 item 13). The JAX
+config's gather-route flags (``matmul_gather_bwd``, ``pallas_gather``,
+``onehot_gather``) are accepted and have no effect: they chose among TPU
+routes for the id lookup, and every route is the same kernel pair here (the
+gather and ``onehot_grad`` of ``ops/embedding.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +60,10 @@ class TrainConfig:
     # backward (f32 master weights, f32 loss). None = pure f32 (parity mode).
     compute_dtype: Optional[str] = None
     mesh: Any = None  # row-sharded tables: not ported yet, must stay None
+    # the JAX gather routes, accepted with no effect (one kernel pair here)
+    matmul_gather_bwd: bool = False
+    pallas_gather: bool = False
+    onehot_gather: bool = False
 
 
 @dataclasses.dataclass

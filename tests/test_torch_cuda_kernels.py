@@ -1,9 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 serving top-k kernels, the embedding gather and its backward, the fused MF
 trainer, the fused LR trainers (wide and compact), the AFM attention pool
-(forward and backward), the fused DIN head (forward and backward) and the DIN
-attention pool. Every test here needs an NVIDIA GPU with nvcc and skips elsewhere; run
-them on the card with
+(forward and backward), the fused DIN head (forward and backward, float32 and
+bfloat16) and the DIN attention pool. Every test here needs an NVIDIA GPU with
+nvcc and skips elsewhere; run them on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_kernels.py tests/test_torch_isolation.py
@@ -63,40 +63,58 @@ def _assert_equal(got, want):
 
 # (U, I, D): ragged user tiles and item chunks, a catalog smaller than one
 # chunk, exactly one chunk, widths that are not a multiple of 4, and LR's
-# rank-2 serving factors over the ml-100k catalog
-SHAPES = [(37, 301, 16), (1, 100, 64), (9, 128, 7), (70, 1000, 100), (943, 1682, 2)]
+# rank-2 serving factors over the ml-100k catalog; then the split catalog's
+# grid: one user, a few, a served batch of 32 and all ml-100k users, over a
+# one-item catalog, one item short of a chunk, ml-100k's, and several slices a
+# user (with k in {1, 10, 50, 128})
+SHAPES = [(37, 301, 16), (1, 100, 64), (9, 128, 7), (70, 1000, 100), (943, 1682, 2)] + [
+    (U, I, 64) for U in (1, 3, 32, 943) for I in (1, 127, 1682, 5000)]
+KS = [1, 7, 10, 50, 128]
+
+
+def _one_launch(name, *args, k):
+    """The kernel's answer, after checking it took one launch, merge included."""
+    before = getattr(cuda_topk, name).launches
+    got = getattr(topk, name)(*args, k=k)
+    torch.cuda.synchronize()
+    assert getattr(cuda_topk, name).launches == before + 1
+    return got
 
 
 @pytest.mark.parametrize("U,I,D", SHAPES)
-@pytest.mark.parametrize("k", [1, 7, 50, 128])
+@pytest.mark.parametrize("k", KS)
 def test_topk_serve_matmul_equals_plain(cuda, U, I, D, k):
     if k > I:
         pytest.skip("k exceeds the catalog")
     P, Q, seen = _inputs(cuda, U, I, D, seed=U + I + k)
-    _assert_equal(topk.topk_serve_matmul(P, Q, seen, k=k),
+    _assert_equal(_one_launch("topk_serve_matmul", P, Q, seen, k=k),
                   topk.topk_serve_matmul_plain(P, Q, seen, k=k))
 
 
 @pytest.mark.parametrize("U,I,D", SHAPES)
-@pytest.mark.parametrize("k", [1, 7, 50, 128])
+@pytest.mark.parametrize("k", KS)
 def test_topk_scores_equals_plain(cuda, U, I, D, k):
     if k > I:
         pytest.skip("k exceeds the catalog")
     P, Q, seen = _inputs(cuda, U, I, D, seed=U * I + k)
     scores = P @ Q.T
-    _assert_equal(topk.topk_scores(scores, seen, k=k), topk.topk_scores_plain(scores, seen, k=k))
+    _assert_equal(_one_launch("topk_scores", scores, seen, k=k),
+                  topk.topk_scores_plain(scores, seen, k=k))
 
 
+@pytest.mark.parametrize("U,I,k", [(4, 300, 10), (1, 1682, 50), (2, 5000, 50)])
 @pytest.mark.parametrize("name", ["topk_serve_matmul", "topk_scores"])
-def test_user_with_fewer_unseen_items_than_k(cuda, name):
-    P, Q, seen = _inputs(cuda, 4, 300, 8, seed=4)
+def test_user_with_fewer_unseen_items_than_k(cuda, name, U, I, k):
+    """User 0 keeps three unseen items, in different slices of the catalog."""
+    P, Q, seen = _inputs(cuda, U, I, 8, seed=U + I)
+    keep = [5, I * 7 // 15, I - 10]
     seen[0] = True
-    seen[0, [5, 140, 290]] = False
+    seen[0, keep] = False
     args = (P, Q, seen) if name == "topk_serve_matmul" else (P @ Q.T, seen)
-    vals, ids = getattr(topk, name)(*args, k=10)
-    _assert_equal((vals, ids), getattr(topk, f"{name}_plain")(*args, k=10))
-    assert sorted(ids[0, :3].tolist()) == [5, 140, 290]
-    assert ids[0, 3:].tolist() == [0, 1, 2, 3, 4, 6, 7]
+    vals, ids = getattr(topk, name)(*args, k=k)
+    _assert_equal((vals, ids), getattr(topk, f"{name}_plain")(*args, k=k))
+    assert sorted(ids[0, :3].tolist()) == keep
+    assert ids[0, 3:].tolist() == [i for i in range(k + 1) if i != 5][:k - 3]
     assert bool((vals[0, 3:] < -1e29).all())
 
 
@@ -124,6 +142,114 @@ def test_launchers_check_their_inputs(cuda):
             cuda_topk.topk_serve_matmul(*args, **kwargs)
     with pytest.raises(ValueError):
         cuda_topk.topk_scores(P @ Q.T, seen, k=0)
+
+
+@pytest.mark.parametrize("name", ["topk_serve_matmul", "topk_scores"])
+def test_equal_values_in_different_slices(cuda, name):
+    """The best value sits at items scattered over every slice, and the rest tie
+    at 0: the lowest indices win both ties, whichever slice finishes first."""
+    U, I, D, k = 3, 5000, 8, 100
+    best = [4999, 3001, 17, 2500, 1200, 4095, 256, 255]
+    Q = torch.zeros((I, D), device=cuda)
+    Q[best, 0] = 1.0
+    P = torch.zeros((U, D), device=cuda)
+    P[:, 0] = 7.0
+    seen = torch.zeros((U, I), dtype=torch.bool, device=cuda)
+    seen[2, 17] = True
+    args = (P, Q, seen) if name == "topk_serve_matmul" else (P @ Q.T, seen)
+    for _ in range(3):  # the blocks finish in another order each time
+        vals, ids = getattr(topk, name)(*args, k=k)
+        _assert_equal((vals, ids), getattr(topk, f"{name}_plain")(*args, k=k))
+    rest = [i for i in range(I) if i not in best]
+    assert ids[0].tolist() == sorted(best) + rest[:k - len(best)]
+    assert ids[2, :7].tolist() == sorted(set(best) - {17})
+
+
+@pytest.mark.parametrize("name", ["topk_serve_matmul", "topk_scores"])
+def test_a_row_that_is_all_seen(cuda, name):
+    P, Q, seen = _inputs(cuda, 3, 1682, 64, seed=5)
+    seen[1] = True
+    args = (P, Q, seen) if name == "topk_serve_matmul" else (P @ Q.T, seen)
+    vals, ids = getattr(topk, name)(*args, k=50)
+    _assert_equal((vals, ids), getattr(topk, f"{name}_plain")(*args, k=50))
+    assert ids[1].tolist() == list(range(50)) and bool((vals[1] == -1e30).all())
+
+
+@pytest.mark.parametrize("U,I,D", [(37, 5000, 64), (600, 20_000, 64), (943, 1682, 2)])
+def test_topk_serve_matmul_keeps_float32_accuracy(cuda, U, I, D):
+    """Normal inputs: the 3xTF32 scores within 1e-4 of each row's largest
+    |score| of cuBLAS's float32 ones (chip_smoke.py's RTOL); each id carries its
+    own score. (600, 20000) takes the 64-user tiles."""
+    g = torch.Generator(device=cuda).manual_seed(U)
+    P = torch.randn((U, D), generator=g, device=cuda)
+    Q = torch.randn((I, D), generator=g, device=cuda)
+    seen = torch.rand((U, I), generator=g, device=cuda) < 0.05
+    vals, ids = topk.topk_serve_matmul(P, Q, seen, k=50)
+    want_v, _ = topk.topk_serve_matmul_plain(P, Q, seen, k=50)
+    scores = torch.where(seen, -1e30, P @ Q.T)
+    tol = 1e-4 * scores.masked_fill(seen, 0).abs().amax(dim=1, keepdim=True)
+    assert bool(((vals - want_v).abs() <= tol).all())
+    assert bool(((torch.gather(scores, 1, ids.long()) - vals).abs() <= tol).all())
+    assert bool((ids.sort(dim=1).values.diff(dim=1) > 0).all())  # no id repeats
+
+
+def test_wide_tiles_equal_plain(cuda):
+    P, Q, seen = _inputs(cuda, 600, 20_000, 64, seed=8)
+    assert cuda_topk.matmul_plan(600, 20_000, 64, P.get_device())[0]  # the 64-user tiles
+    _assert_equal(topk.topk_serve_matmul(P, Q, seen, k=128),
+                  topk.topk_serve_matmul_plain(P, Q, seen, k=128))
+
+
+def test_topk_runs_on_the_callers_stream(cuda):
+    """A split launch on a side stream, with its own workspace, equals the
+    default stream's answer."""
+    P, Q, seen = _inputs(cuda, 32, 1682, 64, seed=12)
+    want = topk.topk_serve_matmul_plain(P, Q, seen, k=50)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [topk.topk_serve_matmul(P, Q, seen, k=50), topk.topk_scores(P @ Q.T, seen, k=50)]
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for g_ in got:
+        _assert_equal(g_, want)
+
+
+
+def test_split_launches_from_two_threads_on_one_stream(cuda):
+    """Two threads launch split top-k calls on the one default stream from an
+    empty workspace cache, one of them at a larger catalog (more slices, longer
+    lists), the other at more users (more counters), so each grows the
+    stream's workspace: every answer equals the plain version's, so no launch
+    finds counters that are not yet zero or reads another's lists."""
+    import threading
+
+    cases = [_inputs(cuda, 32, 1682, 64, seed=13), _inputs(cuda, 3, 50_000, 64, seed=14)]
+    scores = [P @ Q.T for P, Q, _ in cases]
+    wants = [(topk.topk_serve_matmul_plain(P, Q, s, k=50), topk.topk_scores_plain(S, s, k=50))
+             for (P, Q, s), S in zip(cases, scores)]
+    assert all(cuda_topk.matmul_plan(P.shape[0], Q.shape[0], 64, P.get_device())[2] > 1
+               for P, Q, _ in cases)  # both calls split the catalog
+    got = [[], []]
+    torch.cuda.synchronize()
+    cuda_topk._workspaces.clear()
+
+    def run(j):
+        (P, Q, s), S = cases[j], scores[j]
+        for _ in range(50):
+            got[j].append((topk.topk_serve_matmul(P, Q, s, k=50), topk.topk_scores(S, s, k=50)))
+
+    threads = [threading.Thread(target=run, args=(j,)) for j in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for j in range(2):
+        assert len(got[j]) == 50
+        for mm, sc in got[j]:
+            _assert_equal(mm, wants[j][0])
+            _assert_equal(sc, wants[j][1])
 
 
 # ---- the embedding gather and its backward (csrc/gather.cu)
@@ -622,6 +748,61 @@ def test_din_head_autograd_on_the_card(cuda):
         for lc, lp in zip(nc, npu) for k in lc if lc is not a_card[2] or k != "b"]
     for got, want in pairs:
         _close(got.grad.cpu(), want.grad, 1e-4)
+
+
+def _bf16(*tensors):
+    return [t.to(torch.bfloat16) for t in tensors]
+
+
+# bf16 kernel against the bf16 plain version: both round the same operands to
+# bf16, but their float32 sums run in another order, so a rounded value can
+# land on the other bf16 neighbour: normwise 8e-3 forward (one bf16 ulp of the
+# largest logit is up to 2^-7 of it) and 1e-2 backward (the JAX kernel's own
+# bf16 test allows 2e-2 against float32)
+DIN_BF16_RTOL = {"fwd": 8e-3, "bwd": 1e-2}
+
+
+@pytest.mark.parametrize("B,L,D,A,F", DIN_SHAPES)
+def test_din_head_fused_bf16_matches_plain(cuda, B, L, D, A, F):
+    att, fc, hist, tgt, _ = _din_inputs(cuda, B, L, D, A, F, seed=B + L)
+    weights = _bf16(*dh.din_head_weights(att, fc, D))
+    hist, tgt = _bf16(hist, tgt)
+    got = dh.din_head_fwd(hist, tgt, weights)
+    torch.cuda.synchronize()
+    want = dh.din_head_fwd_plain(hist, tgt, weights)
+    assert got.shape == (B,) and got.dtype == want.dtype == torch.bfloat16
+    _close(got.float(), want.float(), DIN_BF16_RTOL["fwd"])
+
+
+@pytest.mark.parametrize("B,L,D,A,F", [s for s in DIN_SHAPES if s[0] < 20_000])
+def test_din_head_fused_bwd_bf16_matches_plain(cuda, B, L, D, A, F):
+    att, fc, hist, tgt, cot = _din_inputs(cuda, B, L, D, A, F, seed=B + D)
+    weights = _bf16(*dh.din_head_weights(att, fc, D))
+    hist, tgt, cot = _bf16(hist, tgt, cot)
+    before = cuda_dh.din_head_fused_bwd.launches
+    got = dh.din_head_bwd(hist, tgt, weights, cot)
+    torch.cuda.synchronize()
+    assert cuda_dh.din_head_fused_bwd.launches == before + 3
+    want = dh.din_head_bwd_plain(hist, tgt, weights, cot)
+    for i, (gt, wt) in enumerate(zip(got, want)):
+        assert gt.shape == wt.shape and gt.dtype == torch.float32
+        if i == DB3:
+            _close_db3(gt, wt, cot.float())
+        else:
+            _close(gt, wt, DIN_BF16_RTOL["bwd"])
+
+
+def test_din_head_launcher_refuses_mixed_dtypes(cuda):
+    att, fc, hist, tgt, cot = _din_inputs(cuda, 10, 10, 8, (12, 8, 1), (16, 8, 1), seed=0)
+    weights = dh.din_head_weights(att, fc, 8)
+    mixes = [(hist.bfloat16(), tgt, weights), (hist, tgt.bfloat16(), weights),
+             (hist.bfloat16(), tgt.bfloat16(), weights),
+             (hist, tgt, weights[:5] + (weights[5].bfloat16(),) + weights[6:])]
+    for args in mixes:
+        with pytest.raises(TypeError):
+            cuda_dh.din_head_fused(*args)
+        with pytest.raises(TypeError):
+            cuda_dh.din_head_fused_bwd(*args, cot)
 
 
 @pytest.mark.parametrize("B,L,D,A,F", DIN_SHAPES)

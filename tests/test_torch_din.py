@@ -9,7 +9,8 @@ weights (``params_from_jax``), at a small width: 200 items, D 16, attention
 * both catalog scorers against JAX's ``score_catalog`` (atol 1e-5): the
   window scorer and the bucketed full-history scorer with small buckets;
 * N Trainer epochs against the JAX ``Trainer`` on the same batch (losses
-  rtol 1e-5, params atol 5e-5);
+  rtol 1e-5, params atol 5e-5), and under bfloat16 compute against the JAX
+  DIN's Pallas head (losses rtol 1e-5, params atol 5e-4);
 * ``run_experiment(PRESETS["din"])`` in both packages on a synthetic
   ml-100k-format dataset, the port fed the JAX sampler's draws and initial
   params, with full-history and window serving; tolerances as
@@ -254,6 +255,36 @@ def test_trainer_matches_jax(params, batch):
                       device="cpu").fit(tb, opt_state=opt_state_from_jax(model, want.opt_state))
     np.testing.assert_allclose(resumed.history["train_loss"].numpy(),
                                np.asarray(again.history["train_loss"]), rtol=1e-5)
+
+
+def test_trainer_bfloat16_matches_jax(params, batch, monkeypatch):
+    """Three epochs under ``compute_dtype="bfloat16"``: the JAX DIN with
+    ``fused_head=True`` (the Pallas head, in interpret mode), as the port always
+    trains through its head. Both round the same operands to bf16, but sums in
+    another order can land a value on the other bf16 neighbour, and Adam's
+    normalised steps carry that: losses rtol 1e-5, params atol 5e-4
+    (measured: 1.8e-7 and 6.8e-5)."""
+    import functools
+
+    import deeplearningrecommendationsystem_tpu.ops.pallas.din_head as jax_head
+
+    monkeypatch.setattr(jax_head, "din_head_fused",
+                        functools.partial(jax_head.din_head_fused, interpret=True,
+                                          block_rows=32, bwd_block_rows=32))
+    hist, target, y = batch
+    jb = ((jnp.asarray(hist), jnp.asarray(target)), jnp.asarray(y))
+    tb = ((torch.from_numpy(hist), torch.from_numpy(target)), torch.from_numpy(y))
+    jcfg = dict(learning_rate=1e-3, weight_decay=1e-5, epochs=3, compute_dtype="bfloat16")
+    want = JaxTrainer(JaxDIN(I, **KW, fused_head=True), JaxConfig(**jcfg)).fit(
+        jax.random.PRNGKey(0), jb, valid=jb, test=jb, params=jax.tree.map(jnp.asarray, params))
+    got = Trainer(_port(params), TrainConfig(**jcfg), device="cpu").fit(tb, valid=tb, test=tb)
+    for key in ("train_loss", "valid_loss", "test_loss"):
+        np.testing.assert_allclose(got.history[key].numpy(), np.asarray(want.history[key]),
+                                   rtol=1e-5, err_msg=key)
+    want_params = _flat(want.params)
+    for k, v in got.params.items():
+        assert v.dtype == torch.float32  # f32 master weights
+        np.testing.assert_allclose(v.numpy(), want_params[k], atol=5e-4, err_msg=k)
 
 
 # ---- run_experiment and build_server on a synthetic dataset

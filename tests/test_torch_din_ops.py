@@ -12,6 +12,11 @@ weights, at a small width (D 16, attention (32, 16, 1), fc (64, 32, 1), L 10).
   test's);
 * the plain DIN attention pool against ``din_attention_pool_pallas`` in
   interpret mode (atol 2e-5, as ``tests/test_kernels.py`` holds it);
+* the bfloat16 path of the plain DIN head, forward and backward, against the
+  Pallas kernels in interpret mode on the same bf16 inputs, at B 37, L 5, D 8,
+  attention (8, 4, 1), fc (16, 8, 1): logits within one bf16 ulp each,
+  gradients normwise rtol 1e-5 (tighter than the JAX test's 2e-2, which an
+  unrounded float32 computation passes); that float32 computation fails both;
 * the public wrappers take the plain versions on CPU tensors.
 """
 
@@ -25,7 +30,11 @@ from deeplearningrecommendationsystem_tpu.models import DIN as JaxDIN
 from deeplearningrecommendationsystem_tpu.ops import attention as jax_attention
 from deeplearningrecommendationsystem_tpu.ops.linear import mlp as jax_mlp
 from deeplearningrecommendationsystem_tpu.ops.pallas.din_attention import din_attention_pool_pallas
-from deeplearningrecommendationsystem_tpu.ops.pallas.din_head import _weights_tuple, din_head_fused
+from deeplearningrecommendationsystem_tpu.ops.pallas.din_head import (
+    _call_bwd,
+    _weights_tuple,
+    din_head_fused,
+)
 from deeplearningrecommendationsystem_tpu_torch.ops import attention, din_attention
 from deeplearningrecommendationsystem_tpu_torch.ops import din_head as dh
 from deeplearningrecommendationsystem_tpu_torch.ops.linear import mlp, mlp_init
@@ -161,3 +170,100 @@ def test_plain_pool_matches_pallas(params):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
     np.testing.assert_allclose(din_attention.din_attention_pool(h, t, att).numpy(), got.numpy(),
                                rtol=1e-6, atol=1e-7)
+
+
+# ---- the bfloat16 path: the port's plain versions against the Pallas kernels in
+# interpret mode on the same bf16 inputs. Both round the same operands to bf16
+# and sum in float32, so the logits agree within BF16_ULPS bf16 ulp each and
+# the gradients within BF16_RTOL of each tensor's largest |value| (measured: 0
+# ulp, 2e-7). The JAX test's normwise 2e-2 (tests/test_din_head_kernel.py::
+# test_bf16_inputs_supported) cannot tell rounding from not rounding: the same
+# values in float32 throughout are 6e-3 off in the logits (up to 20 ulp) and
+# 2e-3 to 1.5e-2 in the gradients, and test_bf16_limits_fail_unrounded_float32
+# holds these limits to failing it.
+
+BF16_DIMS = dict(B=37, L=5, D=8, A=(8, 4, 1), F=(16, 8, 1))  # B ragged against blocks of 16
+BF16_ULPS, BF16_RTOL = 1, 1e-5
+# gradients the rounding moves (d b3 is 0 in exact arithmetic; d c2, d c3 are
+# sums of g and of dzf2 alone)
+BF16_ROUNDED = ("hist", "target", "wh", "wt", "b1", "w2", "b2", "w3", "u1p", "u1t", "c1",
+                "u2", "u3")
+
+
+def _bf16_case():
+    B, L, Dn = BF16_DIMS["B"], BF16_DIMS["L"], BF16_DIMS["D"]
+    p = JaxDIN(ITEMS, embed_size=Dn, attention_units=BF16_DIMS["A"],
+               fc_units=BF16_DIMS["F"]).init(jax.random.PRNGKey(1))
+    p = jax.tree.map(lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16)), p)
+    rng = np.random.default_rng(11)
+    bf = lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16))  # noqa: E731
+    hist = bf(0.5 * rng.normal(size=(B, L, Dn)))
+    tgt = bf(0.5 * rng.normal(size=(B, Dn)))
+    cot = bf(rng.normal(size=B))
+    to_t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)  # noqa: E731
+    tree = [{k: to_t(v) for k, v in layer.items()} for layer in p["att"]], \
+        [{k: to_t(v) for k, v in layer.items()} for layer in p["fc"]]
+    return p, (hist, tgt, cot), tree, (to_t(hist), to_t(tgt), to_t(cot))
+
+
+def _normwise(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max()) / float(np.abs(want).max())
+
+
+def _ulps(got, want):
+    """Largest |got - want| in bf16 ulps of each element of ``want``."""
+    want = torch.as_tensor(np.asarray(want, np.float32))
+    _, e = torch.frexp(want.abs())  # |want| = m 2^e, m in [0.5, 1): ulp 2^(e - 8)
+    return float(((torch.as_tensor(np.asarray(got, np.float32)) - want).abs()
+                  / torch.ldexp(torch.ones_like(want), e - 8)).max())
+
+
+def test_bf16_plain_head_forward_matches_pallas():
+    p, (hist, tgt, _), (att, fc), (h, t, _) = _bf16_case()
+    want = din_head_fused(p["att"], p["fc"], jnp.asarray(hist), jnp.asarray(tgt),
+                          block_rows=16, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    weights = dh.din_head_weights(att, fc, BF16_DIMS["D"])
+    got = dh.din_head_fwd_plain(h, t, weights)
+    assert got.dtype == torch.bfloat16 and got.shape == (BF16_DIMS["B"],)
+    assert _ulps(got.float().numpy(), want) <= BF16_ULPS
+    assert torch.equal(dh.din_head_fwd(h, t, weights), got)  # the wrapper on CPU tensors
+
+
+def test_bf16_plain_head_backward_matches_pallas():
+    """``din_head_bwd_plain`` against ``_call_bwd`` (the Pallas backward's float32
+    outputs, before its cast). d b3 is 0 in exact arithmetic and held to 1e-4 of
+    sum |g|, as rounding noise."""
+    p, (hist, tgt, cot), (att, fc), (h, t, g) = _bf16_case()
+    jweights = _weights_tuple(p["att"], p["fc"], BF16_DIMS["D"])
+    want = _call_bwd(jnp.asarray(hist), jnp.asarray(tgt), tuple(jnp.asarray(w) for w in jweights),
+                     jnp.asarray(cot), 16, True)
+    weights = dh.din_head_weights(att, fc, BF16_DIMS["D"])
+    got = dh.din_head_bwd_plain(h, t, weights, g)
+    names = ("hist", "target") + dh.WEIGHT_NAMES
+    assert len(got) == len(want) == len(names)
+    for name, gt, wt in zip(names, got, want):
+        assert gt.dtype == torch.float32 and tuple(gt.shape) == tuple(wt.shape), name
+        if name == "b3":
+            assert abs(float(gt) - float(wt[0, 0])) <= 1e-4 * float(np.abs(cot.astype(np.float32)).sum())
+        else:
+            assert _normwise(gt.numpy(), wt) <= BF16_RTOL, f"d{name}"
+
+
+def test_bf16_limits_fail_unrounded_float32():
+    """The bf16 limits above tell rounding from not rounding: the same bf16
+    values through the plain head in float32 throughout (no operand rounded)
+    miss the bf16 plain version's logits by more than BF16_ULPS and each
+    rounded gradient by more than 10 x BF16_RTOL."""
+    _, _, (att, fc), (h, t, g) = _bf16_case()
+    weights = dh.din_head_weights(att, fc, BF16_DIMS["D"])
+    w32 = tuple(w.float() for w in weights)
+    bf16 = dh.din_head_fwd_plain(h, t, weights).float().numpy()
+    f32 = dh.din_head_fwd_plain(h.float(), t.float(), w32).to(torch.bfloat16).float().numpy()
+    assert _ulps(f32, bf16) > BF16_ULPS
+    got = dict(zip(("hist", "target") + dh.WEIGHT_NAMES, dh.din_head_bwd_plain(h, t, weights, g)))
+    unrounded = dict(zip(("hist", "target") + dh.WEIGHT_NAMES,
+                         dh.din_head_bwd_plain(h.float(), t.float(), w32, g.float())))
+    for name in BF16_ROUNDED:
+        assert _normwise(unrounded[name].numpy(), got[name].numpy()) > 10 * BF16_RTOL, name

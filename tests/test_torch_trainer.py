@@ -158,3 +158,31 @@ def test_trainer_rejects_a_mesh():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Trainer(MatrixFactorization(U, I, D, device="cpu"), TrainConfig(mesh=object()),
                 device="cpu")
+
+
+def test_config_takes_the_jax_fields():
+    """Every field of the JAX ``TrainConfig`` but the row-sharding pair
+    (``ep_strategy``, ``unshard_params``: they come with ``mesh``) builds the
+    port's, with the JAX defaults."""
+    import dataclasses
+
+    jax_fields = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    shared = {k: v for k, v in jax_fields.items() if k not in ("ep_strategy", "unshard_params")}
+    cfg = TrainConfig(**shared)
+    assert {f.name for f in dataclasses.fields(TrainConfig)} == set(shared)
+    for name in ("matmul_gather_bwd", "pallas_gather", "onehot_gather"):
+        assert getattr(cfg, name) is False
+        assert TrainConfig(**{name: True}).mesh is None
+
+
+@pytest.mark.parametrize("flag", ["matmul_gather_bwd", "pallas_gather", "onehot_gather"])
+def test_gather_route_flags_leave_the_losses_unchanged(data, flag):
+    params, splits, _ = data
+    plain = _run_port(params, splits, epochs=2)
+    model = params_from_jax(MatrixFactorization(U, I, D, device="cpu"), params)
+    flagged = Trainer(model, TrainConfig(learning_rate=LR, weight_decay=WD, epochs=2,
+                                         track_metrics=True, **{flag: True}), device="cpu").fit(
+        _port_split(splits["train"]), valid=_port_split(splits["valid"]),
+        test=_port_split(splits["test"]))
+    for key in ("train_loss", "valid_loss", "test_loss", "_param_checksum"):
+        assert torch.equal(flagged.history[key], plain.history[key]), key

@@ -4,12 +4,15 @@
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 tools/profile_torch_train.py [--model mf|lr|afm|din ...] [--epochs 20]
+        [--compute-dtype bfloat16]
 
 On a synthetic ml-100k-format dataset at each preset's full width it runs,
 under ``torch.profiler`` (CPU and CUDA activity), after one warm-up run each:
 
 * ``Trainer.fit`` with per-epoch metrics (``run_experiment``'s training call);
 * ``Trainer.fit`` without them (``cli/serve.py``'s training call);
+  both under ``TrainConfig(compute_dtype=...)`` when ``--compute-dtype`` is
+  given (``bfloat16``: DIN's head kernels take their bf16 path);
 * for MF, ``MatrixFactorization.fast_fit`` (the fused kernel), float32; for
   LR, ``LogisticRegression.fast_fit`` in its compact and wide modes. DIN
   has no fused trainer: its two runs go through the fused DIN head kernels.
@@ -77,7 +80,7 @@ def profiled(name: str, fn, epochs: int) -> dict:
     }
 
 
-def runs(name: str, ds: MovieLens100K, epochs: int, dev):
+def runs(name: str, ds: MovieLens100K, epochs: int, dev, compute_dtype=None):
     """(run name, rows, call) of each run profiled for the preset ``name``."""
     cfg = PRESETS[name].replace(epochs=epochs)
     b = split_batches(cfg, ds, dev)
@@ -87,7 +90,8 @@ def runs(name: str, ds: MovieLens100K, epochs: int, dev):
         model = build_model(cfg, ds).to(dev)
         tr = Trainer(model, TrainConfig(learning_rate=cfg.learning_rate,
                                         weight_decay=cfg.weight_decay, epochs=epochs,
-                                        track_metrics=track), device=dev)
+                                        track_metrics=track, compute_dtype=compute_dtype),
+                     device=dev)
         return lambda: tr.fit(train, valid=valid, test=test)
 
     model = build_model(cfg, ds).to(dev)
@@ -107,6 +111,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", nargs="+", choices=["mf", "lr", "afm", "din"], default=["mf"])
     ap.add_argument("--epochs", type=int, default=20)
+    ap.add_argument("--compute-dtype", choices=["bfloat16"], default=None,
+                    help="Trainer.fit's compute dtype (default: float32 throughout)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: CUDA is not available; this script needs an NVIDIA GPU",
@@ -116,9 +122,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ds = MovieLens100K(write_ml100k_format(tmp, seed=0), seed=0)
     for name in args.model:
-        for run, rows, fn in runs(name, ds, args.epochs, dev):
-            print(json.dumps({"model": name, **profiled(run, fn, args.epochs), "rows": rows}),
-                  flush=True)
+        for run, rows, fn in runs(name, ds, args.epochs, dev, args.compute_dtype):
+            print(json.dumps({"model": name, "compute_dtype": args.compute_dtype or "float32",
+                              **profiled(run, fn, args.epochs), "rows": rows}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     return 0
