@@ -21,7 +21,8 @@ no result line.
    served batch, a single-user request) carry ``host_us``, the host's time per
    launcher call, and ``library_host_us``, the same for the library call; where
    a call is host-bound, kernel and library are timed in turns. The DIN head
-   is checked in float32 and in bfloat16;
+   is checked in float32 and in bfloat16, in bfloat16 also at ragged widths
+   (DIN_RAGGED) at the train batch's row count;
 4. train   -- the MF training path (slice 2) through the entry points a user
    calls: ``run_experiment(PRESETS["mf"])`` for 20 epochs at full width on a
    synthetic ml-100k-format dataset, then ``MatrixFactorization.fast_fit`` on
@@ -188,6 +189,11 @@ DIN_BF16_ROWS_OFF, DIN_BF16_BWD_RTOL, DIN_BF16_KINK = 4, 1e-3, 2e-4
 # sum of g, d c2 a masked product of g alone)
 DIN_BF16_ROUNDED = ("hist", "target", "wh", "wt", "b1", "w2", "b2", "w3", "u1p", "u1t", "c1",
                     "u2", "u3")
+# (L, D, A, F) of the bf16 head rows at ragged widths: none of D, A or F a
+# multiple of 8 or 16, so the tensor-core products' fragments end inside a width
+# (zero fill past K and N); taken at the train batch's row count, where the
+# bf16 limits' counts were set
+DIN_RAGGED = (7, 8, (12, 8, 1), (20, 12, 1))
 DIN_EPOCHS = 3  # the CPU reference's plain path is slow at full width
 DIN_BF16_EPOCHS = 2  # DIN under bf16 compute: fewer epochs, for the run's time
 HISTORY_TILE = 16  # users per tile of catalog_scores_from_history
@@ -1539,14 +1545,17 @@ def main() -> int:
         emit({"phase": "kernel_check", "kernel": "afm_attention_pool_bwd",
               **rows["afm_attention_pool_bwd"][-1]})
         din_dims = (din_cfg.hist_len, din_cfg.model_kwargs["embed_size"], DIN_ATTENTION, DIN_FC)
-        for name, part, B, label, dtype in (
-                ("din_head_fused", "fwd", din_rows, "train batch", torch.float32),
-                ("din_head_fused_bwd", "bwd", din_rows, "train batch", torch.float32),
-                ("din_attention_pool", "pool", HISTORY_TILE * ds.num_items,
+        ragged = "train batch's rows at ragged widths"
+        for name, part, B, dims, label, dtype in (
+                ("din_head_fused", "fwd", din_rows, din_dims, "train batch", torch.float32),
+                ("din_head_fused_bwd", "bwd", din_rows, din_dims, "train batch", torch.float32),
+                ("din_attention_pool", "pool", HISTORY_TILE * ds.num_items, din_dims,
                  f"window tile of {HISTORY_TILE} users", torch.float32),
-                ("din_head_fused", "fwd", din_rows, "train batch", torch.bfloat16),
-                ("din_head_fused_bwd", "bwd", din_rows, "train batch", torch.bfloat16)):
-            rows[name].append(check_din(part, B, *din_dims, gen, label, dtype))
+                ("din_head_fused", "fwd", din_rows, din_dims, "train batch", torch.bfloat16),
+                ("din_head_fused_bwd", "bwd", din_rows, din_dims, "train batch", torch.bfloat16),
+                ("din_head_fused", "fwd", din_rows, DIN_RAGGED, ragged, torch.bfloat16),
+                ("din_head_fused_bwd", "bwd", din_rows, DIN_RAGGED, ragged, torch.bfloat16)):
+            rows[name].append(check_din(part, B, *dims, gen, label, dtype))
             emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
         torch.cuda.empty_cache()
         emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0})

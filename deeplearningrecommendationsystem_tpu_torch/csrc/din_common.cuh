@@ -8,8 +8,8 @@
 // activations live in shared memory; the weights are read through the read-only
 // data path (L1, then L2: at the DIN preset they are 361 KB, more than a block's
 // shared memory). Rows past B are staged as zeros and never read from device
-// memory, and their outputs are not written. Every product is float32 FMA on
-// CUDA cores, with a fixed order of summation, so a launch repeats bit for bit.
+// memory, and their outputs are not written. Every product has a fixed order of
+// summation, so a launch repeats bit for bit.
 //
 // Storage type T: float, or __nv_bfloat16 for the DIN head's bf16 path. History,
 // target and weights are read in T and widened to float32 as they are staged or
@@ -21,6 +21,15 @@
 // Accumulation, z, the relu masks, the softmax and the pooled vector stay
 // float32.
 //
+// The products: float32 FMA on CUDA cores for float (block_mm_fma,
+// block_mm_tn_acc_fma); for bf16 warp-level mma.sync m16n8k16 on the tensor
+// cores with float32 accumulation (block_mm_mma, block_mm_tn_acc_mma), each
+// operand rounded to the nearest bf16 as it is packed into its fragment (the
+// rounding of op<bf16>), so the operands are those of the CUDA-core path and
+// only the order of summation differs. A caller can keep bf16 products on the
+// CUDA cores (kTensor false): din_head.cu's backward does, for its recompute of
+// the forward.
+//
 // Widths D, A1, A2, F1, F2 must be multiples of 4 (float4 loads, or 8-byte
 // quads of bf16), L at most kMaxHistory; the Python launchers check them.
 
@@ -30,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 namespace din {
@@ -161,8 +171,8 @@ __device__ __forceinline__ float relu(float x) { return fmaxf(x, 0.f); }
 // groups: its loads of B touch 64 contiguous bytes and its loads of A 8 rows, so
 // B leaves L2 about 8 times less often than with one row group a warp.
 template <int TM, bool kTransB, class T, class Epi>
-__device__ __forceinline__ void block_mm(const float* A, int lda, const T* __restrict__ B,
-                                         int ldb, int M, int K, int N, Epi epi) {
+__device__ __forceinline__ void block_mm_fma(const float* A, int lda, const T* __restrict__ B,
+                                             int ldb, int M, int K, int N, Epi epi) {
   const int groups = (M + TM - 1) / TM, n4 = N >> 2;
   const int tile_rows = (groups + 7) >> 3;
   const int lanes = tile_rows * ((n4 + 3) >> 2) * 32;
@@ -212,8 +222,9 @@ __device__ __forceinline__ void block_mm(const float* A, int lda, const T* __res
 // memory, both entering the product as op<T>; each thread owns 4 x 4 patches of G
 // and sums over m in order.
 template <class T>
-__device__ __forceinline__ void block_mm_tn_acc(const float* X, int ldx, const float* Z, int ldz,
-                                                int M, int K, int N, float* __restrict__ G) {
+__device__ __forceinline__ void block_mm_tn_acc_fma(const float* X, int ldx, const float* Z,
+                                                    int ldz, int M, int K, int N,
+                                                    float* __restrict__ G) {
   const int n4 = N >> 2;
   const int patches = (K >> 2) * n4;
   for (int p = threadIdx.x; p < patches; p += blockDim.x) {
@@ -241,6 +252,190 @@ __device__ __forceinline__ void block_mm_tn_acc(const float* X, int ldx, const f
       v.x += acc[i][0], v.y += acc[i][1], v.z += acc[i][2], v.w += acc[i][3];
       g = v;
     }
+  }
+}
+
+// ------------------------------------------------------------ tensor cores (bf16)
+//
+// mma.sync m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"): with
+// g = lane / 4 and t = lane % 4, a lane holds A (16 x 16, row-major) as
+// {(g, 2t..2t+1), (g+8, 2t..2t+1), (g, 2t+8..2t+9), (g+8, 2t+8..2t+9)}, B (16 x 8,
+// by column) as {(2t..2t+1, g), (2t+8..2t+9, g)} and C (16 x 8, float32) as
+// (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1); each 32-bit register packs two
+// bf16, the lower index in the low half. Fragment elements past M, K or N are
+// zeros, and nothing past them is read.
+
+constexpr int kMmaNT = 2;  // n8 tiles a warp takes per task: its A fragment serves both
+
+// acc (16 x 8, float32) += a (16 x 16, bf16) b (16 x 8, bf16). The tensor core
+// sums the 16 products from a zero accumulator and acc takes that sum with a
+// rounded float32 add: summed inside the mma, acc would be aligned with each
+// step's products and truncated, an error that grows with every step.
+__device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  float d[4];
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+  acc[0] += d[0], acc[1] += d[1], acc[2] += d[2], acc[3] += d[3];
+}
+
+// x and y rounded to the nearest bf16 (op<bf16>'s rounding), packed with x low.
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+constexpr int kMmaSteps = 4;  // k16 steps whose loads a warp issues before their mmas
+
+// block_mm for bf16 B on the tensor cores. The reduction is over all of a k16
+// step whatever order its terms take, so a step's slots map to k as suits the
+// loads: lane t's slots 2t, 2t + 1, 2t + 8, 2t + 9 take k0 + 4t .. k0 + 4t + 3,
+// one float4 of A's row in shared memory and one 8-byte run of B's row when B
+// is stored transposed. A warp takes a task of one m16 tile by kMmaNT n8 tiles
+// (16 columns, n0 ..); column slot c of n8 tile j is column n0 + 2c + j, so
+// without kTransB one 32-bit load gives a lane its column pair (n0 + 2g, + 1)
+// for both tiles, and the accumulators hold four neighbouring columns of a row
+// for the epilogue. A warp loads kMmaSteps steps before it multiplies them, so
+// their loads are in flight together (steps past K are zeros). The tasks go
+// round the warps in a fixed order. K and N are multiples of 4, so a lane's
+// quad of k and of columns lies all inside or all outside them; zeros outside,
+// and nothing there is read.
+template <bool kTransB, class Epi>
+__device__ __forceinline__ void block_mm_mma(const float* A, int lda,
+                                             const __nv_bfloat16* __restrict__ B, int ldb, int M,
+                                             int K, int N, Epi epi) {
+  static_assert(kMmaNT == 2, "a lane's 32-bit column pair feeds two n8 tiles");
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int groups = (N + 15) >> 4;
+  const int tasks = ((M + 15) >> 4) * groups;
+  const unsigned* B32 = reinterpret_cast<const unsigned*>(B);
+  for (int task = threadIdx.x >> 5; task < tasks; task += blockDim.x >> 5) {
+    const int m0 = (task / groups) * 16, n0 = (task % groups) * 16;
+    const int ra = m0 + g, rb = ra + 8, nb = n0 + 2 * g;  // nb: this lane's B columns
+    const bool ina = ra < M, inb = rb < M;
+    const float* pa = A + (ina ? ra : 0) * lda + 4 * t;
+    const float* pb = A + (inb ? rb : 0) * lda + 4 * t;
+    float acc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += 16 * kMmaSteps) {
+      uint32_t a[kMmaSteps][4], b[kMmaSteps][2][2];
+#pragma unroll
+      for (int st = 0; st < kMmaSteps; ++st) {
+        const int k = k0 + 16 * st + 4 * t;
+        a[st][0] = a[st][1] = a[st][2] = a[st][3] = 0u;
+        b[st][0][0] = b[st][0][1] = b[st][1][0] = b[st][1][1] = 0u;
+        if (k >= K) continue;
+        if (ina) {
+          const float4 v = *reinterpret_cast<const float4*>(pa + k0 + 16 * st);
+          a[st][0] = pack_bf16(v.x, v.y), a[st][2] = pack_bf16(v.z, v.w);
+        }
+        if (inb) {
+          const float4 v = *reinterpret_cast<const float4*>(pb + k0 + 16 * st);
+          a[st][1] = pack_bf16(v.x, v.y), a[st][3] = pack_bf16(v.z, v.w);
+        }
+        if constexpr (kTransB) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (nb + j < N) {
+              const uint2 q =
+                  __ldg(reinterpret_cast<const uint2*>(B + static_cast<size_t>(nb + j) * ldb + k));
+              b[st][j][0] = q.x, b[st][j][1] = q.y;
+            }
+          }
+        } else if (nb < N) {
+          const unsigned* q = B32 + (static_cast<size_t>(k) * ldb + nb) / 2;
+          const unsigned w0 = __ldg(q), w1 = __ldg(q + ldb / 2), w2 = __ldg(q + ldb),
+                         w3 = __ldg(q + ldb / 2 * 3);
+          b[st][0][0] = __byte_perm(w0, w1, 0x5410), b[st][0][1] = __byte_perm(w2, w3, 0x5410);
+          b[st][1][0] = __byte_perm(w0, w1, 0x7632), b[st][1][1] = __byte_perm(w2, w3, 0x7632);
+        }
+      }
+#pragma unroll
+      for (int st = 0; st < kMmaSteps; ++st) {
+        mma_bf16(acc[0], a[st], b[st][0]);
+        mma_bf16(acc[1], a[st], b[st][1]);
+      }
+    }
+    const int col = n0 + 4 * t;
+    if (col < N) {
+      if (ina) epi(ra, col, make_float4(acc[0][0], acc[1][0], acc[0][1], acc[1][1]));
+      if (inb) epi(rb, col, make_float4(acc[0][2], acc[1][2], acc[0][3], acc[1][3]));
+    }
+  }
+}
+
+// block_mm_tn_acc for bf16 on the tensor cores: G's rows (k) are the mma's M and
+// the tile's rows m its reduction. A warp takes a task of one m16 tile of G's
+// rows by kMmaNT n8 tiles, walks m in steps of 16 and adds its accumulator
+// fragments into G; the tasks go round the warps in a fixed order, so the same
+// lane owns the same elements of G on every tile (no atomics, runs repeat bit for
+// bit). X and Z are read as scalars: (m, k) and (m + 1, k) make a register.
+__device__ __forceinline__ void block_mm_tn_acc_mma(const float* X, int ldx, const float* Z,
+                                                    int ldz, int M, int K, int N,
+                                                    float* __restrict__ G) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int groups = (N + 8 * kMmaNT - 1) / (8 * kMmaNT);
+  const int tasks = ((K + 15) >> 4) * groups;
+  auto x = [&](int m, int k) { return m < M && k < K ? X[m * ldx + k] : 0.f; };
+  auto z = [&](int m, int n) { return m < M && n < N ? Z[m * ldz + n] : 0.f; };
+  for (int task = threadIdx.x >> 5; task < tasks; task += blockDim.x >> 5) {
+    const int ka = (task / groups) * 16 + g, kb = ka + 8, n0 = (task % groups) * 8 * kMmaNT;
+    float acc[kMmaNT][4];
+#pragma unroll
+    for (int j = 0; j < kMmaNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int m0 = 0; m0 < M; m0 += 16) {
+      const int m = m0 + 2 * t;
+      const uint32_t a[4] = {pack_bf16(x(m, ka), x(m + 1, ka)), pack_bf16(x(m, kb), x(m + 1, kb)),
+                             pack_bf16(x(m + 8, ka), x(m + 9, ka)),
+                             pack_bf16(x(m + 8, kb), x(m + 9, kb))};
+#pragma unroll
+      for (int j = 0; j < kMmaNT; ++j) {
+        const int n = n0 + 8 * j + g;
+        const uint32_t b[2] = {pack_bf16(z(m, n), z(m + 1, n)), pack_bf16(z(m + 8, n), z(m + 9, n))};
+        mma_bf16(acc[j], a, b);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMmaNT; ++j) {
+      const int c = n0 + 8 * j + 2 * t;
+      if (c >= N) continue;
+      if (ka < K) {
+        float2& o = *reinterpret_cast<float2*>(G + static_cast<size_t>(ka) * N + c);
+        o = make_float2(o.x + acc[j][0], o.y + acc[j][1]);
+      }
+      if (kb < K) {
+        float2& o = *reinterpret_cast<float2*>(G + static_cast<size_t>(kb) * N + c);
+        o = make_float2(o.x + acc[j][2], o.y + acc[j][3]);
+      }
+    }
+  }
+}
+
+// C [M][N] = A [M][K] @ B (or A @ B^T with kTransB), as block_mm_fma describes:
+// on CUDA cores for float B, on the tensor cores for bf16 B unless kTensor is
+// false.
+template <int TM, bool kTransB, bool kTensor = true, class T, class Epi>
+__device__ __forceinline__ void block_mm(const float* A, int lda, const T* __restrict__ B,
+                                         int ldb, int M, int K, int N, Epi epi) {
+  if constexpr (kTensor && std::is_same_v<T, __nv_bfloat16>) {
+    block_mm_mma<kTransB>(A, lda, B, ldb, M, K, N, epi);
+  } else {
+    block_mm_fma<TM, kTransB>(A, lda, B, ldb, M, K, N, epi);
+  }
+}
+
+// G [K][N] += X [M][K]^T Z [M][N], as block_mm_tn_acc_fma describes: on CUDA
+// cores for float, on the tensor cores for bf16.
+template <class T>
+__device__ __forceinline__ void block_mm_tn_acc(const float* X, int ldx, const float* Z, int ldz,
+                                                int M, int K, int N, float* __restrict__ G) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    block_mm_tn_acc_mma(X, ldx, Z, ldz, M, K, N, G);
+  } else {
+    block_mm_tn_acc_fma<T>(X, ldx, Z, ldz, M, K, N, G);
   }
 }
 
@@ -309,8 +504,9 @@ struct FcWeights {
 // The activation unit, softmax and pool of the staged tile: T = t @ wt + b1,
 // R1 = relu(h @ wh + T), relu(R1 @ w2 + b2) (kept in R2 when the layout has it),
 // scores = that @ w3 (+ b3), W = softmax over the L positions, and the pooled rows
-// into the left half of X. Ends synchronised.
-template <class T>
+// into the left half of X. Ends synchronised. kTensor: block_mm's choice of
+// cores for bf16 weights (false: the CUDA-core path, whatever T).
+template <class T, bool kTensor = true>
 __device__ __forceinline__ void attention_forward(const AttentionWeights<T>& a, const Layout& s,
                                                   float* sm) {
   float* H = sm + s.oH;
@@ -320,19 +516,19 @@ __device__ __forceinline__ void attention_forward(const AttentionWeights<T>& a, 
   float* Q = sm + s.oQ;
   float* W = sm + s.oW;
   const int n4 = s.A2 >> 2;
-  block_mm<1, false>(X + s.D, s.ldx, a.wt, s.A1, s.R, s.D, s.A1, [&](int r, int c, float4 v) {
+  block_mm<1, false, kTensor>(X + s.D, s.ldx, a.wt, s.A1, s.R, s.D, s.A1, [&](int r, int c, float4 v) {
     const float4 b = load4(a.b1 + c);
     as4(Tt + r * s.ldt + c) = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
   });
   __syncthreads();
-  block_mm<10, false>(H, s.ldh, a.wh, s.A1, s.M, s.D, s.A1, [&](int m, int c, float4 v) {
+  block_mm<10, false, kTensor>(H, s.ldh, a.wh, s.A1, s.M, s.D, s.A1, [&](int m, int c, float4 v) {
     const float4 t = as4(Tt + (m / s.L) * s.ldt + c);
     as4(R1 + m * s.ld1 + c) =
         make_float4(relu(v.x + t.x), relu(v.y + t.y), relu(v.z + t.z), relu(v.w + t.w));
   });
   __syncthreads();
   float* R2 = s.oR2 >= 0 ? sm + s.oR2 : nullptr;
-  block_mm<5, false>(R1, s.ld1, a.w2, s.A2, s.M, s.A1, s.A2, [&](int m, int c, float4 v) {
+  block_mm<5, false, kTensor>(R1, s.ld1, a.w2, s.A2, s.M, s.A1, s.A2, [&](int m, int c, float4 v) {
     const float4 b = load4(a.b2 + c);
     const float4 z = make_float4(relu(v.x + b.x), relu(v.y + b.y), relu(v.z + b.z), relu(v.w + b.w));
     if (R2 != nullptr) as4(R2 + m * s.ld2 + c) = z;
@@ -383,22 +579,22 @@ __device__ __forceinline__ void attention_forward(const AttentionWeights<T>& a, 
 
 // The fc head's hidden layers of the tile: F1 = relu(pooled @ u1p + t @ u1t + c1),
 // F2 = relu(F1 @ u2 + c2), into Q's f1 and f2 regions. Ends synchronised.
-template <class T>
+template <class T, bool kTensor = true>
 __device__ __forceinline__ void fc_forward(const FcWeights<T>& f, const Layout& s, float* sm) {
   float* X = sm + s.oX;
   float* F1 = sm + s.oQ;
   float* F2 = sm + s.oF2;
-  block_mm<2, false>(X, s.ldx, f.u1p, s.F1, s.R, s.D, s.F1,
+  block_mm<2, false, kTensor>(X, s.ldx, f.u1p, s.F1, s.R, s.D, s.F1,
                      [&](int r, int c, float4 v) { as4(F1 + r * s.ldf1 + c) = v; });
   __syncthreads();
-  block_mm<2, false>(X + s.D, s.ldx, f.u1t, s.F1, s.R, s.D, s.F1, [&](int r, int c, float4 v) {
+  block_mm<2, false, kTensor>(X + s.D, s.ldx, f.u1t, s.F1, s.R, s.D, s.F1, [&](int r, int c, float4 v) {
     float4& o = as4(F1 + r * s.ldf1 + c);
     const float4 p = o, b = load4(f.c1 + c);
     o = make_float4(relu(p.x + v.x + b.x), relu(p.y + v.y + b.y), relu(p.z + v.z + b.z),
                     relu(p.w + v.w + b.w));
   });
   __syncthreads();
-  block_mm<1, false>(F1, s.ldf1, f.u2, s.F2, s.R, s.F1, s.F2, [&](int r, int c, float4 v) {
+  block_mm<1, false, kTensor>(F1, s.ldf1, f.u2, s.F2, s.R, s.F1, s.F2, [&](int r, int c, float4 v) {
     const float4 b = load4(f.c2 + c);
     as4(F2 + r * s.ldf2 + c) =
         make_float4(relu(v.x + b.x), relu(v.y + b.y), relu(v.z + b.z), relu(v.w + b.w));

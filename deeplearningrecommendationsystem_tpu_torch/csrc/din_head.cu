@@ -45,7 +45,23 @@
 // where the JAX kernel casts them (din_common.cuh, op<T>), writes bf16 logits,
 // and emits float32 gradients, which the caller casts to each input's dtype.
 // The fc head's rows for din_head_bwd_fc_kernel stay float32 and are rounded
-// as they are staged there.
+// as they are staged there. The bf16 path's products run on the tensor cores
+// (mma.sync m16n8k16, float32 accumulation: din_common.cuh's block_mm_mma and
+// block_mm_tn_acc_mma, and fc_weight_grad_mma here), those of the float32
+// path as float32 FMA on CUDA cores; everything between the products is the
+// same float32 code for both.
+//
+// One exception: the backward recomputes the forward on CUDA cores in both
+// dtypes. Its relu masks decide every gradient, and a mask at a kink follows
+// the order of summation: the CUDA-core fmaf chain sums in k order, as the
+// float32 reference (cuBLAS) does, so its z, and each operand rounded to bf16
+// downstream of it, mostly match the reference's bit for bit. Sums in the
+// tensor cores' order are as close to exact sums as the chain's (measured on
+// an H100 at the DIN train batch: 3-6 rows of d hist and d target off float64
+// products against the chain's 3-7), but they round intermediates differently
+// from the reference, and the bf16 roundings that follow carry each difference
+// to a kink: 5-8 rows off the reference, where the bf16 check allows 4
+// (tools/probe_din_bf16_order.py, three seeds).
 //
 // Each entry point returns cudaGetLastError() after its launch (or a cudaError_t
 // for arguments it does not take); the Python launcher raises when it is not 0.
@@ -134,8 +150,8 @@ din_head_bwd_kernel(const T* __restrict__ hist, const T* __restrict__ tgt,
     __syncthreads();  // the slot is zeroed; the previous tile's readers are done
     din::stage_tile(hist, tgt, g, r0, B, s, sm);
     __syncthreads();
-    din::attention_forward(a, s, sm);
-    din::fc_forward(f, s, sm);
+    din::attention_forward<T, false>(a, s, sm);  // CUDA cores (see the note at the top)
+    din::fc_forward<T, false>(f, s, sm);
     store_rows(X, s.ldx, 2 * D, r0, B, s.R, xg);
     store_rows(F1, s.ldf1, s.F1, r0, B, s.R, f1g);
 
@@ -246,9 +262,9 @@ constexpr int kFcChunk = 16;  // rows staged at a time by din_head_bwd_fc_kernel
 // A thread owns 4 columns and up to 4 groups of 4 k-rows a pass, summing over the
 // rows in order, and writes its part of G once.
 template <class T>
-__device__ void fc_weight_grad(const float* __restrict__ X, int K, const float* __restrict__ Z,
-                               int N, long long b0, long long b1, float* sm,
-                               float* __restrict__ G) {
+__device__ void fc_weight_grad_fma(const float* __restrict__ X, int K, const float* __restrict__ Z,
+                                   int N, long long b0, long long b1, float* sm,
+                                   float* __restrict__ G) {
   const int n4 = N >> 2, k4 = K >> 2;
   const int per_pass = blockDim.x / n4;  // k-groups a pass takes, 4 a thread
   const int cg = threadIdx.x % n4, kg0 = threadIdx.x / n4, c0 = cg * 4;
@@ -310,6 +326,99 @@ __device__ void fc_weight_grad(const float* __restrict__ X, int K, const float* 
   }
 }
 
+constexpr int kFcTasks = 8;  // tasks a warp holds in registers a pass (fc_weight_grad_mma)
+
+// fc_weight_grad for bf16 on the tensor cores. A chunk of kFcChunk rows is one
+// step of the mma's reduction. A warp takes tasks of one m16 tile of G's rows by
+// kMmaNT n8 tiles, up to kFcTasks of them a pass (every chunk of the block's rows
+// staged once a pass), in a fixed order, and writes its part of G once. The
+// staged rows are the values as op<bf16> rounds them, with a row stride of width
+// + 4 floats so that a warp's reads of two rows 2t apart and 8 neighbouring
+// columns fall in 32 different banks; staged rows past b1 are zeros.
+__device__ void fc_weight_grad_mma(const float* __restrict__ X, int K, const float* __restrict__ Z,
+                                   int N, long long b0, long long b1, float* sm,
+                                   float* __restrict__ G) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int n4 = N >> 2, k4 = K >> 2, ldx = K + 4, ldz = N + 4;
+  const int groups = (N + 8 * din::kMmaNT - 1) / (8 * din::kMmaNT);
+  const int tasks = ((K + 15) >> 4) * groups;
+  float* xs = sm;                  // [kFcChunk][ldx]
+  float* zs = sm + kFcChunk * ldx;  // [kFcChunk][ldz]
+  for (int base = 0; base < tasks; base += warps * kFcTasks) {
+    float acc[kFcTasks][din::kMmaNT][4];
+#pragma unroll
+    for (int q = 0; q < kFcTasks; ++q) {
+#pragma unroll
+      for (int j = 0; j < din::kMmaNT; ++j) acc[q][j][0] = acc[q][j][1] = acc[q][j][2] = acc[q][j][3] = 0.f;
+    }
+    for (long long m0 = b0; m0 < b1; m0 += kFcChunk) {
+      const int rows = static_cast<int>(min(static_cast<long long>(kFcChunk), b1 - m0));
+      __syncthreads();  // the previous chunk's readers are done
+      for (int i = threadIdx.x; i < kFcChunk * k4; i += blockDim.x) {
+        const int r = i / k4, c = (i - r * k4) * 4;
+        as4(xs + r * ldx + c) = r < rows ? din::op4<Bf16>(din::ldg4(X + static_cast<size_t>(m0 + r) * K + c))
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      for (int i = threadIdx.x; i < kFcChunk * n4; i += blockDim.x) {
+        const int r = i / n4, c = (i - r * n4) * 4;
+        as4(zs + r * ldz + c) = r < rows ? din::op4<Bf16>(din::ldg4(Z + static_cast<size_t>(m0 + r) * N + c))
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncthreads();
+      const int m = 2 * t;
+#pragma unroll
+      for (int q = 0; q < kFcTasks; ++q) {
+        const int task = base + q * warps + warp;
+        if (task >= tasks) continue;  // warp-uniform
+        const int ka = (task / groups) * 16 + g, kb = ka + 8, n0 = (task % groups) * 8 * din::kMmaNT;
+        auto x = [&](int r, int k) { return k < K ? xs[r * ldx + k] : 0.f; };
+        const uint32_t a[4] = {din::pack_bf16(x(m, ka), x(m + 1, ka)),
+                               din::pack_bf16(x(m, kb), x(m + 1, kb)),
+                               din::pack_bf16(x(m + 8, ka), x(m + 9, ka)),
+                               din::pack_bf16(x(m + 8, kb), x(m + 9, kb))};
+#pragma unroll
+        for (int j = 0; j < din::kMmaNT; ++j) {
+          const int n = n0 + 8 * j + g;
+          auto z = [&](int r) { return n < N ? zs[r * ldz + n] : 0.f; };
+          const uint32_t b[2] = {din::pack_bf16(z(m), z(m + 1)), din::pack_bf16(z(m + 8), z(m + 9))};
+          din::mma_bf16(acc[q][j], a, b);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kFcTasks; ++q) {
+      const int task = base + q * warps + warp;
+      if (task >= tasks) continue;
+      const int ka = (task / groups) * 16 + g, kb = ka + 8, n0 = (task % groups) * 8 * din::kMmaNT;
+#pragma unroll
+      for (int j = 0; j < din::kMmaNT; ++j) {
+        const int c = n0 + 8 * j + 2 * t;
+        if (c >= N) continue;
+        if (ka < K) {
+          *reinterpret_cast<float2*>(G + static_cast<size_t>(ka) * N + c) =
+              make_float2(acc[q][j][0], acc[q][j][1]);
+        }
+        if (kb < K) {
+          *reinterpret_cast<float2*>(G + static_cast<size_t>(kb) * N + c) =
+              make_float2(acc[q][j][2], acc[q][j][3]);
+        }
+      }
+    }
+  }
+}
+
+template <class T>
+__device__ void fc_weight_grad(const float* __restrict__ X, int K, const float* __restrict__ Z,
+                               int N, long long b0, long long b1, float* sm,
+                               float* __restrict__ G) {
+  if constexpr (std::is_same_v<T, Bf16>) {
+    fc_weight_grad_mma(X, K, Z, N, b0, b1, sm, G);
+  } else {
+    fc_weight_grad_fma<T>(X, K, Z, N, b0, b1, sm, G);
+  }
+}
+
 // The fc head's weight gradients from the rows din_head_bwd_kernel wrote: block b
 // takes a contiguous run of rows and writes du1 = [pooled | t]^T dzf1 and
 // du2 = f1^T dzf2 over them into its slot.
@@ -329,8 +438,9 @@ din_head_bwd_fc_kernel(const float* __restrict__ rows, float* __restrict__ part,
   fc_weight_grad<T>(f1g, F1, z2g, F2, b0, b1, sm, slot + o.u2);
 }
 
-size_t fc_smem_bytes(int D, int F1, int F2) {
-  const int k = max(2 * D + F1, F1 + F2);
+// fc_weight_grad's staging; the bf16 path pads each staged row by 4 floats.
+size_t fc_smem_bytes(int D, int F1, int F2, bool bf16) {
+  const int k = max(2 * D + F1, F1 + F2) + (bf16 ? 8 : 0);
   return sizeof(float) * static_cast<size_t>(kFcChunk) * k;
 }
 
@@ -390,7 +500,7 @@ int launch_bwd(const void* hist, const void* tgt, const void* const* weights, co
 template <class T>
 int launch_bwd_fc(const void* rows, void* part, long long B, int D, int F1, int F2, GradSlots o,
                   int blocks, cudaStream_t stream) {
-  const size_t smem = fc_smem_bytes(D, F1, F2);
+  const size_t smem = fc_smem_bytes(D, F1, F2, std::is_same_v<T, Bf16>);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         din_head_bwd_fc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -43,7 +43,12 @@ _GRADS = 13  # the slot's blocks: u1p and u1t share one, u1 [2D, F1]
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
+    return bind(build.load(SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``din_head.cu``) with its entry points' argument and
+    result types set, checked against this launcher."""
     W = ctypes.POINTER(P)
     lib.din_head_fwd.argtypes = [P, P, W, P, LL, I, I, I, I, I, I, I, P]
     lib.din_head_fwd.restype = I

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Where the fused DIN head's kernels spend their cycles, barrier by barrier.
+
+Run from the root of a checkout, on a machine with one CUDA card:
+
+    python3 tools/profile_din_head_phases.py [--rows 87900] [--dtype bfloat16 float32]
+
+The head's kernels (``csrc/din_head.cu``, ``csrc/din_common.cuh``) are a chain
+of block-wide phases between ``__syncthreads()`` calls, which a profiler that
+times whole kernels cannot split. This tool builds an instrumented copy of
+the two sources, beside the launcher's library in ``build/kernels/``: after
+every ``__syncthreads()``, thread 0 of each block adds the ``clock64()``
+cycles since the block's previous barrier to a counter of that barrier. It
+then runs the forward and the backward (three launches) once at the DIN train
+batch (D 64, L 10, attention (128, 64, 1), fc (256, 128, 1), ``chip_smoke.py``'s
+inputs) and prints one JSON line per dtype and direction: each barrier's file
+and line, the calls and loops written between it and the barrier above it,
+and its cycles per tile and share (the cycles summed over the blocks, over
+the tiles; a barrier's cycles are those of the phase that ends at it, waits
+included). The first barrier of a loop over tiles or chunks ("the previous
+tile's readers are done") closes the previous pass's last phase: the code
+after the loop's last barrier. Then the card's name and power limit. The copy
+is not the shipped library; it needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from deeplearningrecommendationsystem_tpu_torch.ops import din_head as dh  # noqa: E402
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import build  # noqa: E402
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_head as cuda_dh  # noqa: E402
+
+FILES = ("din_common.cuh", "din_head.cu")  # barrier ids: 1000 * file index + line
+COUNTERS = 4096
+HELPER = f"""
+__device__ unsigned long long g_phase_cycles[{COUNTERS}];
+__device__ long long g_phase_last[{COUNTERS}];
+// Thread 0 adds the cycles since this block's previous mark in the same kernel
+// (kernel: the fc kernel's marks sit past line 1250 of din_head.cu) to barrier id.
+__device__ __forceinline__ void phase_mark(int id) {{
+  if (threadIdx.x == 0) {{
+    const long long now = clock64();
+    const int slot = blockIdx.x * 4 + (id >= 1250 ? 1 : 0);
+    const long long last = g_phase_last[slot];
+    if (last != 0) atomicAdd(&g_phase_cycles[id], static_cast<unsigned long long>(now - last));
+    g_phase_last[slot] = now;
+  }}
+}}
+"""
+ENTRIES = f"""
+int din_phase_read(unsigned long long* out) {{
+  return cudaMemcpyFromSymbol(out, din::g_phase_cycles, sizeof(unsigned long long) * {COUNTERS});
+}}
+int din_phase_reset() {{
+  static long long zeros[{COUNTERS}];
+  const cudaError_t err = cudaMemcpyToSymbol(din::g_phase_last, zeros, sizeof zeros);
+  return err != cudaSuccess ? err : cudaMemcpyToSymbol(din::g_phase_cycles, zeros, sizeof zeros);
+}}
+"""
+
+
+def work(lines: list, barrier: int) -> list:
+    """The calls and loops between the barrier at line ``barrier`` and the one
+    before it in the same file, first words of each."""
+    found = []
+    for no in range(barrier - 1, max(barrier - 60, 0), -1):
+        line = lines[no - 1].strip()
+        if "__syncthreads();" in line:
+            break
+        m = re.match(r"(?:din::)?(block_mm\w*<[^>]*>\(\w+|block_colsum_acc<T>\(\w+|store_rows\(\w+|"
+                     r"stage_tile|attention_forward|fc_forward|fc_weight_grad\w*|for \(\w+ \w+ = \w+)", line)
+        if m:
+            found.append(m.group(1))
+    return found[::-1]
+
+
+def instrumented() -> Path:
+    """Build the instrumented copy; returns the library's path."""
+    out_dir = build.BUILD_DIR / "din_head_phases"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for index, name in enumerate(FILES):
+        lines = (build.CSRC_DIR / name).read_text().splitlines()
+        for no, line in enumerate(lines, 1):
+            if "__syncthreads();" in line and not line.strip().startswith("//"):
+                lines[no - 1] = line.replace("__syncthreads();",
+                                             f"__syncthreads(); din::phase_mark({1000 * index + no});", 1)
+        text = "\n".join(lines) + "\n"
+        if name == "din_common.cuh":
+            text = text.replace("namespace din {\n", "namespace din {\n" + HELPER, 1)
+        else:
+            text = text.replace('extern "C" {\n', 'extern "C" {\n' + ENTRIES, 1)
+        (out_dir / name).write_text(text)
+    lib = out_dir / "din_head_phases.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(out_dir / "din_head.cu")],
+                   check=True)
+    return lib
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=87_900)  # the DIN train batch of chip_smoke.py
+    ap.add_argument("--dtype", nargs="+", choices=["bfloat16", "float32"],
+                    default=["bfloat16", "float32"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_din_head_phases: CUDA is not available; this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    lib = cuda_dh.bind(ctypes.CDLL(str(instrumented())))
+    lib.din_phase_read.argtypes = [ctypes.c_void_p]
+    lib.din_phase_reset.argtypes = []
+    shipped, cuda_dh._lib = cuda_dh._lib, (lambda: lib)
+    src = [(build.CSRC_DIR / name).read_text().splitlines() for name in FILES]
+    L, D, A, F = 10, 64, cs.DIN_ATTENTION, cs.DIN_FC
+    hist, tgt, att, fc, g = cs.din_inputs(args.rows, L, D, A, F,
+                                          torch.Generator(device="cuda").manual_seed(0))
+    counts = (ctypes.c_ulonglong * COUNTERS)()
+    try:
+        for name in args.dtype:
+            dtype = getattr(torch, name)
+            h, t, gg = hist.to(dtype), tgt.to(dtype), g.to(dtype)
+            w = dh.din_head_weights(*([{k: v.to(dtype) for k, v in layer.items()} for layer in net]
+                                      for net in (att, fc)), D)
+            for part, fn in (("forward", lambda: dh.din_head_fwd(h, t, w)),
+                             ("backward", lambda: dh.din_head_bwd(h, t, w, gg))):
+                fn()
+                torch.cuda.synchronize()
+                if lib.din_phase_reset() != 0:
+                    raise RuntimeError("din_phase_reset failed")
+                fn()
+                torch.cuda.synchronize()
+                lib.din_phase_read(counts)
+                tiles = -(-args.rows // 16)  # the layout's 16-row tiles at these widths
+                total = sum(counts)
+                phases = [{"at": f"{FILES[i // 1000]}:{i % 1000}", "work": work(src[i // 1000], i % 1000),
+                           "kcycles_per_tile": counts[i] / tiles / 1e3,
+                           "share": counts[i] / total} for i in range(COUNTERS) if counts[i]]
+                print(json.dumps({"dtype": name, "direction": part, "rows": args.rows,
+                                  "kcycles_per_tile": total / tiles / 1e3, "phases": phases}),
+                      flush=True)
+    finally:
+        cuda_dh._lib = shipped
+    print(cs.card_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
