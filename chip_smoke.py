@@ -15,7 +15,10 @@ no result line.
    the shapes the main paths give it: integer-valued inputs must agree exactly
    (ties included), normal inputs within a stated tolerance. Times of the
    kernel, its plain version and one PyTorch library call, beside the card's
-   bound. The lookup pair (gather_rows, onehot_grad) is also checked at the
+   bound (for the kernels that multiply on the tensor cores in 3xTF32, the
+   top-k matmul and the two attention pools' forwards, three TF32 products
+   at the tensor cores' rate; the pools' rows also carry the CUDA-core bound
+   as ``cuda_core_bound_ms``). The two pools must repeat bit for bit. The lookup pair (gather_rows, onehot_grad) is also checked at the
    other main paths' shapes (DIN's history batch and full-history target tile,
    LR's bias tables); its rows and the top-k rows of at most 32 users (a
    served batch, a single-user request) carry ``host_us``, the host's time per
@@ -640,16 +643,20 @@ def check_lr(model, params, x, y, mode: str, learning_rate: float, timed_epochs:
 
 
 def afm_work(B: int, D: int, A: int, backward: bool):
-    """(operations, bytes) of the AFM pool on B rows. Forward, per row and pair:
-    the product c (D), c W (2 D A), the bias, relu and dot with h (4 A), the pool
-    (2 D); the softmax 45 a row. Backward: the forward again, then per pair g . c
-    (2 D), dz, dh and db (5 A), dW (D + 2 D A), dc (2 D A + 2 D) and de (4 D)."""
-    ops = B * (15 * (2 * D * A + 4 * A + 3 * D) + 45)
+    """(products, other operations, bytes) of the AFM pool on B rows. Products:
+    c W, 2 D A per row and pair (the forward's tensor-core work); the backward
+    adds dW and dc, 4 D A. Other operations, per row and pair: the product c
+    (D), the bias, relu and dot with h (4 A), the pool (2 D); the softmax 45 a
+    row; the backward adds the forward's again and per pair g . c (2 D), dz, dh
+    and db (5 A), dW's c (D), dc's w g (2 D) and de (4 D)."""
+    products = B * 15 * 2 * D * A
+    other = B * (15 * (4 * A + 3 * D) + 45)
     params = (D * A + 2 * A) * 4
     if not backward:
-        return ops, B * 6 * D * 4 + B * D * 4 + params
-    ops += B * 15 * (4 * D * A + 9 * D + 5 * A)
-    return ops, 2 * B * 6 * D * 4 + B * D * 4 + 2 * params
+        return products, other, B * 6 * D * 4 + B * D * 4 + params
+    products += B * 15 * 4 * D * A
+    other += B * 15 * (9 * D + 5 * A)
+    return products, other, 2 * B * 6 * D * 4 + B * D * 4 + 2 * params
 
 
 def afm_library_fwd(fields, W, b, h):
@@ -689,10 +696,17 @@ def check_afm(B: int, D: int, A: int, gen: torch.Generator, label: str, backward
         library, lib_name = afm_library_bwd, "eager composition's autograd (forward included)"
     else:
         args, kernel, plain = (fields, W, b, h), afm.afm_attention_pool, afm.afm_attention_pool_plain
-        err = normwise_err("afm_attention_pool", kernel(*args), plain(*args), AFM_FWD_RTOL)
+        got = kernel(*args)
+        err = normwise_err("afm_attention_pool", got, plain(*args), AFM_FWD_RTOL)
+        if not torch.equal(kernel(*args), got):
+            raise AssertionError("afm_attention_pool: two launches differ")
+        del got
         library, lib_name = afm_library_fwd, "eager: pair products, torch.matmul for c @ W, softmax, torch.bmm"
     torch.cuda.synchronize()
-    t_bound, bound_by = bound_of(*afm_work(B, D, A, backward))
+    products, other, nbytes = afm_work(B, D, A, backward)
+    cuda_core = bound_of(products + other, nbytes)
+    # the forward multiplies on the tensor cores in 3xTF32; the backward on CUDA cores
+    t_bound, bound_by = cuda_core if backward else bound_of(other, nbytes, 3 * products)
     row = {
         "shape": {"rows": B, "fields": 6, "dim": D, "attention": A, "batch": label},
         "max_abs_err": err,
@@ -701,6 +715,7 @@ def check_afm(B: int, D: int, A: int, gen: torch.Generator, label: str, backward
         "library_ms": time_ms(lambda: library(*args)),
         "library": lib_name,
         "bound_ms": t_bound, "bound_by": bound_by,
+        **({} if backward else {"cuda_core_bound_ms": cuda_core[0]}),
     }
     del fields, g
     torch.cuda.empty_cache()
@@ -741,6 +756,21 @@ def din_work(B: int, L: int, D: int, A: tuple, F: tuple, part: str, es: int = 4)
 def din_library_fwd(hist, tgt, att, fc):
     """The eager composition: attention_pool and mlp, torch.matmul throughout."""
     return mlp(fc, torch.cat([attention_pool(att, hist, tgt), tgt], dim=-1))[:, 0]
+
+
+def din_library_pool(hist, tgt, att):
+    """The JAX package's composition (``ops/attention.py``, concat
+    decomposed): torch.matmul of [B L, D] by wh and of t by wt, relu,
+    torch.matmul, softmax over L, torch.bmm for the pool; b3 dropped as the
+    kernel drops it."""
+    B, L, D = hist.shape
+    w1 = att[0]["w"]
+    wh, wt = w1[:D] + w1[D:2 * D], w1[2 * D:] - w1[D:2 * D]
+    z1 = (torch.matmul(hist.reshape(B * L, D), wh).reshape(B, L, -1)
+          + (torch.matmul(tgt, wt) + att[0]["b"])[:, None, :])
+    z2 = torch.relu(torch.matmul(torch.relu(z1), att[1]["w"]) + att[1]["b"])
+    w = torch.softmax(torch.matmul(z2, att[2]["w"])[..., 0], dim=-1)
+    return torch.bmm(w[:, None, :], hist)[:, 0]
 
 
 def din_library_bwd(hist, tgt, att, fc, g):
@@ -909,14 +939,22 @@ def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.
         lib_name = "eager composition's autograd (forward included)"
     else:
         args, kernel, plain = (hist, tgt, att), dinatt.din_attention_pool, dinatt.din_attention_pool_plain
-        checked["max_abs_err"] = normwise_err("din_attention_pool", kernel(*args), plain(*args),
-                                              DIN_FWD_RTOL)
-        library, lib_args = (lambda h, t, a: attention_pool(a, h, t)), (hist, tgt, att)
-        lib_name = "eager attention_pool (the plain version itself)"
+        got = kernel(*args)
+        checked["max_abs_err"] = normwise_err("din_attention_pool", got, plain(*args), DIN_FWD_RTOL)
+        if not torch.equal(kernel(*args), got):
+            raise AssertionError("din_attention_pool: two launches differ")
+        del got
+        library, lib_args = din_library_pool, (hist, tgt, att)
+        lib_name = "eager concat-decomposed composition: torch.matmul, softmax, torch.bmm"
     torch.cuda.synchronize()
     mm, ops, nbytes = din_work(B, L, D, A, F, part, hist.element_size())
-    t_bound, bound_by = (bound_of(ops, nbytes, bf16_flops=mm) if dtype == torch.bfloat16
-                         else bound_of(mm + ops, nbytes))
+    if dtype == torch.bfloat16:
+        t_bound, bound_by = bound_of(ops, nbytes, bf16_flops=mm)
+    elif part == "pool":  # the pool multiplies on the tensor cores in 3xTF32
+        t_bound, bound_by = bound_of(ops, nbytes, 3 * mm)
+        checked["cuda_core_bound_ms"] = bound_of(mm + ops, nbytes)[0]
+    else:
+        t_bound, bound_by = bound_of(mm + ops, nbytes)
     row = {
         "shape": {"rows": B, "history": L, "dim": D, "attention": list(A), "fc": list(F),
                   "batch": label, "dtype": str(dtype).split(".")[1]},
@@ -1581,6 +1619,7 @@ def main() -> int:
             "ms": main_row["kernel_ms"], "kernel_ms": main_row["kernel_ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            **{k: main_row[k] for k in ("cuda_core_bound_ms",) if k in main_row},
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
             "launches_by_phase": {p["phase"]: p["launches"][name] for p in phases},
             "at_shapes": rows[name],

@@ -1,7 +1,7 @@
-// What the two DIN kernel sources share: the tile layout in shared memory, the
-// block-wide products, the forward of the activation unit, softmax and pool, and
-// the forward kernel (din_fwd_kernel) that din_attention.cu launches without the
-// fc head and din_head.cu with it.
+// The fused DIN head's building blocks (din_head.cu): the tile layout in shared
+// memory, the block-wide products, the forward of the activation unit, softmax
+// and pool, and the forward kernel (din_fwd_kernel). din_attention.cu takes only
+// widths_ok, kMaxHistory and the warp reductions; its pool kernel is its own.
 //
 // A block of kThreads threads walks tiles of R rows (R * L history positions).
 // A tile's history rows, the activations of its R * L positions and its fc
@@ -66,8 +66,7 @@ struct Layout {
 
 inline int round4(int n) { return (n + 3) & ~3; }
 
-inline Layout make_layout(int L, int D, int A1, int A2, int F1, int F2, int R, bool fc,
-                          bool backward) {
+inline Layout make_layout(int L, int D, int A1, int A2, int F1, int F2, int R, bool backward) {
   Layout s;
   s.L = L, s.D = D, s.A1 = A1, s.A2 = A2, s.F1 = F1, s.F2 = F2, s.R = R, s.M = R * L;
   s.ldh = D + kPad, s.ldx = 2 * D + kPad, s.ld1 = A1 + kPad, s.ld2 = A2 + kPad;
@@ -84,7 +83,7 @@ inline Layout make_layout(int L, int D, int A1, int A2, int F1, int F2, int R, b
   s.oR2 = backward ? take(s.M * s.ld2) : -1;
   s.oT = take(R * s.ldt);
   const int partials = s.M * (A2 / 4);
-  const int fc_floats = fc ? round4(R * s.ldf1) + R * s.ldf2 : 0;
+  const int fc_floats = round4(R * s.ldf1) + R * s.ldf2;
   s.oQ = take(partials > fc_floats ? partials : fc_floats);
   s.oF2 = s.oQ + round4(R * s.ldf1);
   s.oW = take(s.M);
@@ -98,10 +97,10 @@ inline Layout make_layout(int L, int D, int A1, int A2, int F1, int F2, int R, b
 inline size_t smem_bytes(const Layout& s) { return sizeof(float) * static_cast<size_t>(s.total); }
 
 // The largest tile (at most kMaxRows rows) whose layout fits a block's shared memory.
-inline bool fit_layout(int L, int D, int A1, int A2, int F1, int F2, bool fc, bool backward,
+inline bool fit_layout(int L, int D, int A1, int A2, int F1, int F2, bool backward,
                        Layout* out) {
   for (int R = kMaxRows; R >= 1; --R) {
-    const Layout s = make_layout(L, D, A1, A2, F1, F2, R, fc, backward);
+    const Layout s = make_layout(L, D, A1, A2, F1, F2, R, backward);
     if (smem_bytes(s) <= kSmemLimit) {
       *out = s;
       return true;
@@ -602,10 +601,8 @@ __device__ __forceinline__ void fc_forward(const FcWeights<T>& f, const Layout& 
   __syncthreads();
 }
 
-// The forward over B rows. kFc: the whole DIN head, logits [B] (type T) into
-// out; else the pooled rows [B, D] into out (the attention pool, float32 only,
-// b3 dropped by the caller).
-template <bool kFc, class T>
+// The whole DIN head's forward over B rows: logits [B] (type T) into out.
+template <class T>
 __global__ void __launch_bounds__(kThreads, 1)
 din_fwd_kernel(const T* __restrict__ hist, const T* __restrict__ tgt, AttentionWeights<T> a,
                FcWeights<T> f, T* __restrict__ out, long long B, Layout s) {
@@ -618,18 +615,6 @@ din_fwd_kernel(const T* __restrict__ hist, const T* __restrict__ tgt, AttentionW
     stage_tile(hist, tgt, nullptr, r0, B, s, sm);
     __syncthreads();
     attention_forward(a, s, sm);
-    if constexpr (!kFc) {
-      static_assert(std::is_same_v<T, float>, "the attention pool is float32");
-      const int d4 = s.D >> 2;
-      for (int i = threadIdx.x; i < s.R * d4; i += blockDim.x) {
-        const int r = i / d4, d = (i - r * d4) * 4;
-        if (r0 + r < B) {
-          *reinterpret_cast<float4*>(out + static_cast<size_t>(r0 + r) * s.D + d) =
-              as4(sm + s.oX + r * s.ldx + d);
-        }
-      }
-      continue;
-    }
     fc_forward(f, s, sm);
     const float* F2 = sm + s.oF2;
     for (int r = warp; r < s.R; r += kThreads / 32) {

@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernels of
 //   deeplearningrecommendationsystem_tpu/ops/pallas/din_head.py (din_head_fused):
-//   * _fwd_kernel (pallas_call :267)  -> din::din_fwd_kernel<true, T>
+//   * _fwd_kernel (pallas_call :267)  -> din::din_fwd_kernel<T>
 //   * _bwd_kernel (pallas_call :300)  -> din_head_bwd_kernel + din_head_bwd_fc_kernel
 //                                        + din_head_bwd_reduce_kernel
 // Their plain PyTorch versions are din_head_fwd_plain and din_head_bwd_plain in
@@ -458,7 +458,7 @@ din_head_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ g
 bool layout_for(long long B, int L, int D, int A1, int A2, int F1, int F2, bool backward,
                 din::Layout* s) {
   return din::widths_ok(B, L, D, A1, A2, F1, F2) &&
-         din::fit_layout(L, D, A1, A2, F1, F2, true, backward, s);
+         din::fit_layout(L, D, A1, A2, F1, F2, backward, s);
 }
 
 template <class T>
@@ -467,12 +467,12 @@ int launch_fwd(const void* hist, const void* tgt, const void* const* weights, vo
   const size_t smem = din::smem_bytes(s);
   int blocks = 0;
   const cudaError_t err =
-      din::persistent_blocks(din::din_fwd_kernel<true, T>, smem, (B + s.R - 1) / s.R, &blocks);
+      din::persistent_blocks(din::din_fwd_kernel<T>, smem, (B + s.R - 1) / s.R, &blocks);
   if (err != cudaSuccess) return err;
   din::AttentionWeights<T> a;
   din::FcWeights<T> f;
   split_weights(weights, &a, &f);
-  din::din_fwd_kernel<true, T><<<blocks, kThreads, smem, stream>>>(
+  din::din_fwd_kernel<T><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(hist), static_cast<const T*>(tgt), a, f, static_cast<T*>(out), B, s);
   return cudaGetLastError();
 }

@@ -76,6 +76,7 @@
 #include <cstdint>
 
 #include "device_guard.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -447,39 +448,12 @@ scores_topk_kernel(const float* __restrict__ S, const uint8_t* __restrict__ seen
 
 // ------------------------------------------------------------------ matmul
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// acc (16 x 8, float32) += a (16 x 8, TF32, row-major) b (8 x 8, TF32, column-major)
-__device__ __forceinline__ void mma_tf32(float (&acc)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+using tf32mma::cp_async16;
+using tf32mma::cp_async4;
+using tf32mma::cp_async_commit;
+using tf32mma::cp_async_wait_all;
+using tf32mma::mma_tf32;
+using tf32mma::split_tf32;
 
 // Row stride (floats) of the staged P and Q rows: D rounded up to the mma's
 // depth of 8, plus 4, which puts the 8 rows a fragment load touches on 8

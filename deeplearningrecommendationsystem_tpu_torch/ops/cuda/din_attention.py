@@ -47,7 +47,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def din_attention_pool(hist_e, target_e, att):
-    """Launch ``din_fwd_kernel<false>``: hist_e [B, L, D], target_e [B, D] f32 and
+    """Launch ``din_pool_kernel``: hist_e [B, L, D], target_e [B, D] f32 and
     the attention MLP ``att`` (3D -> A1 -> A2 -> 1, f32) -> pooled [B, D] f32."""
     device = hist_e.device
     require_cuda("din_attention_pool", device)

@@ -111,7 +111,7 @@ def _pointers(weights):
 
 
 def din_head_fused(hist_e, target_e, weights):
-    """Launch ``din_fwd_kernel<true, T>``: hist_e [B, L, D], target_e [B, D] and
+    """Launch ``din_fwd_kernel<T>``: hist_e [B, L, D], target_e [B, D] and
     the 14 weights, all f32 or all bf16 -> logits [B] in that dtype."""
     dims = _check(hist_e, target_e, weights, "din_head_fused")
     lib = _lib()

@@ -621,6 +621,25 @@ def test_afm_attention_pool_bwd_matches_plain(cuda, B, D, A):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("B,D,A", AFM_SHAPES)
+def test_afm_attention_pool_repeats_bit_for_bit(cuda, B, D, A):
+    """A fixed order of summation and no atomics: two launches, the same bits."""
+    args = _afm_inputs(cuda, B, D, A, seed=B + 2 * D)[:4]
+    assert torch.equal(afm.afm_attention_pool(*args), afm.afm_attention_pool(*args))
+
+
+@pytest.mark.parametrize("buffer", [0, 1])
+def test_afm_attention_pool_partial_last_tile(cuda, buffer):
+    """The forward's persistent blocks (one an SM at the preset's widths) are
+    two groups of warps, each with its own staging buffer; tile t goes to group
+    t % 2. With 2 * SMs + buffer full 16-row tiles and 5 rows more, the partial
+    last tile lands in the first group's buffer (buffer 0) or the second's."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B = 16 * (2 * sms + buffer) + 5
+    fields, w, b, h, _ = _afm_inputs(cuda, B, 128, 64, seed=buffer)
+    _close(afm.afm_attention_pool(fields, w, b, h), afm.afm_attention_pool_plain(fields, w, b, h), 1e-5)
+
+
 def test_afm_attention_pool_autograd_on_the_card(cuda):
     """AfmAttentionPool under autograd: one forward and two backward launches,
     the gradients those of the CPU plain versions."""
@@ -815,6 +834,28 @@ def test_din_attention_pool_matches_plain(cuda, B, L, D, A, F):
     torch.cuda.synchronize()
     assert cuda_dinatt.din_attention_pool.launches == before + 1
     assert got.shape == (B, D) and got.dtype == torch.float32
+    _close(got, dinatt.din_attention_pool_plain(hist, tgt, att), 1e-5)
+
+
+@pytest.mark.parametrize("B,L,D,A,F", DIN_SHAPES + [(333, 64, 16, (256, 8, 1), (16, 8, 1))])
+def test_din_attention_pool_repeats_bit_for_bit(cuda, B, L, D, A, F):
+    """A fixed order of summation and no atomics: two launches, the same bits."""
+    att, _, hist, tgt, _ = _din_inputs(cuda, B, L, D, A, F, seed=B + L + D)
+    assert torch.equal(dinatt.din_attention_pool(hist, tgt, att), dinatt.din_attention_pool(hist, tgt, att))
+
+
+# (B, L, D, (A1, A2, 1)): the longest history with an A1 of four 64-column
+# panels; the preset's widths with both layers in several panels (A2 128); and
+# weights too large for shared memory beside a tile (read from device memory)
+DIN_POOL_PANEL_SHAPES = [(333, 64, 16, (256, 8, 1)), (257, 64, 64, (256, 128, 1)),
+                         (50, 3, 256, (256, 256, 1))]
+
+
+@pytest.mark.parametrize("B,L,D,A", DIN_POOL_PANEL_SHAPES)
+def test_din_attention_pool_column_panels(cuda, B, L, D, A):
+    att, _, hist, tgt, _ = _din_inputs(cuda, B, L, D, A, (16, 8, 1), seed=B)
+    got = dinatt.din_attention_pool(hist, tgt, att)
+    torch.cuda.synchronize()
     _close(got, dinatt.din_attention_pool_plain(hist, tgt, att), 1e-5)
 
 
