@@ -16,9 +16,12 @@ no result line.
    (ties included), normal inputs within a stated tolerance. Times of the
    kernel, its plain version and one PyTorch library call, beside the card's
    bound (for the kernels that multiply on the tensor cores in 3xTF32, the
-   top-k matmul and the two attention pools' forwards, three TF32 products
-   at the tensor cores' rate; the pools' rows also carry the CUDA-core bound
-   as ``cuda_core_bound_ms``). The two pools must repeat bit for bit. The lookup pair (gather_rows, onehot_grad) is also checked at the
+   top-k matmul, the two attention pools' forwards and the AFM backward's z
+   and W dz, three TF32 products at the tensor cores' rate; the pools' rows
+   also carry the CUDA-core bound as ``cuda_core_bound_ms``). The two pools
+   and the AFM backward must repeat bit for bit. The AFM pool is also checked
+   at widths past the preset's (AFM_WIDE), the fused MF trainer at factors of
+   MF_WIDE_DIM. The lookup pair (gather_rows, onehot_grad) is also checked at the
    other main paths' shapes (DIN's history batch and full-history target tile,
    LR's bias tables); its rows and the top-k rows of at most 32 users (a
    served batch, a single-user request) carry ``host_us``, the host's time per
@@ -63,9 +66,14 @@ no result line.
    full-history serving (trained through the DIN head kernels, scored through
    the masked plain-torch route), answers held against the stable top-k of the
    served scores, and the full-history scores of a few users (the longest
-   history among them) against the CPU's.
+   history among them) against the CPU's;
+13. din_depth -- DIN with an attention net of one hidden layer, which
+   ``ops/din_head.py::kernel_route`` refuses: ``run_experiment`` for
+   DIN_DEPTH_EPOCHS epochs with window serving through the composition
+   (``attention_pool`` + ``mlp``), with no DIN kernel launch, against the
+   CPU's history.
 
-Phases 4-12 are the main paths: each sets the launch counts to 0 just before
+Phases 4-13 are the main paths: each sets the launch counts to 0 just before
 it and reads them just after. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the line before that the ``kernels`` line.
@@ -142,6 +150,7 @@ MF_CHECK_EPOCHS = 5
 TRAIN_LOSS_RTOL, TRAIN_AUC_ATOL = 1e-4, 1e-3
 TRAIN_EPOCHS = 20
 EMBEDDING_DIM = 64
+MF_WIDE_DIM = 256  # the fused MF trainer also at factors past 128 (8 columns a lane)
 SEEN_DENSITY = 100_000 / (943 * 1682)  # ml-100k: every rating is a seen item
 # (users, items, dim, k): all users of the MF preset, one batched request of
 # the slice below, the single-user request of every serve phase, and the JAX
@@ -160,6 +169,10 @@ LR_CHECK_EPOCHS = 5
 # pairs and, for dW, db and dh, over all rows, in another order)
 AFM_FWD_RTOL, AFM_BWD_RTOL = 1e-5, 1e-4
 AFM_EPOCHS = 3  # the CPU reference's plain path is slow at full width
+# (D, A) past the preset's, at AFM_WIDE_ROWS rows: the weights too wide to sit
+# in shared memory beside a tile (read from device memory), A past 128, and D
+# past one patch of the backward's dW rows
+AFM_WIDE, AFM_WIDE_ROWS = ((128, 128), (256, 64), (64, 256), (256, 256)), 8_192
 CATALOG_TILE = 64  # users per tile of catalog_scores_from_features
 # the DIN head and pool kernels against their plain versions: largest error
 # within this share of the tensor's largest |value| (float32 sums over D, the
@@ -528,11 +541,10 @@ def mf_epoch_bound(B: int, U: int, I: int, D: int, epochs: int):
 
 
 def check_mf_epoch(batch, U: int, I: int, dtype: str, gen: torch.Generator,
-                   timed_epochs: int) -> dict:
+                   timed_epochs: int, D: int = EMBEDDING_DIM) -> dict:
     """mf_fullbatch_train against its plain version over MF_CHECK_EPOCHS epochs
-    at the MF training shape; times per epoch."""
+    at the MF training shape (factors of width D); times per epoch."""
     (uid, iid), y = batch
-    D = EMBEDDING_DIM
     pu0 = 0.1 * torch.randn((U, D), generator=gen, device=DEVICE)
     pi0 = 0.1 * torch.randn((I, D), generator=gen, device=DEVICE)
     args = (uid, iid, y, pu0, pi0)
@@ -643,20 +655,20 @@ def check_lr(model, params, x, y, mode: str, learning_rate: float, timed_epochs:
 
 
 def afm_work(B: int, D: int, A: int, backward: bool):
-    """(products, other operations, bytes) of the AFM pool on B rows. Products:
-    c W, 2 D A per row and pair (the forward's tensor-core work); the backward
-    adds dW and dc, 4 D A. Other operations, per row and pair: the product c
-    (D), the bias, relu and dot with h (4 A), the pool (2 D); the softmax 45 a
-    row; the backward adds the forward's again and per pair g . c (2 D), dz, dh
-    and db (5 A), dW's c (D), dc's w g (2 D) and de (4 D)."""
-    products = B * 15 * 2 * D * A
+    """The AFM pool's work on B rows: (z, dc, dW, other, bytes), the three
+    products apart, 2 D A per row and pair each: z = c W (the forward's, which
+    the backward recomputes), dc = W dz and dW = sum c^T dz (the backward's; 0
+    in the forward). Other operations, per row and pair: the product c (D), the
+    bias, relu and dot with h (4 A), the pool (2 D); the softmax 45 a row; the
+    backward adds per pair g . c (2 D), dz, dh and db (5 A), dW's c (D), dc's w g
+    (2 D) and de (4 D), and no pool."""
+    z = B * 15 * 2 * D * A
     other = B * (15 * (4 * A + 3 * D) + 45)
     params = (D * A + 2 * A) * 4
     if not backward:
-        return products, other, B * 6 * D * 4 + B * D * 4 + params
-    products += B * 15 * 4 * D * A
-    other += B * 15 * (9 * D + 5 * A)
-    return products, other, 2 * B * 6 * D * 4 + B * D * 4 + 2 * params
+        return z, 0, 0, other, B * 6 * D * 4 + B * D * 4 + params
+    other += B * 15 * (7 * D + 5 * A)
+    return z, z, z, other, 2 * B * 6 * D * 4 + B * D * 4 + 2 * params
 
 
 def afm_library_fwd(fields, W, b, h):
@@ -693,6 +705,9 @@ def check_afm(B: int, D: int, A: int, gen: torch.Generator, label: str, backward
         got, want = kernel(*args), plain(*args)
         err = max(normwise_err(f"afm_attention_pool_bwd d{n}", gt, wt, AFM_BWD_RTOL)
                   for n, gt, wt in zip(("fields", "W", "b", "h"), got, want))
+        if not all(torch.equal(a, b_) for a, b_ in zip(kernel(*args), got)):
+            raise AssertionError("afm_attention_pool_bwd: two launches differ")
+        del got, want
         library, lib_name = afm_library_bwd, "eager composition's autograd (forward included)"
     else:
         args, kernel, plain = (fields, W, b, h), afm.afm_attention_pool, afm.afm_attention_pool_plain
@@ -703,10 +718,10 @@ def check_afm(B: int, D: int, A: int, gen: torch.Generator, label: str, backward
         del got
         library, lib_name = afm_library_fwd, "eager: pair products, torch.matmul for c @ W, softmax, torch.bmm"
     torch.cuda.synchronize()
-    products, other, nbytes = afm_work(B, D, A, backward)
-    cuda_core = bound_of(products + other, nbytes)
-    # the forward multiplies on the tensor cores in 3xTF32; the backward on CUDA cores
-    t_bound, bound_by = cuda_core if backward else bound_of(other, nbytes, 3 * products)
+    z, dc, dw, other, nbytes = afm_work(B, D, A, backward)
+    cuda_core = bound_of(z + dc + dw + other, nbytes)
+    # z and dc multiply on the tensor cores in 3xTF32; dW and the rest on CUDA cores
+    t_bound, bound_by = bound_of(dw + other, nbytes, 3 * (z + dc))
     row = {
         "shape": {"rows": B, "fields": 6, "dim": D, "attention": A, "batch": label},
         "max_abs_err": err,
@@ -714,8 +729,7 @@ def check_afm(B: int, D: int, A: int, gen: torch.Generator, label: str, backward
         "plain_ms": time_ms(lambda: plain(*args)),
         "library_ms": time_ms(lambda: library(*args)),
         "library": lib_name,
-        "bound_ms": t_bound, "bound_by": bound_by,
-        **({} if backward else {"cuda_core_bound_ms": cuda_core[0]}),
+        "bound_ms": t_bound, "bound_by": bound_by, "cuda_core_bound_ms": cuda_core[0],
     }
     del fields, g
     torch.cuda.empty_cache()
@@ -1392,6 +1406,46 @@ def run_din(ds: MovieLens100K) -> dict:
             "catalog_tile_max_abs_err_vs_cpu": catalog_err, "launches": counts}
 
 
+DIN_DEPTH_EPOCHS = 2
+DIN_DEPTH_ATTENTION = (64, 1)  # one hidden layer: kernel_route refuses it
+
+
+def run_din_depth(ds: MovieLens100K) -> dict:
+    """DIN with an attention net of one hidden layer, which the DIN kernels do
+    not take: ``run_experiment`` trains and serves it (window scoring) through
+    the composition ``attention_pool`` + ``mlp`` on the card, with no DIN kernel
+    launch, and its history matches the same run's on the CPU."""
+    base = PRESETS["din"]
+    cfg = base.replace(epochs=DIN_DEPTH_EPOCHS, full_history_serving=False,
+                       model_kwargs={**base.model_kwargs, "attention_units": DIN_DEPTH_ATTENTION})
+    E = DIN_DEPTH_EPOCHS
+    reset_launches()  # the path's run starts here
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, data=ds, device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launches()  # ... and ends here
+    check_counts("din_depth", counts, {"din_head_fused": 0, "din_head_fused_bwd": 0,
+                                       "din_attention_pool": 0})
+    if counts["gather_rows"] < 1 or counts["onehot_grad"] < 1:
+        raise AssertionError(f"din_depth: the lookups did not go through their kernels: {counts}")
+    loss = res.history["train_loss"]
+    if set(res.history) != HISTORY_KEYS or not np.isfinite(loss).all():
+        raise AssertionError(f"din_depth: history {sorted(res.history)}, train loss {loss.tolist()}")
+    batches = split_batches(cfg, ds, "cpu")
+    cpu = Trainer(build_model(cfg, ds),
+                  TrainConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                              epochs=E, track_metrics=True, compute_dtype=cfg.compute_dtype),
+                  device="cpu").fit(batches["train"], valid=batches["valid"], test=batches["test"])
+    worst = compare_histories("din_depth", res.history,
+                              {k: v.numpy() for k, v in cpu.history.items()}, res.extras, cpu.extras)
+    return {"phase": "din_depth",
+            "config": f"din preset with attention {DIN_DEPTH_ATTENTION} (the composition route), "
+                      f"window serving, {E} epochs",
+            "rows": res.train_examples, "epochs": E, "train_loss": [float(loss[0]), float(loss[-1])],
+            "wall_s": wall_s, "max_rel_loss_diff_vs_cpu": worst, "launches": counts}
+
+
 def run_din_bf16(ds: MovieLens100K) -> dict:
     """DIN as ``bench.py`` trains it: ``compute_dtype="bfloat16"`` and
     ``indirect_hist=True`` (``run_experiment`` builds the standard (history,
@@ -1555,9 +1609,13 @@ def main() -> int:
             rows["onehot_grad"].append(check_grad(tname, ids, V, D, torch.float32, gen))
             emit({"phase": "kernel_check", "kernel": "onehot_grad", **rows["onehot_grad"][-1]})
         del lookups, table, din_hist, din_y, lr_user, lr_item
-        for dtype in ("float32", "bfloat16"):
+        # the rows of widths past the presets' draw from their own generator, so
+        # that the other rows see the same inputs as before them
+        wide_gen = torch.Generator(device=DEVICE).manual_seed(1)
+        for dtype, D, draw in (("float32", EMBEDDING_DIM, gen), ("bfloat16", EMBEDDING_DIM, gen),
+                            ("float32", MF_WIDE_DIM, wide_gen)):
             rows["mf_fullbatch_train"].append(
-                check_mf_epoch(batch, ds.num_users, ds.num_items, dtype, gen, TRAIN_EPOCHS))
+                check_mf_epoch(batch, ds.num_users, ds.num_items, dtype, draw, TRAIN_EPOCHS, D))
             emit({"phase": "kernel_check", "kernel": "mf_fullbatch_train",
                   **rows["mf_fullbatch_train"][-1]})
         del batch, uid, iid
@@ -1582,6 +1640,12 @@ def main() -> int:
                                                         backward=True))
         emit({"phase": "kernel_check", "kernel": "afm_attention_pool_bwd",
               **rows["afm_attention_pool_bwd"][-1]})
+        # the widths past the preset's that the model takes, both directions
+        for wide_D, wide_A in AFM_WIDE:
+            for name, backward in (("afm_attention_pool", False), ("afm_attention_pool_bwd", True)):
+                rows[name].append(check_afm(AFM_WIDE_ROWS, wide_D, wide_A, wide_gen, "wide widths",
+                                            backward=backward))
+                emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
         din_dims = (din_cfg.hist_len, din_cfg.model_kwargs["embed_size"], DIN_ATTENTION, DIN_FC)
         ragged = "train batch's rows at ragged widths"
         for name, part, B, dims, label, dtype in (
@@ -1601,7 +1665,7 @@ def main() -> int:
         phases = [run_train(ds), run_serve(ds, tmp), run_slice(ds), run_lr(ds), run_afm(ds),
                   run_serve_feature(ds, tmp, "lr", TRAIN_EPOCHS),
                   run_serve_feature(ds, tmp, "afm", AFM_EPOCHS), run_din(ds), run_din_bf16(ds),
-                  run_serve_din(ds, tmp, DIN_EPOCHS)]
+                  run_serve_din(ds, tmp, DIN_EPOCHS), run_din_depth(ds)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for p in phases:

@@ -13,7 +13,8 @@
 // so each epoch is two launches on one stream, which orders them:
 //
 // mf_epoch_kernel: a warp takes 32 consecutive rows. For each row its lanes load
-// the user's and the item's factors (lane l holds columns l, l + 32, ...; in the
+// the user's and the item's factors (lane l holds columns l, l + 32, ..., kCols
+// of them: 4, 8 or 16, the fewest that cover D, so D <= 512; in the
 // bf16 variant each master value is rounded to bf16 first, as the Pallas kernel's
 // astype does), reduce the dot product z over the warp, and compute the stable
 // BCE max(z, 0) - z y + log1p(exp(-|z|)) and g = (sigmoid(z) - y) / B. The
@@ -50,7 +51,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerWarp = 32;
-constexpr int kMaxColsPerLane = 4;  // D <= 128
+constexpr int kMaxColsPerLane = 16;  // D <= 512: 4, 8 or 16 columns a lane (mf_epoch_kernel's kCols)
 constexpr unsigned kFull = 0xffffffffu;
 
 template <bool kBf16>
@@ -75,7 +76,7 @@ __device__ __forceinline__ void flush(float* __restrict__ d, long long row, int 
   }
 }
 
-template <bool kBf16, class Id>
+template <bool kBf16, class Id, int kCols>
 __global__ void __launch_bounds__(kThreads)
 mf_epoch_kernel(const Id* __restrict__ uid, const Id* __restrict__ iid,
                 const float* __restrict__ y, const float* __restrict__ pu,
@@ -88,7 +89,7 @@ mf_epoch_kernel(const Id* __restrict__ uid, const Id* __restrict__ iid,
   const long long r1 = min(B, r0 + kRowsPerWarp);
   const float nb = static_cast<float>(B);
 
-  float acc_u[kMaxColsPerLane], acc_i[kMaxColsPerLane];
+  float acc_u[kCols], acc_i[kCols];
   long long cur_u = -1, cur_i = -1;
   float loss_sum = 0.f;
   for (long long r = r0; r < r1; ++r) {
@@ -96,10 +97,10 @@ mf_epoch_kernel(const Id* __restrict__ uid, const Id* __restrict__ iid,
     const long long i = static_cast<long long>(iid[r]);
     const bool u_ok = u >= 0 && u < U;
     const bool i_ok = i >= 0 && i < I;
-    float ue[kMaxColsPerLane], ie[kMaxColsPerLane];
+    float ue[kCols], ie[kCols];
     float part = 0.f;
 #pragma unroll
-    for (int k = 0; k < kMaxColsPerLane; ++k) {
+    for (int k = 0; k < kCols; ++k) {
       const int col = lane + 32 * k;
       ue[k] = (col < D && u_ok) ? compute<kBf16>(pu[static_cast<size_t>(u) * D + col]) : 0.f;
       ie[k] = (col < D && i_ok) ? compute<kBf16>(pi[static_cast<size_t>(i) * D + col]) : 0.f;
@@ -114,20 +115,20 @@ mf_epoch_kernel(const Id* __restrict__ uid, const Id* __restrict__ iid,
         flush(du, cur_u, D, lane, acc_u);
         cur_u = u;
 #pragma unroll
-        for (int k = 0; k < kMaxColsPerLane; ++k) acc_u[k] = 0.f;
+        for (int k = 0; k < kCols; ++k) acc_u[k] = 0.f;
       }
 #pragma unroll
-      for (int k = 0; k < kMaxColsPerLane; ++k) acc_u[k] += compute<kBf16>(g * ie[k]);
+      for (int k = 0; k < kCols; ++k) acc_u[k] += compute<kBf16>(g * ie[k]);
     }
     if (i_ok) {
       if (i != cur_i) {
         flush(di, cur_i, D, lane, acc_i);
         cur_i = i;
 #pragma unroll
-        for (int k = 0; k < kMaxColsPerLane; ++k) acc_i[k] = 0.f;
+        for (int k = 0; k < kCols; ++k) acc_i[k] = 0.f;
       }
 #pragma unroll
-      for (int k = 0; k < kMaxColsPerLane; ++k) acc_i[k] += compute<kBf16>(g * ue[k]);
+      for (int k = 0; k < kCols; ++k) acc_i[k] += compute<kBf16>(g * ue[k]);
     }
   }
   flush(du, cur_u, D, lane, acc_u);
@@ -175,7 +176,11 @@ cudaError_t launch_epoch(const void* uid, const void* iid, const float* y, const
                          int I, int D, cudaStream_t stream) {
   const long long warps = (B + kRowsPerWarp - 1) / kRowsPerWarp;
   const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
-  mf_epoch_kernel<kBf16, Id><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  // the fewest columns a lane that cover D: D <= 128 keeps the 4-column kernel
+  auto kernel = D <= 128 ? mf_epoch_kernel<kBf16, Id, 4>
+                : D <= 256 ? mf_epoch_kernel<kBf16, Id, 8>
+                           : mf_epoch_kernel<kBf16, Id, 16>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const Id*>(uid), static_cast<const Id*>(iid), y, pu, pi, du, di, loss, B, U, I,
       D);
   return cudaGetLastError();

@@ -11,16 +11,21 @@ masks the pad prefix.
 
 Routes:
 
-* unmasked (``mask_padding=False``, the preset): the head is ``DinHead`` on
-  every route -- the training forward and backward, and evaluation -- so the
-  fused DIN head kernels (``ops/din_head.py``) run it. ``fused_head`` and
-  ``pallas_serving`` are accepted for the JAX fields of those names, which
-  picked the Pallas kernels over the XLA composition: all compute the same
-  function, and here the kernels are the one route. That route needs two
-  hidden layers in each net, the kernel's structure;
-* the window catalog scorer (``ctx.history``): the DIN attention-pool kernel
-  (``ops/din_attention.py``), then ``mlp`` over [pooled, target], as JAX's
-  ``_apply(use_pallas=True)``;
+* unmasked (``mask_padding=False``, the preset), where
+  ``ops/din_head.py::kernel_route`` takes the shapes (two hidden layers in
+  each net, L at most 64, widths multiples of 4, fc widths at most 2048):
+  the head is ``DinHead`` on every route -- the training forward and
+  backward, and evaluation -- so the fused DIN head kernels run it.
+  ``fused_head`` and ``pallas_serving`` are accepted for the JAX fields of
+  those names, which picked the Pallas kernels over the XLA composition: all
+  compute the same function, and here the shapes pick the route;
+* the window catalog scorer (``ctx.history``) at those shapes: the DIN
+  attention-pool kernel (``ops/din_attention.py``), then ``mlp`` over
+  [pooled, target], as JAX's ``_apply(use_pallas=True)``;
+* unmasked at any other shapes (another depth, a longer history, other
+  widths): plain torch ``attention_pool`` then ``mlp``, the composition that
+  the JAX DIN's default route takes (``fused_head=False``), on training,
+  evaluation and the window scorer alike;
 * masked (``mask_padding=True``, and ``apply_full`` / ``apply_full_embedded``,
   which full-history serving uses): plain torch ``attention_pool`` with the
   mask, then ``mlp``. This is a route in its own right, not a kernel's plain
@@ -50,7 +55,7 @@ from deeplearningrecommendationsystem_tpu_torch.models.base import (
 from deeplearningrecommendationsystem_tpu_torch.models.common import nest, params_module
 from deeplearningrecommendationsystem_tpu_torch.ops.attention import attention_pool
 from deeplearningrecommendationsystem_tpu_torch.ops.din_attention import din_attention_pool
-from deeplearningrecommendationsystem_tpu_torch.ops.din_head import din_head
+from deeplearningrecommendationsystem_tpu_torch.ops.din_head import din_head, kernel_route
 from deeplearningrecommendationsystem_tpu_torch.ops.embedding import gather_rows
 from deeplearningrecommendationsystem_tpu_torch.ops.linear import embedding_init, mlp, mlp_init
 
@@ -119,6 +124,8 @@ class DIN(nn.Module):
             # appear inside a history, so only the pad prefix is masked
             mask = torch.cummax((hist != 0).int(), dim=1).values > 0
             pooled = attention_pool(att, hist_e, target_e, mask)
+        elif not kernel_route(att, fc, hist_e.shape[1], hist_e.shape[2]):
+            pooled = attention_pool(att, hist_e, target_e)
         elif window:
             pooled = din_attention_pool(hist_e, target_e, att)
         else:

@@ -19,7 +19,7 @@ plain versions build them.
 
 Dispatch is by device only: CPU tensors take the plain versions, CUDA
 tensors launch the kernels (``ops/cuda/afm_attention.py``; float32, 6
-fields, A <= 128) or raise.
+fields, A <= 256) or raise.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@
 fields' gradient and per-block partial sums of dW, db and dh, and then the
 kernel that sums the partials in block order: two launches. Each keeps a
 count of its launches (``.launches``), raised by one per kernel launch and
-nowhere else. Both take float32 only, on the device of ``fields``.
+nowhere else. Both take float32 only, on the device of ``fields``: 6 fields,
+A at most 256 and any D at which a tile of one row fits in a block's shared
+memory (the weights move from shared to device memory where they do not fit).
 
 The library is built and loaded at the first launch, never at import.
 """
@@ -30,7 +32,7 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda.launch import (
 
 SOURCE = "afm_attention.cu"
 NUM_FIELDS = 6  # kF in the source
-MAX_ATTENTION = 128
+MAX_ATTENTION = 256  # kMaxA in the source
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper
 _F32 = (torch.float32,)
 
@@ -49,14 +51,16 @@ def _lib() -> ctypes.CDLL:
     for name in ("afm_attention_fwd_smem_bytes", "afm_attention_bwd_smem_bytes"):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [I, I], ctypes.c_size_t
-    lib.afm_attention_bwd_max_dim.argtypes = [I]
-    lib.afm_attention_bwd_max_dim.restype = I
+    lib.afm_attention_max_attention.argtypes = []
+    lib.afm_attention_max_attention.restype = I
     lib.afm_attention_error_string.argtypes = [I]
     lib.afm_attention_error_string.restype = ctypes.c_char_p
     lib.afm_attention_num_fields.argtypes = []
     lib.afm_attention_num_fields.restype = I
     if lib.afm_attention_num_fields() != NUM_FIELDS:
         raise RuntimeError("afm_attention.cu and its launcher disagree on the number of fields")
+    if lib.afm_attention_max_attention() != MAX_ATTENTION:
+        raise RuntimeError("afm_attention.cu and its launcher disagree on the widest A")
     return lib
 
 
@@ -84,7 +88,8 @@ def afm_attention_pool(fields, att_w, att_b, att_h):
     B, D, A = _check_params(fields, att_w, att_b, att_h, "afm_attention_pool")
     lib = _lib()
     if lib.afm_attention_fwd_smem_bytes(D, A) > SMEM_LIMIT:
-        raise ValueError(f"D={D}, A={A}: a tile of rows does not fit in a block's shared memory")
+        raise ValueError(f"D={D}, A={A}: a tile of rows does not fit in a block's shared memory "
+                         f"({SMEM_LIMIT} bytes)")
     device = fields.device
     out = torch.empty((B, D), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -106,8 +111,9 @@ def afm_attention_pool_bwd(fields, att_w, att_b, att_h, g):
     if tuple(g.shape) != (B, D):
         raise ValueError(f"g {tuple(g.shape)} is not [B, D] = [{B}, {D}]")
     lib = _lib()
-    if lib.afm_attention_bwd_smem_bytes(D, A) > SMEM_LIMIT or D > lib.afm_attention_bwd_max_dim(A):
-        raise ValueError(f"D={D}, A={A}: the backward's tile does not fit in a block")
+    if lib.afm_attention_bwd_smem_bytes(D, A) > SMEM_LIMIT:
+        raise ValueError(f"D={D}, A={A}: the backward's tile of one row does not fit in a block's "
+                         f"shared memory ({SMEM_LIMIT} bytes)")
     de = torch.empty((B, NUM_FIELDS, D), dtype=torch.float32, device=device)
     dw = torch.empty((D, A), dtype=torch.float32, device=device)
     db = torch.empty((A,), dtype=torch.float32, device=device)

@@ -30,7 +30,7 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda.launch import (
 )
 
 SOURCE = "mf_epoch.cu"
-MAX_DIM = 128  # 32 lanes x kMaxColsPerLane in the source
+MAX_DIM = 512  # 32 lanes x kMaxColsPerLane in the source
 ID_DTYPES = (torch.int32, torch.int64)
 
 

@@ -22,6 +22,7 @@ Three parts, as there:
 
 The structure is the kernel's: two hidden layers in each net, attention
 3D -> A1 -> A2 -> 1 and fc 2D -> F1 -> F2 -> 1 (reference model/din.py:14-29).
+``kernel_route`` says from the shapes whether a model takes this head.
 Dispatch is by device only: CPU tensors take the plain versions, CUDA
 tensors launch the kernels (``ops/cuda/din_head.py``) or raise.
 
@@ -44,6 +45,25 @@ Layers = Sequence[Mapping[str, torch.Tensor]]
 # names of the 14 weights, in the kernel's order
 WEIGHT_NAMES = ("wh", "wt", "b1", "w2", "b2", "w3", "b3",
                 "u1p", "u1t", "c1", "u2", "c2", "u3", "c3")
+
+
+def kernel_route(att: Layers, fc: Layers, L: int, D: int) -> bool:
+    """Whether the DIN kernels (this head and the window pool,
+    ``ops/din_attention.py``) take nets ``att``, ``fc`` at history length L
+    and embedding width D. True only for two hidden layers in each net ending
+    in one unit, biases on the attention net's hidden layers, L at most
+    ``MAX_HISTORY``, and D, A1, A2, F1, F2 multiples of 4 with F at most
+    ``MAX_FC``. Otherwise DIN takes the composition ``attention_pool`` +
+    ``mlp``, the JAX DIN's default route. Decided from shapes alone, before
+    any launch."""
+    if len(att) != 3 or len(fc) != 3 or any("b" not in layer for layer in att[:2]):
+        return False
+    A1, A2 = att[0]["w"].shape[1], att[1]["w"].shape[1]
+    F1, F2 = fc[0]["w"].shape[1], fc[1]["w"].shape[1]
+    if att[2]["w"].shape[1] != 1 or fc[2]["w"].shape[1] != 1:
+        return False
+    return (1 <= L <= _cuda.MAX_HISTORY and all(n >= 4 and n % 4 == 0 for n in (D, A1, A2, F1, F2))
+            and max(F1, F2) <= _cuda.MAX_FC)
 
 
 def din_head_weights(att: Layers, fc: Layers, D: int) -> Tuple[torch.Tensor, ...]:

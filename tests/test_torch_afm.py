@@ -5,7 +5,8 @@ NumPy inputs and weights.
   (B = 70, F = 6, D = 32, A = 16; atol 2e-5, as ``tests/test_kernels.py``
   holds the Pallas kernel to the XLA pair);
 * ``AfmAttentionPool``'s gradients against the Pallas custom VJP
-  ``afm_attention_pool_fused`` (rtol 5e-4, atol 5e-5, the JAX test's);
+  ``afm_attention_pool_fused`` (rtol 5e-4, atol 5e-5, the JAX test's); both
+  also at (D, A) = (128, 128) and (64, 256) on 24 rows;
 * AFM ``apply`` (rtol 1e-5) and its parameter gradients (rtol 1e-3,
   atol 1e-5, the JAX test's for its fused flag), and the catalog scores
   (atol 1e-5), at embedding 32 and attention 16.
@@ -206,3 +207,32 @@ def test_weights_refuse_unknown_models_and_names(model_inputs):
     params = dict(model_inputs[0], extra=np.zeros(3, np.float32))
     with pytest.raises(ValueError, match="extra"):
         params_from_jax(AFM(SPEC, 32, 16, device="cpu"), params)
+
+
+# widths the CUDA kernels take with their weights in device memory: the
+# preset's D at A 128, and A past 128; the same checks as above at a small batch
+WIDE = [(128, 128), (64, 256)]
+
+
+@pytest.mark.parametrize("width,att", WIDE)
+def test_plain_pool_and_grads_match_pallas_at_wide_widths(width, att):
+    rng = np.random.default_rng(width + att)
+    n = 24
+    fields = (0.3 * rng.normal(size=(n, F, width))).astype(np.float32)
+    w = (rng.normal(size=(width, att)) / np.sqrt(width)).astype(np.float32)
+    b = rng.normal(size=att).astype(np.float32)
+    h = (rng.normal(size=(att, 1)) / np.sqrt(att)).astype(np.float32)
+    cot = rng.normal(size=(n, width)).astype(np.float32)
+    want = afm_attention_pool_pallas(*map(jnp.asarray, (fields, w, b, h)), block_rows=8,
+                                     interpret=True)
+    args = [torch.from_numpy(a) for a in (fields, w, b, h)]
+    np.testing.assert_allclose(afm_ops.afm_attention_pool(*args).numpy(), np.asarray(want), atol=2e-5)
+
+    def loss(f, w_, b_, h_):
+        return jnp.sum(afm_attention_pool_fused(f, w_, b_, h_, 8, True) * cot)
+
+    g_want = jax.grad(loss, argnums=(0, 1, 2, 3))(*map(jnp.asarray, (fields, w, b, h)))
+    grads = afm_ops.afm_attention_pool_bwd(*args, torch.from_numpy(cot))
+    for got, want_g, leaf in zip(grads, g_want, args):
+        assert got.shape == leaf.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_g), rtol=5e-4, atol=5e-5)

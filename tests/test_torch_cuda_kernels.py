@@ -446,7 +446,9 @@ def _mf_inputs(cuda, U, I, D, B, seed):
 MF_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-3, 2e-3)}  # (loss rtol, table atol)
 
 
-@pytest.mark.parametrize("U,I,D,B", [(50, 81, 16, 300), (943, 1682, 64, 20_000), (7, 9, 100, 33)])
+# D 192 and 256 take the kernel's 8 columns a lane, D 512 its 16
+@pytest.mark.parametrize("U,I,D,B", [(50, 81, 16, 300), (943, 1682, 64, 20_000), (7, 9, 100, 33),
+                                     (50, 81, 192, 300), (60, 90, 256, 2_000), (30, 40, 512, 500)])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_mf_fullbatch_train_matches_plain(cuda, U, I, D, B, compute_dtype):
     args = _mf_inputs(cuda, U, I, D, B, seed=U + B)
@@ -469,8 +471,8 @@ def test_mf_launcher_checks_its_inputs(cuda):
         ((uid, iid.long(), y, pu, pi), TypeError),  # ids of two dtypes
         ((uid, iid, y[:5], pu, pi), ValueError),
         ((uid, iid, y, pu, pi[:, :4].contiguous()), ValueError),
-        ((uid, iid, y, torch.zeros((5, 129), device=cuda), torch.zeros((6, 129), device=cuda)),
-         ValueError),
+        ((uid, iid, y, torch.zeros((5, 513), device=cuda), torch.zeros((6, 513), device=cuda)),
+         ValueError),  # D past 512, the widest the kernel takes
     ]
     for args, err in bad:
         with pytest.raises(err):
@@ -590,8 +592,14 @@ def _close(got, want, rtol):
 
 
 # (B, D, A): the JAX test's shape, the AFM preset's width at a ragged batch
-# and at one catalog tile of 64 users, widths that need padding
-AFM_SHAPES = [(70, 32, 16), (5_003, 128, 64), (107_648, 128, 64), (301, 7, 5), (40, 64, 128)]
+# and at one catalog tile of 64 users, widths that need padding; then widths
+# whose weights do not fit in shared memory beside a tile (the kernels read
+# them from device memory), A past 128, and D past one patch of the
+# backward's dW rows (D-panels): (128, 128), (256, 64), (64, 256), (256, 256),
+# and the ragged (36, 20)
+AFM_SHAPES = [(70, 32, 16), (5_003, 128, 64), (107_648, 128, 64), (301, 7, 5), (40, 64, 128),
+              (2_001, 128, 128), (2_001, 256, 64), (1_003, 64, 256), (1_003, 256, 256),
+              (503, 36, 20)]
 
 
 @pytest.mark.parametrize("B,D,A", AFM_SHAPES)
@@ -663,8 +671,8 @@ def test_afm_launchers_check_their_inputs(cuda):
                       ((fields, w[:4].contiguous(), b, h), ValueError),
                       ((fields, w, b[:2].contiguous(), h), ValueError),
                       ((fields.transpose(0, 1), w, b, h), ValueError),
-                      ((fields, torch.zeros((8, 129), device=cuda), torch.zeros(129, device=cuda),
-                        torch.zeros((129, 1), device=cuda)), ValueError)]:
+                      ((fields, torch.zeros((8, 257), device=cuda), torch.zeros(257, device=cuda),
+                        torch.zeros((257, 1), device=cuda)), ValueError)]:  # A past 256
         with pytest.raises(err):
             cuda_afm.afm_attention_pool(*args)
     with pytest.raises(ValueError):
@@ -882,3 +890,46 @@ def test_din_launchers_check_their_inputs(cuda):
             cuda_dinatt.din_attention_pool(*args)
     with pytest.raises(TypeError):
         cuda_dinatt.din_attention_pool(hist.double(), tgt, att)
+
+
+# (attention units, fc units, L): nets of one and three hidden layers, and a
+# history past the kernels' 64, which DIN sends to the composition
+DIN_COMPOSITION_SHAPES = [((64, 1), (32, 16, 1), 10), ((32, 16, 1), (200, 80, 40, 1), 10),
+                          ((32, 16, 1), (64, 32, 1), 80)]
+
+
+@pytest.mark.parametrize("att_units,fc_units,L", DIN_COMPOSITION_SHAPES)
+def test_din_composition_route_launches_no_din_kernel(cuda, att_units, fc_units, L):
+    """DIN at shapes ``kernel_route`` refuses: logits, gradients and the window
+    scorer on the card equal the CPU's (the same plain torch), and no DIN
+    kernel launches."""
+    from deeplearningrecommendationsystem_tpu_torch.models import DIN, ServingContext
+
+    kw = dict(embed_size=16, attention_units=att_units, fc_units=fc_units)
+    cpu = DIN(200, **kw, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = DIN(200, **kw, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    hist, target = torch.randint(0, 200, (300, L), generator=gen), torch.randint(0, 200, (300,), generator=gen)
+    counters = (cuda_dh.din_head_fused, cuda_dh.din_head_fused_bwd, cuda_dinatt.din_attention_pool)
+    before = [c.launches for c in counters]
+    got = card((hist.to(cuda), target.to(cuda)))
+    got.square().sum().backward()
+    ctx = ServingContext(torch.zeros((37, 1)), torch.zeros((200, 1)), history=hist[:37].to(cuda))
+    with torch.no_grad():
+        scores = card.score_catalog(ctx)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
+    want = cpu((hist, target))
+    want.square().sum().backward()
+    _close(got.detach().cpu(), want.detach(), 1e-5)
+    last_bias = f"att.{len(att_units) - 1}.b"  # d b = sum of ds: 0 but for rounding, as d b3 above
+    for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
+        if name == last_bias:
+            _close_db3(a.grad.cpu(), b.grad, 2 * want.detach())
+        else:
+            _close(a.grad.cpu(), b.grad, 1e-4)
+    with torch.no_grad():
+        want_scores = cpu.score_catalog(ServingContext(torch.zeros((37, 1)), torch.zeros((200, 1)),
+                                                       history=hist[:37]))
+    _close(scores.cpu(), want_scores, 1e-5)

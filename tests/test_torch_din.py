@@ -16,7 +16,12 @@ weights (``params_from_jax``), at a small width: 200 items, D 16, attention
   params, with full-history and window serving; tolerances as
   ``tests/test_torch_experiments.py`` states them, but the raw AUCs atol 1e-4
   and the ranking metrics atol 1e-5 (after 3 epochs at lr 1e-3 the logits are
-  near 0, and a few nearly equal scores swap places).
+  near 0, and a few nearly equal scores swap places);
+* nets of one and three hidden layers and a history of 80, which
+  ``ops/din_head.py::kernel_route`` sends to the composition: logits, grads,
+  one Trainer epoch and the window scorer against the JAX DIN's default
+  route, at the tolerances above; ``kernel_route`` on the preset's shapes and
+  on each shape it refuses.
 """
 
 import jax
@@ -375,3 +380,121 @@ def test_build_server_serves_din(dataset_dir):
             assert not rec.seen[u, payload["items"][row]].any()
     finally:
         server.httpd.server_close()
+
+
+# Nets of another depth, and a history longer than the kernels take: the
+# composition route (``kernel_route`` False), against the JAX DIN's default
+# route, which is the same composition. The parent tree raised on all three.
+OTHER_SHAPES = {
+    "attention_depth_1": ({"attention_units": (64, 1)}, L),
+    "fc_depth_3": ({"fc_units": (200, 80, 40, 1)}, L),
+    "history_80": ({}, 80),
+}
+
+
+def _other(case):
+    flags, hist_len = OTHER_SHAPES[case]
+    kw = dict(KW, **flags)
+    p = jax.tree.map(np.asarray, JaxDIN(I, **kw).init(jax.random.PRNGKey(1)))
+    rng = np.random.default_rng(1)
+    hist = rng.integers(0, I, (B, hist_len))
+    target = rng.integers(0, I, B)
+    y = (rng.random(B) < 0.5).astype(np.float32)
+    return kw, p, hist, target, y
+
+
+@pytest.mark.parametrize("case", list(OTHER_SHAPES))
+def test_other_depths_and_lengths_match_jax(case):
+    kw, p, hist, target, y = _other(case)
+    jmodel = JaxDIN(I, **kw)
+
+    def jax_loss(q):
+        lg = jmodel.apply(q, (jnp.asarray(hist), jnp.asarray(target)))
+        return _jax_bce(lg, y), lg
+
+    (v_want, lg_want), g_want = jax.value_and_grad(jax_loss, has_aux=True)(
+        jax.tree.map(jnp.asarray, p))
+    model = params_from_jax(DIN(I, **kw, device="cpu"), p)
+    lg = model((torch.from_numpy(hist), torch.from_numpy(target)))
+    loss = _bce(lg, torch.from_numpy(y))
+    loss.backward()
+    np.testing.assert_allclose(lg.detach().numpy(), np.asarray(lg_want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(loss.item(), float(v_want), rtol=1e-5)
+    g_want = _flat(g_want)
+    named = dict(model.named_parameters())
+    assert named.keys() == g_want.keys()
+    for k, t in named.items():
+        np.testing.assert_allclose(t.grad.numpy(), g_want[k], rtol=1e-3, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("case", list(OTHER_SHAPES))
+def test_other_depths_and_lengths_train_and_serve_like_jax(case):
+    """One Trainer epoch with metrics, then the window catalog scorer."""
+    kw, p, hist, target, y = _other(case)
+    jb = ((jnp.asarray(hist), jnp.asarray(target)), jnp.asarray(y))
+    tb = ((torch.from_numpy(hist), torch.from_numpy(target)), torch.from_numpy(y))
+    jcfg = dict(learning_rate=1e-3, weight_decay=1e-5, epochs=1)
+    want = JaxTrainer(JaxDIN(I, **kw), JaxConfig(**jcfg)).fit(
+        jax.random.PRNGKey(0), jb, valid=jb, params=jax.tree.map(jnp.asarray, p))
+    model = params_from_jax(DIN(I, **kw, device="cpu"), p)
+    got = Trainer(model, TrainConfig(**jcfg), device="cpu").fit(tb, valid=tb)
+    for key, w in want.history.items():
+        if key.split("_", 1)[1] in THRESHOLDED:
+            np.testing.assert_array_equal(got.history[key].numpy(), w, err_msg=key)
+        else:
+            np.testing.assert_allclose(got.history[key].numpy(), w, rtol=1e-5, err_msg=key)
+    want_params = _flat(want.params)
+    for k, v in got.params.items():
+        np.testing.assert_allclose(v.numpy(), want_params[k], atol=5e-5, err_msg=k)
+
+    window = np.random.default_rng(2).integers(0, I, (37, hist.shape[1])).astype(np.int32)
+    jctx = JaxCtx(jnp.zeros((37, 24)), jnp.zeros((I, 19)), history=jnp.asarray(window))
+    scores_want = JaxDIN(I, **kw).score_catalog(want.params, jctx)
+    served = params_from_jax(DIN(I, **kw, device="cpu"), jax.tree.map(np.asarray, want.params))
+    with torch.no_grad():
+        scores = served.score_catalog(_ctx(37, history=torch.from_numpy(window)))
+    np.testing.assert_allclose(scores.numpy(), np.asarray(scores_want), rtol=0, atol=1e-5)
+
+
+def _nets(att_units, fc_units, d=D, bias=True):
+    def net(d_in, units):
+        dims = (d_in,) + tuple(units)
+        return [dict({"w": torch.zeros(a, b)}, **({"b": torch.zeros(b)} if bias else {}))
+                for a, b in zip(dims[:-1], dims[1:])]
+    return net(3 * d, att_units), net(2 * d, fc_units)
+
+
+ROUTE_CASES = {
+    "preset": (((128, 64, 1), (256, 128, 1), 10, 64), True),
+    "narrow": (((32, 16, 1), (64, 32, 1), 10, 16), True),
+    "history_64": (((128, 64, 1), (256, 128, 1), 64, 64), True),
+    "attention_depth_1": (((64, 1), (256, 128, 1), 10, 64), False),
+    "attention_depth_3": (((64, 32, 16, 1), (256, 128, 1), 10, 64), False),
+    "fc_depth_1": (((128, 64, 1), (256, 1), 10, 64), False),
+    "fc_depth_3": (((128, 64, 1), (200, 80, 40, 1), 10, 64), False),
+    "history_65": (((128, 64, 1), (256, 128, 1), 65, 64), False),
+    "history_80": (((128, 64, 1), (256, 128, 1), 80, 64), False),
+    "d_not_multiple_of_4": (((128, 64, 1), (256, 128, 1), 10, 6), False),
+    "a1_not_multiple_of_4": (((30, 64, 1), (256, 128, 1), 10, 64), False),
+    "a2_not_multiple_of_4": (((128, 10, 1), (256, 128, 1), 10, 64), False),
+    "f1_not_multiple_of_4": (((128, 64, 1), (250, 128, 1), 10, 64), False),
+    "f2_not_multiple_of_4": (((128, 64, 1), (256, 126, 1), 10, 64), False),
+    "fc_wider_than_2048": (((128, 64, 1), (4096, 128, 1), 10, 64), False),
+    "last_attention_width_2": (((128, 64, 2), (256, 128, 1), 10, 64), False),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_kernel_route_from_shapes(case):
+    from deeplearningrecommendationsystem_tpu_torch.ops.din_head import kernel_route
+
+    (att_units, fc_units, hist_len, d), want = ROUTE_CASES[case]
+    att, fc = _nets(att_units, fc_units, d)
+    assert kernel_route(att, fc, hist_len, d) is want
+
+
+def test_kernel_route_needs_attention_biases():
+    from deeplearningrecommendationsystem_tpu_torch.ops.din_head import kernel_route
+
+    att, fc = _nets((128, 64, 1), (256, 128, 1), 64, bias=False)
+    assert kernel_route(att, fc, 10, 64) is False

@@ -1,7 +1,8 @@
 """The port's fused MF trainer against the JAX package's Pallas kernel
 (``ops/pallas/mf_epoch.py::mf_fullbatch_train``, interpret mode on the CPU,
 block_rows=64) on the same NumPy inputs, U, I, D, B = 50, 81, 16, 300 over 6
-epochs, and against the port's own ``Trainer``.
+epochs (and at D 192 and 256, which the CUDA kernel takes with 8 columns a
+lane, on 120 rows over 3 epochs), and against the port's own ``Trainer``.
 
 Tolerances: in float32, losses rtol 2e-5 and tables atol 2e-5, those of
 ``tests/test_kernels.py::test_mf_fused_kernel_matches_trainer`` (the sums run
@@ -97,3 +98,26 @@ def test_fast_fit_matches_trainer(inputs):
     np.testing.assert_allclose(losses.numpy(), want.history["train_loss"].numpy(), rtol=2e-5)
     for k in ("user", "item"):
         np.testing.assert_allclose(got[k].numpy(), want.params[k].numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("width", [192, 256])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_at_wide_factors(compute_dtype, width):
+    """D past 128, which ``mf_epoch_kernel`` takes since it templated its
+    columns a lane (8 at D 192 and 256): the plain version against the Pallas
+    kernel at a small row count, 3 epochs, the tolerances above."""
+    rng = np.random.default_rng(width)
+    params = {k: np.array(v) for k, v in JaxMF(U, I, width).init(jax.random.PRNGKey(3)).items()}
+    uid = rng.integers(0, U, 120).astype(np.int32)
+    iid = rng.integers(0, I, 120).astype(np.int32)
+    y = (rng.random(120) < 0.5).astype(np.float32)
+    want_pu, want_pi, want_losses = jax_mf_fullbatch_train(
+        jnp.asarray(uid), jnp.asarray(iid), jnp.asarray(y), jnp.asarray(params["user"]),
+        jnp.asarray(params["item"]), 3, LR, WD, compute_dtype, block_rows=64, interpret=True)
+    args = [torch.from_numpy(a) for a in (uid, iid, y, params["user"], params["item"])]
+    pu, pi, losses = port.mf_fullbatch_train(*args, 3, LR, WD, compute_dtype)
+    tol = TOL[compute_dtype]
+    assert pu.shape == (U, width) and pi.shape == (I, width)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(want_losses), rtol=tol["rtol"])
+    np.testing.assert_allclose(pu.numpy(), np.asarray(want_pu), atol=tol["atol"])
+    np.testing.assert_allclose(pi.numpy(), np.asarray(want_pi), atol=tol["atol"])

@@ -14,7 +14,9 @@ The CUDA code cannot run here, so these tests pin what it rests on:
   register hand-off of relu(z1) from the first layer's C fragments to the
   second layer's A fragments (a0 = c0, a1 = c2, a2 = c1, a3 = c3, B's rows
   permuted to match), its column panels, the AFM forward's pair rows (15 pairs and a zero row an
-  m16 tile) and zeros past widths that are multiples of 4 only. On
+  m16 tile), the AFM backward's hand-off of dz from z's C fragments to the A
+  fragments of dc = dz W^T (W^T's B fragment holding W[d][2t], W[d][2t + 1])
+  and zeros past widths that are multiples of 4 only. On
   integer-valued inputs every product is exact, so the model must reproduce
   the scores bit for bit;
 * the accuracy: the modelled 3xTF32 pools lie within the card's limit (1e-5
@@ -423,3 +425,83 @@ def test_afm_pool_3xtf32_meets_the_limit_and_tf32_does_not():
     want = afm_attention_pool_plain(*(torch.from_numpy(x) for x in (fields, W, b, h))).numpy()
     assert _rel(_afm_model(fields, W, b, h, passes=3), want) <= LIMIT
     assert _rel(_afm_model(fields, W, b, h, passes=1), want) > LIMIT
+
+
+# ---- the AFM backward: dc = dz W^T with dz handed from z's C fragments
+
+def _afm_dz(Z, ds, b, h):
+    """dz [16, Ak] = (z + b > 0) ds_p h, float32, as ``row_backward`` forms it
+    (pair 15's ds is 0)."""
+    Ak = Z.shape[1]
+    bp, hp = _pad(b, (Ak,)), _pad(h, (Ak,))
+    dsr = _pad(ds, (16,))
+    zp = np.maximum((Z + bp).astype(np.float32), 0)
+    return np.where(zp > 0, (dsr[:, None] * hp).astype(np.float32), 0).astype(np.float32)
+
+
+def _afm_row_dc(Z, ds, b, h, W, permuted_rows=True):
+    """``row_backward``'s dc [16, Dc] (no w g term) from lanes: each n8 tile of
+    z's C fragments (c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8,
+    2t + 1)) becomes dz and is handed on as the A fragment of the k-step over
+    those 8 columns of A, a0 = c0, a1 = c2, a2 = c1, a3 = c3, so slot t takes
+    column 2t and slot t + 4 column 2t + 1; W^T's B fragment of column d holds
+    W[d][2t], W[d][2t + 1] (``permuted_rows``), else the unpermuted W[d][t],
+    W[d][t + 4]."""
+    D, A = W.shape
+    Ak, Dc = Z.shape[1], -(-D // 32) * 32
+    Wp = _pad(W, (Dc, Ak))
+    dz = _afm_dz(Z, ds, b, h)
+    dc = np.zeros((16, Dc), np.float32)
+    for d0 in range(0, Dc, 8):
+        acc = np.zeros((32, 4), np.float32)
+        for n0 in range(0, Ak, 8):
+            a, bf = [], []
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                c = n0 + 2 * t
+                cfrag = [dz[g, c], dz[g, c + 1], dz[g + 8, c], dz[g + 8, c + 1]]
+                a.append([cfrag[0], cfrag[2], cfrag[1], cfrag[3]])
+                d = d0 + g
+                bf.append(_b_pair(Wp, d, c) if permuted_rows else [Wp[d, n0 + t], Wp[d, n0 + t + 4]])
+            _mma3(acc, np.array(a, np.float32), np.array(bf, np.float32))
+        dc[:, d0:d0 + 8] = _c_matrix(acc)
+    return dc
+
+
+AFM_BWD_WIDTHS = [(128, 64), (32, 16), (7, 5), (64, 128), (36, 20), (20, 12)]
+
+
+@pytest.mark.parametrize("D,A", AFM_BWD_WIDTHS)
+def test_afm_backward_hand_off_reproduces_dc(D, A):
+    """Integer-valued inputs (b half-integers, so no z + b is 0): every product
+    exact, so the lanes must give W dz bit for bit; normal inputs at float32:
+    within 1e-5 of the largest |dc| of the float64 product."""
+    rng = np.random.default_rng(D + 7 * A)
+    E, W = _ints(rng, (6, D)), _ints(rng, (D, A))
+    b = (_ints(rng, (A,)) + 0.5).astype(np.float32)
+    h, ds = _ints(rng, (A,)), _ints(rng, (15,))
+    Z = _afm_row_z(E, W)
+    dz = _afm_dz(Z, ds, b, h)
+    want = (dz.astype(np.float64) @ _pad(W, (W.shape[0], Z.shape[1])).T.astype(np.float64))
+    got = _afm_row_dc(Z, ds, b, h, W)
+    assert np.array_equal(got[:, :D], want) and (got[15] == 0).all() and (got[:, D:] == 0).all()
+
+    E = rng.normal(size=(6, D)).astype(np.float32)
+    W = rng.normal(size=(D, A)).astype(np.float32)
+    b, h = rng.normal(size=A).astype(np.float32), rng.normal(size=A).astype(np.float32)
+    ds = (0.1 * rng.normal(size=15)).astype(np.float32)
+    Z = _afm_row_z(E, W)
+    dz = _afm_dz(Z, ds, b, h)
+    want = dz.astype(np.float64) @ _pad(W, (W.shape[0], Z.shape[1])).T.astype(np.float64)
+    got = _afm_row_dc(Z, ds, b, h, W)[:, :D]
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_afm_backward_hand_off_needs_the_permuted_rows():
+    rng = np.random.default_rng(5)
+    E, W = _ints(rng, (6, 32)), _ints(rng, (32, 16))
+    b = (_ints(rng, (16,)) + 0.5).astype(np.float32)
+    h, ds = _ints(rng, (16,)), _ints(rng, (15,))
+    Z = _afm_row_z(E, W)
+    assert not np.array_equal(_afm_row_dc(Z, ds, b, h, W, permuted_rows=False),
+                              _afm_row_dc(Z, ds, b, h, W))

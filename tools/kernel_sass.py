@@ -6,21 +6,23 @@ Run from the root of a checkout, on a machine with the CUDA toolkit:
 
     python3 tools/kernel_sass.py [--against OTHER_CSRC_DIR]
 
-It builds ``csrc/din_head.cu``, ``din_attention.cu``, ``afm_attention.cu`` and
-``serving_topk.cu`` (as the launchers do, into ``build/kernels/``),
+It builds ``csrc/din_head.cu``, ``din_attention.cu``, ``afm_attention.cu``,
+``serving_topk.cu`` and ``mf_epoch.cu`` (as the launchers do, into ``build/kernels/``),
 disassembles them with ``cuobjdump -sass`` and prints one JSON line per
 kernel: its source, its name (demangled) and how many ``HMMA`` (warp-level
 tensor-core multiply) instructions its SASS holds. With ``--against`` it also
 builds the same sources from another ``csrc`` directory (say, the parent
 commit's) with the same flags and says, for each kernel, whether the two SASS
 listings are the same instruction for instruction; it exits 1 if a kernel of
-``din_head.cu`` or ``serving_topk.cu`` differs (those must not change when
-only the pools change; a kernel that shares a source with a changed one, as
+``din_head.cu``, ``serving_topk.cu`` or ``mf_epoch.cu`` differs (those must
+not change when only the pools change; a kernel that shares a source with a changed one, as
 the AFM backward does, may compile with other register numbers). Branch labels
 are renumbered within each kernel, since the disassembler numbers them across
 the file. The DIN head's forward kernel was ``din_fwd_kernel<true, T>`` before
 its pool branch went; its old name is matched to ``din_fwd_kernel<T>``
-(``renamed``). Needs ``nvcc``, ``cuobjdump`` and ``cu++filt``, not a card.
+(``renamed``); so is ``mf_epoch_kernel<kBf16, Id>`` to
+``mf_epoch_kernel<kBf16, Id, 4>``, its 4-column instantiation (D <= 128) since
+it took wider D. Needs ``nvcc``, ``cuobjdump`` and ``cu++filt``, not a card.
 """
 
 from __future__ import annotations
@@ -37,17 +39,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import build  # noqa: E402
 
-SOURCES = ("din_head.cu", "din_attention.cu", "afm_attention.cu", "serving_topk.cu")
-UNCHANGED = ("din_head.cu", "serving_topk.cu")
+SOURCES = ("din_head.cu", "din_attention.cu", "afm_attention.cu", "serving_topk.cu", "mf_epoch.cu")
+UNCHANGED = ("din_head.cu", "serving_topk.cu", "mf_epoch.cu")
 
 
 def renamed(name: str) -> str:
     """An earlier tree's kernel name as this tree calls it: din_fwd_kernel<(bool)1,
     T> became din_fwd_kernel<T>, so its parameters' T2 (the second template
-    parameter) became T1."""
+    parameter) became T1; mf_epoch_kernel<kBf16, Id> became its 4-column
+    instantiation mf_epoch_kernel<kBf16, Id, 4>."""
     if "din_fwd_kernel<(bool)1, " in name:
         return name.replace("din_fwd_kernel<(bool)1, ", "din_fwd_kernel<").replace("T2", "T1")
-    return name
+    return re.sub(r"mf_epoch_kernel<(\(bool\)\d, (?:int|long long))>", r"mf_epoch_kernel<\1, (int)4>", name)
 
 
 def kernels(library: Path, rename=lambda name: name) -> dict:
@@ -96,7 +99,8 @@ def main() -> int:
                 other = theirs.get(name, [])
                 row["same_sass_as_against"] = other == code
                 row["hmma_against"] = sum("HMMA" in i for i in other)
-                if source in UNCHANGED and not row["same_sass_as_against"]:
+                row["new"] = name not in theirs  # no counterpart there (mf_epoch_kernel's 8 and 16 columns)
+                if source in UNCHANGED and not row["new"] and not row["same_sass_as_against"]:
                     changed.append(name)
                     diff = [(i, a, b) for i, (a, b) in enumerate(zip(code, other)) if a != b]
                     print(f"kernel_sass: {name}: {len(code)} against {len(other)} instructions, "
