@@ -16,10 +16,11 @@ no result line.
    (ties included), normal inputs within a stated tolerance. Times of the
    kernel, its plain version and one PyTorch library call, beside the card's
    bound (for the kernels that multiply on the tensor cores in 3xTF32, the
-   top-k matmul, the two attention pools' forwards and the AFM backward's z
-   and W dz, three TF32 products at the tensor cores' rate; the pools' rows
-   also carry the CUDA-core bound as ``cuda_core_bound_ms``). The two pools
-   and the AFM backward must repeat bit for bit. The AFM pool is also checked
+   top-k matmul, the two attention pools' forwards, the float32 DIN head's
+   forward and the AFM backward's z and W dz, three TF32 products at the
+   tensor cores' rate; the pools' and the float32 head forward's rows also
+   carry the CUDA-core bound as ``cuda_core_bound_ms``). The two pools, the
+   AFM backward and the float32 DIN head, both ways, must repeat bit for bit. The AFM pool is also checked
    at widths past the preset's (AFM_WIDE), the fused MF trainer at factors of
    MF_WIDE_DIM. The lookup pair (gather_rows, onehot_grad) is also checked at the
    other main paths' shapes (DIN's history batch and full-history target tile,
@@ -27,8 +28,10 @@ no result line.
    served batch, a single-user request) carry ``host_us``, the host's time per
    launcher call, and ``library_host_us``, the same for the library call; where
    a call is host-bound, kernel and library are timed in turns. The DIN head
-   is checked in float32 and in bfloat16, in bfloat16 also at ragged widths
-   (DIN_RAGGED) at the train batch's row count;
+   is checked in float32 and in bfloat16, both also at ragged widths
+   (DIN_RAGGED) at the train batch's row count, in float32 also at the
+   longest history the kernels take (DIN_LONG_ROWS rows at L 64); the bf16
+   forward at the train batch on the inputs of each of DIN_BF16_FWD_SEEDS;
 4. train   -- the MF training path (slice 2) through the entry points a user
    calls: ``run_experiment(PRESETS["mf"])`` for 20 epochs at full width on a
    synthetic ml-100k-format dataset, then ``MatrixFactorization.fast_fit`` on
@@ -186,11 +189,20 @@ DIN_FWD_RTOL, DIN_BWD_RTOL, DIN_DB3_ATOL, DIN_KINK = 1e-5, 1e-4, 1e-6, 1e-6
 # The head's bf16 path against its bf16 plain version. Both round the same
 # operands to bf16 and sum in float32, but a sum in another order can put a
 # value that is then rounded on the other bf16 neighbour. Forward: at most
-# DIN_BF16_LOGITS_OFF of the bf16 logits may differ at all, each within one bf16
-# ulp of its own plain value past DIN_BF16_FWD_ATOL of the largest |logit|
-# (measured at the train batch on an H100, three seeds: 7-14 logits differ, all
-# by one ulp). Backward: a flip can put a relu input on the other side of 0 and
-# flip a row's d hist and d target: at most DIN_BF16_ROWS_OFF rows (observed
+# DIN_BF16_LOGITS_OFF of the bf16 logits may differ at all, each within
+# DIN_BF16_FWD_ULPS bf16 ulps of its own plain value past DIN_BF16_FWD_ATOL of
+# the largest |logit|, and the kernel's logits may lie no farther past that
+# slack from the head's logits with every sum in float64 (the same operands
+# rounded, din_head_fwd_exact) than the plain version's do. Measured at the
+# train batch on an H100 over seeds 0-39 (tools/probe_din_bf16_fwd_seeds.py):
+# 19-46 logits differ, up to 1.29 ulps past the slack (seeds 17 and 31), where
+# the plain version lies 1.29 and 1.22 ulps past it from the float64 sums and
+# the kernel 0.64 and 0.65; on every seed the kernel lies no farther from them
+# than the plain version. Two float32 orders of summation followed by the same
+# bf16 roundings put a logit two ulps apart, so the limit is two ulps, the
+# smallest whole number that every seed meets.
+# Backward: a flip can put a relu input on the other side of 0 and flip a row's
+# d hist and d target: at most DIN_BF16_ROWS_OFF rows (observed
 # 0-2, fewer than a 16-row tile) may be off by more than DIN_BF16_BWD_RTOL of
 # the tensor's largest |value|, each with a relu input within DIN_BF16_KINK of
 # its layer's largest |value| from 0 on the bf16 path (observed 1.3e-6 to
@@ -199,7 +211,7 @@ DIN_FWD_RTOL, DIN_BWD_RTOL, DIN_DB3_ATOL, DIN_KINK = 1e-5, 1e-4, 1e-6, 1e-6
 # the plain head in float32 throughout (no operand rounded) must fail both
 # checks (observed: 21,400 logits differ; each rounded gradient 2.6e-3 to 0.17
 # off), so they tell rounding where the head rounds from not rounding.
-DIN_BF16_LOGITS_OFF, DIN_BF16_FWD_ATOL = 64, 2.0 ** -10
+DIN_BF16_LOGITS_OFF, DIN_BF16_FWD_ATOL, DIN_BF16_FWD_ULPS = 64, 2.0 ** -10, 2
 DIN_BF16_ROWS_OFF, DIN_BF16_BWD_RTOL, DIN_BF16_KINK = 4, 1e-3, 2e-4
 # the gradients that the rounding moves (d b3 is 0 in exact arithmetic, d c3 the
 # sum of g, d c2 a masked product of g alone)
@@ -210,6 +222,10 @@ DIN_BF16_ROUNDED = ("hist", "target", "wh", "wt", "b1", "w2", "b2", "w3", "u1p",
 # (zero fill past K and N); taken at the train batch's row count, where the
 # bf16 limits' counts were set
 DIN_RAGGED = (7, 8, (12, 8, 1), (20, 12, 1))
+# The bf16 head forward's check runs on the train batch's inputs drawn by a
+# generator of each of these seeds
+DIN_BF16_FWD_SEEDS = (0, 1, 2, 3, 4)
+DIN_LONG_ROWS = 16_384  # rows of the float32 head's rows at the longest history the kernels take
 DIN_EPOCHS = 3  # the CPU reference's plain path is slow at full width
 DIN_BF16_EPOCHS = 2  # DIN under bf16 compute: fewer epochs, for the run's time
 HISTORY_TILE = 16  # users per tile of catalog_scores_from_history
@@ -252,6 +268,10 @@ KERNELS = {
     "din_attention_pool": {"route": "cuda", "source": f"{CSRC}/din_attention.cu",
                            "replaces": f"{PALLAS}/din_attention.py:82"},
 }
+# kernel launches of one call of the DIN head's launchers at the preset's widths,
+# by dtype: the float32 forward is the attention stage and the fc head
+DIN_HEAD_LAUNCHES = {"din_head_fused": {"float32": 2, "bfloat16": 1},
+                     "din_head_fused_bwd": {"float32": 3, "bfloat16": 3}}
 LAUNCHERS = {"topk_serve_matmul": cuda_topk.topk_serve_matmul,
              "topk_scores": cuda_topk.topk_scores,
              "gather_rows": cuda_gather.gather_rows,
@@ -271,12 +291,28 @@ def emit(obj) -> None:
 
 
 def launches() -> dict:
-    return {name: fn.launches for name, fn in LAUNCHERS.items()}
+    """Every launcher's count; the DIN head's also by its inputs' dtype, as
+    "din_head_fused:float32" and so on."""
+    counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
+    for name in DIN_HEAD_LAUNCHES:
+        counts.update({f"{name}:{dt}": n for dt, n in LAUNCHERS[name].launches_by_dtype.items()})
+    return counts
 
 
 def reset_launches() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
+    cuda_dh.reset_launches()
+
+
+def din_head_counts(fwd: dict, bwd: dict) -> dict:
+    """The DIN head's launch counts, in all and by dtype, for ``fwd`` and ``bwd``
+    calls by dtype ({"float32": n, "bfloat16": m})."""
+    counts = {}
+    for name, calls in (("din_head_fused", fwd), ("din_head_fused_bwd", bwd)):
+        per = {dt: calls.get(dt, 0) * DIN_HEAD_LAUNCHES[name][dt] for dt in ("float32", "bfloat16")}
+        counts.update({name: sum(per.values()), **{f"{name}:{dt}": n for dt, n in per.items()}})
+    return counts
 
 
 # ---------------------------------------------------------------- phase 1
@@ -830,6 +866,27 @@ def kink_distance(hist, tgt, weights) -> torch.Tensor:
     return dist
 
 
+def din_head_fwd_exact(hist, tgt, weights) -> torch.Tensor:
+    """The head's logits in the weights' dtype with every sum in float64: each
+    product's operand rounded to the weights' dtype where the head rounds it
+    (``_mdot``; relu(z1), relu(z2), pooled, f1 and f2 from float32), the rest
+    exact to float64, the logits rounded last."""
+    dt = weights[0].dtype
+    wh, wt, b1, w2, b2, w3, b3, u1p, u1t, c1, u2, c2, u3, c3 = (w.double() for w in weights)
+    B, L, D = hist.shape
+    h, t = hist.double(), tgt.double()
+
+    def rnd(x):
+        return x.float().to(dt).double()
+
+    z1 = (h.reshape(B * L, D) @ wh).reshape(B, L, -1) + (t @ wt + b1)[:, None, :]
+    z2 = rnd(torch.relu(z1)) @ w2 + b2
+    w = torch.softmax((rnd(torch.relu(z2)) @ w3 + b3)[..., 0], dim=-1)
+    f1 = torch.relu(rnd(torch.einsum("bl,bld->bd", w, h)) @ u1p + t @ u1t + c1)
+    f2 = torch.relu(rnd(f1) @ u2 + c2)
+    return (rnd(f2) @ u3 + c3)[:, 0].float().to(dt)
+
+
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     """The largest |got - want| past DIN_BF16_FWD_ATOL of the largest |want|, in
     bf16 ulps of each element of ``want``."""
@@ -846,21 +903,30 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def check_din_bf16_fwd(hist, tgt, weights) -> dict:
     """The bf16 head forward against its plain version: at most
-    DIN_BF16_LOGITS_OFF logits differ, each by at most one ulp past
-    DIN_BF16_FWD_ATOL; the unrounded float32 head differs in ten times as many."""
+    DIN_BF16_LOGITS_OFF logits differ, each by at most DIN_BF16_FWD_ULPS ulps
+    past DIN_BF16_FWD_ATOL, and none farther past that slack from the float64
+    sums than the plain version's; the unrounded float32 head differs in ten
+    times as many."""
     want = dh.din_head_fwd_plain(hist, tgt, weights)
     got = dh.din_head_fwd(hist, tgt, weights)
     unrounded = dh.din_head_fwd_plain(hist.float(), tgt.float(),
                                       tuple(w.float() for w in weights)).to(want.dtype)
+    exact = din_head_fwd_exact(hist, tgt, weights)
     off, ulps = int((got != want).sum()), bf16_ulps(got, want)
+    ulps_exact = {"kernel": bf16_ulps(got, exact), "plain": bf16_ulps(want, exact)}
     unrounded_off = int((unrounded != want).sum())
-    if off > DIN_BF16_LOGITS_OFF or not ulps <= 1:
+    if off > DIN_BF16_LOGITS_OFF or not ulps <= DIN_BF16_FWD_ULPS:
         raise AssertionError(f"din_head_fused bf16: {off} logits off, up to {ulps} bf16 ulps")
+    if not ulps_exact["kernel"] <= ulps_exact["plain"]:
+        raise AssertionError(f"din_head_fused bf16: farther from the float64 sums than the plain "
+                             f"version: {ulps_exact}")
     if not unrounded_off > 10 * DIN_BF16_LOGITS_OFF:
         raise AssertionError(f"din_head_fused bf16: the unrounded head passes too "
                              f"({unrounded_off} logits off)")
     return {"max_abs_err": float((got.float() - want.float()).abs().max()), "logits_off": off,
-            "ulps": ulps, "unrounded_logits_off": unrounded_off}
+            "ulps": ulps, "unrounded_logits_off": unrounded_off,
+            "off_exact": {"kernel": int((got != exact).sum()), "plain": int((want != exact).sum())},
+            "ulps_exact": ulps_exact}
 
 
 def check_din_bf16_bwd(sub, dist) -> dict:
@@ -904,24 +970,44 @@ def check_din_bf16_bwd(sub, dist) -> dict:
             "rtol": rels[worst], "rtol_of": f"d{worst}", "unrounded_min_rtol": gap}
 
 
-def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.Generator,
-              label: str, dtype: torch.dtype = torch.float32) -> dict:
-    """A DIN kernel ("fwd", "bwd": the fused head; "pool": the attention pool)
-    against its plain version on B rows at the model's scale, its inputs in
-    ``dtype`` (the head takes float32 or bfloat16, the pool float32)."""
+def din_inputs_as(dtype, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.Generator):
+    """din_inputs in ``dtype``, with the head's 14 weights: (hist, tgt, att, fc,
+    g, weights)."""
     hist, tgt, att, fc, g = din_inputs(B, L, D, A, F, gen)
     if dtype != torch.float32:
         hist, tgt, g = hist.to(dtype), tgt.to(dtype), g.to(dtype)
         att, fc = ([{k: v.to(dtype) for k, v in layer.items()} for layer in net] for net in (att, fc))
-    weights = dh.din_head_weights(att, fc, D)
+    return hist, tgt, att, fc, g, dh.din_head_weights(att, fc, D)
+
+
+def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.Generator,
+              label: str, dtype: torch.dtype = torch.float32, seeds: tuple = ()) -> dict:
+    """A DIN kernel ("fwd", "bwd": the fused head; "pool": the attention pool)
+    against its plain version on B rows at the model's scale, its inputs in
+    ``dtype`` (the head takes float32 or bfloat16, the pool float32). With
+    ``seeds`` (the bf16 forward), the check runs on the inputs of a generator of
+    each seed in turn, and the row is timed on the last; ``gen`` still draws
+    the row's inputs once, so the rows after it draw what they drew before."""
+    hist, tgt, att, fc, g, weights = din_inputs_as(dtype, B, L, D, A, F, gen)
     checked = {}
+    if seeds:
+        by_seed = []
+        for seed in seeds:
+            del hist, tgt, att, fc, g, weights
+            hist, tgt, att, fc, g, weights = din_inputs_as(
+                dtype, B, L, D, A, F, torch.Generator(device=DEVICE).manual_seed(seed))
+            by_seed.append({"seed": seed, **check_din_bf16_fwd(hist, tgt, weights)})
+        checked = {"max_abs_err": max(r.pop("max_abs_err") for r in by_seed), "seeds": by_seed}
     if part == "fwd":
         args, kernel, plain = (hist, tgt, weights), dh.din_head_fwd, dh.din_head_fwd_plain
         if dtype == torch.bfloat16:
-            checked = check_din_bf16_fwd(*args)
+            checked = checked or check_din_bf16_fwd(*args)
         else:
-            checked["max_abs_err"] = normwise_err("din_head_fused", kernel(*args), plain(*args),
-                                                  DIN_FWD_RTOL)
+            got = kernel(*args)
+            checked["max_abs_err"] = normwise_err("din_head_fused", got, plain(*args), DIN_FWD_RTOL)
+            if not torch.equal(kernel(*args), got):
+                raise AssertionError("din_head_fused: two launches differ")
+            del got
         library, lib_args = din_library_fwd, (hist, tgt, att, fc)
         lib_name = "eager: attention_pool and mlp, torch.matmul"
     elif part == "bwd":
@@ -929,13 +1015,15 @@ def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.
         dist = kink_distance(hist, tgt, weights)
         smooth = dist > DIN_KINK
         kinked = int((~smooth).sum())
-        if kinked > B // 20:
+        if kinked > B // 20 * max(1, L // 10):  # a row's relu inputs grow with L
             raise AssertionError(f"din_head_fused_bwd: {kinked} of {B} rows at a relu kink")
         sub = (hist[smooth].contiguous(), tgt[smooth].contiguous(), weights, g[smooth].contiguous())
         if dtype == torch.bfloat16:
             checked = check_din_bf16_bwd(sub, dist[smooth])
         else:
             got, want = kernel(*sub), plain(*sub)
+            if not all(torch.equal(a, b) for a, b in zip(kernel(*sub), got)):
+                raise AssertionError("din_head_fused_bwd: two launches differ")
             errs = []
             for n, gt, wt in zip(("hist", "target") + dh.WEIGHT_NAMES, got, want):
                 if n == "b3":  # the sum of ds: 0 up to rounding in both versions
@@ -964,11 +1052,11 @@ def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.
     mm, ops, nbytes = din_work(B, L, D, A, F, part, hist.element_size())
     if dtype == torch.bfloat16:
         t_bound, bound_by = bound_of(ops, nbytes, bf16_flops=mm)
-    elif part == "pool":  # the pool multiplies on the tensor cores in 3xTF32
+    elif part == "bwd":  # float32 FMA on CUDA cores
+        t_bound, bound_by = bound_of(mm + ops, nbytes)
+    else:  # the pool and the float32 head's forward multiply in 3xTF32 on the tensor cores
         t_bound, bound_by = bound_of(ops, nbytes, 3 * mm)
         checked["cuda_core_bound_ms"] = bound_of(mm + ops, nbytes)[0]
-    else:
-        t_bound, bound_by = bound_of(mm + ops, nbytes)
     row = {
         "shape": {"rows": B, "history": L, "dim": D, "attention": list(A), "fc": list(F),
                   "batch": label, "dtype": str(dtype).split(".")[1]},
@@ -1368,7 +1456,7 @@ def run_din(ds: MovieLens100K) -> dict:
 
     forwards = 3 * E + 3  # train, valid, test an epoch; the final AUCs
     tiles = history_tiles(ds)  # one attention-pool launch a window tile
-    check_counts("din", counts, {"din_head_fused": forwards, "din_head_fused_bwd": 3 * E,
+    check_counts("din", counts, {**din_head_counts({"float32": forwards}, {"float32": E}),
                                  "din_attention_pool": tiles, "gather_rows": 2 * (forwards + tiles),
                                  "onehot_grad": 2 * E})
     if set(res.history) != HISTORY_KEYS:
@@ -1425,8 +1513,7 @@ def run_din_depth(ds: MovieLens100K) -> dict:
     wall_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     counts = launches()  # ... and ends here
-    check_counts("din_depth", counts, {"din_head_fused": 0, "din_head_fused_bwd": 0,
-                                       "din_attention_pool": 0})
+    check_counts("din_depth", counts, {**din_head_counts({}, {}), "din_attention_pool": 0})
     if counts["gather_rows"] < 1 or counts["onehot_grad"] < 1:
         raise AssertionError(f"din_depth: the lookups did not go through their kernels: {counts}")
     loss = res.history["train_loss"]
@@ -1466,7 +1553,8 @@ def run_din_bf16(ds: MovieLens100K) -> dict:
 
     forwards = 3 * E + 3  # train (bf16), valid and test (f32) an epoch; the final AUCs
     tiles = history_tiles(ds)
-    check_counts("din_bf16", counts, {"din_head_fused": forwards, "din_head_fused_bwd": 3 * E,
+    check_counts("din_bf16", counts, {**din_head_counts({"bfloat16": E, "float32": forwards - E},
+                                                        {"bfloat16": E}),
                                       "din_attention_pool": tiles,
                                       "gather_rows": 2 * (forwards + tiles), "onehot_grad": 2 * E})
     loss = res.history["train_loss"]
@@ -1519,7 +1607,7 @@ def run_serve_din(ds: MovieLens100K, data_dir: str, epochs: int, seed: int = 0) 
         server.shutdown()
     if rec.ctx.full_histories is None:
         raise AssertionError("serve_din: the preset did not serve full histories")
-    check_counts("serve_din", counts, {"din_head_fused": epochs, "din_head_fused_bwd": 3 * epochs,
+    check_counts("serve_din", counts, {**din_head_counts({"float32": epochs}, {"float32": epochs}),
                                        "din_attention_pool": 0, "onehot_grad": 2 * epochs})
     if counts["gather_rows"] < 1:
         raise AssertionError("serve_din: no item lookup went through the gather kernel")
@@ -1648,16 +1736,28 @@ def main() -> int:
                 emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
         din_dims = (din_cfg.hist_len, din_cfg.model_kwargs["embed_size"], DIN_ATTENTION, DIN_FC)
         ragged = "train batch's rows at ragged widths"
-        for name, part, B, dims, label, dtype in (
-                ("din_head_fused", "fwd", din_rows, din_dims, "train batch", torch.float32),
-                ("din_head_fused_bwd", "bwd", din_rows, din_dims, "train batch", torch.float32),
+        long_dims = (cuda_dh.MAX_HISTORY,) + din_dims[1:]
+        long_label = f"{DIN_LONG_ROWS} rows at history {cuda_dh.MAX_HISTORY}"
+        for name, part, B, dims, label, dtype, draw, seeds in (
+                ("din_head_fused", "fwd", din_rows, din_dims, "train batch", torch.float32, gen, ()),
+                ("din_head_fused_bwd", "bwd", din_rows, din_dims, "train batch", torch.float32, gen,
+                 ()),
                 ("din_attention_pool", "pool", HISTORY_TILE * ds.num_items, din_dims,
-                 f"window tile of {HISTORY_TILE} users", torch.float32),
-                ("din_head_fused", "fwd", din_rows, din_dims, "train batch", torch.bfloat16),
-                ("din_head_fused_bwd", "bwd", din_rows, din_dims, "train batch", torch.bfloat16),
-                ("din_head_fused", "fwd", din_rows, DIN_RAGGED, ragged, torch.bfloat16),
-                ("din_head_fused_bwd", "bwd", din_rows, DIN_RAGGED, ragged, torch.bfloat16)):
-            rows[name].append(check_din(part, B, *dims, gen, label, dtype))
+                 f"window tile of {HISTORY_TILE} users", torch.float32, gen, ()),
+                ("din_head_fused", "fwd", din_rows, din_dims, "train batch", torch.bfloat16, gen,
+                 DIN_BF16_FWD_SEEDS),
+                ("din_head_fused_bwd", "bwd", din_rows, din_dims, "train batch", torch.bfloat16, gen,
+                 ()),
+                ("din_head_fused", "fwd", din_rows, DIN_RAGGED, ragged, torch.bfloat16, gen, ()),
+                ("din_head_fused_bwd", "bwd", din_rows, DIN_RAGGED, ragged, torch.bfloat16, gen, ()),
+                ("din_head_fused", "fwd", din_rows, DIN_RAGGED, ragged, torch.float32, wide_gen, ()),
+                ("din_head_fused_bwd", "bwd", din_rows, DIN_RAGGED, ragged, torch.float32, wide_gen,
+                 ()),
+                ("din_head_fused", "fwd", DIN_LONG_ROWS, long_dims, long_label, torch.float32,
+                 wide_gen, ()),
+                ("din_head_fused_bwd", "bwd", DIN_LONG_ROWS, long_dims, long_label, torch.float32,
+                 wide_gen, ())):
+            rows[name].append(check_din(part, B, *dims, draw, label, dtype, seeds))
             emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
         torch.cuda.empty_cache()
         emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0})
@@ -1685,6 +1785,9 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             **{k: main_row[k] for k in ("cuda_core_bound_ms",) if k in main_row},
             "library_ms": main_row["library_ms"], "shape": main_row["shape"],
+            **({"launches_by_dtype": {dt: sum(p["launches"][f"{name}:{dt}"] for p in phases)
+                                      for dt in DIN_HEAD_LAUNCHES[name]}}
+               if name in DIN_HEAD_LAUNCHES else {}),
             "launches_by_phase": {p["phase"]: p["launches"][name] for p in phases},
             "at_shapes": rows[name],
         })

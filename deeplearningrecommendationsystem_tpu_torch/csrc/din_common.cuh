@@ -1,7 +1,8 @@
 // The fused DIN head's building blocks (din_head.cu): the tile layout in shared
 // memory, the block-wide products, the forward of the activation unit, softmax
-// and pool, and the forward kernel (din_fwd_kernel). din_attention.cu takes only
-// widths_ok, kMaxHistory and the warp reductions; its pool kernel is its own.
+// and pool, and the forward kernel (din_fwd_kernel). din_pool.cuh (the window
+// pool, and the float32 head's attention stage) takes only widths_ok,
+// kMaxHistory and the warp reductions; its pool kernel is its own.
 //
 // A block of kThreads threads walks tiles of R rows (R * L history positions).
 // A tile's history rows, the activations of its R * L positions and its fc
@@ -21,14 +22,17 @@
 // Accumulation, z, the relu masks, the softmax and the pooled vector stay
 // float32.
 //
-// The products: float32 FMA on CUDA cores for float (block_mm_fma,
-// block_mm_tn_acc_fma); for bf16 warp-level mma.sync m16n8k16 on the tensor
-// cores with float32 accumulation (block_mm_mma, block_mm_tn_acc_mma), each
-// operand rounded to the nearest bf16 as it is packed into its fragment (the
-// rounding of op<bf16>), so the operands are those of the CUDA-core path and
-// only the order of summation differs. A caller can keep bf16 products on the
-// CUDA cores (kTensor false): din_head.cu's backward does, for its recompute of
-// the forward.
+// The products: for bf16, warp-level mma.sync m16n8k16 on the tensor cores
+// with float32 accumulation (block_mm_mma, block_mm_tn_acc_mma), each operand
+// rounded to the nearest bf16 as it is packed into its fragment (the rounding
+// of op<bf16>), so the operands are those of the CUDA-core path and only the
+// order of summation differs; a caller can keep bf16 products on the CUDA
+// cores (kTensor false): din_head.cu's backward does, for its recompute of the
+// forward. For float, float32 FMA on CUDA cores (block_mm_fma,
+// block_mm_tn_acc_fma): the float32 backward, and din_fwd_kernel<float> at
+// widths the tensor-core forward does not take. The float32 forward's fc head
+// (din_head.cu's din_head_fc_kernel) multiplies on the tensor cores in float32
+// accuracy (3xTF32 mma.sync m16n8k8: block_mm_tf32).
 //
 // Widths D, A1, A2, F1, F2 must be multiples of 4 (float4 loads, or 8-byte
 // quads of bf16), L at most kMaxHistory; the Python launchers check them.
@@ -41,6 +45,8 @@
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
+
+#include "tf32_mma.cuh"
 
 namespace din {
 
@@ -435,6 +441,129 @@ __device__ __forceinline__ void block_mm_tn_acc(const float* X, int ldx, const f
     block_mm_tn_acc_mma(X, ldx, Z, ldz, M, K, N, G);
   } else {
     block_mm_tn_acc_fma<T>(X, ldx, Z, ldz, M, K, N, G);
+  }
+}
+
+// ------------------------------------------------------- tensor cores (float32)
+//
+// The float32 forward's fc products (din_head.cu's din_head_fc_kernel) in
+// float32 accuracy on the tensor cores: 3xTF32 mma.sync m16n8k8
+// (tf32_mma.cuh), B the float32 weight in device memory, read through L1 and
+// L2 and split into TF32 hi and lo parts as each fragment is loaded.
+
+// W [K][N] (row-major; rows Ktop .. K - 1 from bottom when it is given: u1 is
+// u1p over u1t) as the B operand: frag(n, k) gives the hi and lo parts of
+// W[k][n] and W[k + 1][n] (k even; K a multiple of 4, so k and k + 1 lie on one
+// side of Ktop and of K), zeros past K and N.
+struct Tf32Mat {
+  const float* __restrict__ top;
+  const float* __restrict__ bottom;
+  int Ktop, K, N;
+  __device__ __forceinline__ void frag(int n, int k, uint32_t (&bh)[2], uint32_t (&bl)[2]) const {
+    const bool in = n < N && k < K;
+    const float* w = k < Ktop ? top + static_cast<size_t>(k) * N : bottom + static_cast<size_t>(k - Ktop) * N;
+    const float x0 = in ? __ldg(w + n) : 0.f, x1 = in ? __ldg(w + N + n) : 0.f;
+    tf32mma::split_tf32_bits(x0, bh[0], bl[0]);
+    tf32mma::split_tf32_bits(x1, bh[1], bl[1]);
+  }
+};
+
+constexpr int kTf32Cols = 16;  // columns of a warp's task: two n8 tiles
+constexpr int kTf32Chunk = 8;  // k8 steps summed from zero in the accumulators, then added in float32
+
+// acc[i] = A [M][K] @ W for the m16 tile m0 + 16 i (i < kMT) and the kTf32Cols
+// columns n0 .. n0 + 15, in 3xTF32 on the tensor cores (W a Tf32Mat); A in
+// shared memory (row stride lda, a multiple of 2). A's k slots are the DIN
+// pool's: slot t takes k0 + 2t and slot t + 4 k0 + 2t + 1, so an A fragment is
+// one 8-byte load of a row and B's fragment W's rows k0 + 2t, + 1. Column slot c of
+// n8 tile j is column n0 + 2c + j, so a lane's C fragment holds the four
+// neighbouring columns n0 + 4t .. n0 + 4t + 3 of rows g and g + 8:
+// row4(acc[i], 0) and row4(acc[i], 1). A's rows past M and columns past K (a
+// multiple of 4) enter as zeros; tiles wholly past M are skipped (a branch of
+// the whole warp). Each kTf32Chunk k-steps sum from zero in the mma.sync
+// accumulators and are then added into acc in float32, so the accumulators'
+// error does not grow with K.
+template <int kMT, class Mat>
+__device__ __forceinline__ void warp_mm_tf32(const float* A, int lda, int M, int K, const Mat& W,
+                                             int m0, int n0, float (&acc)[kMT][2][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  }
+  const int Kp = (K + 7) & ~7;
+  for (int kc = 0; kc < Kp; kc += 8 * kTf32Chunk) {
+    float part[kMT][2][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0.f;
+    }
+    const int kend = min(Kp, kc + 8 * kTf32Chunk);
+#pragma unroll 2
+    for (int k0 = kc; k0 < kend; k0 += 8) {
+      const int k = k0 + 2 * t;
+      uint32_t bh[2][2], bl[2][2];
+      W.frag(n0 + 2 * g, k, bh[0], bl[0]);
+      W.frag(n0 + 2 * g + 1, k, bh[1], bl[1]);
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        if (m0 + 16 * i >= M) break;  // the whole warp
+        const int ra = m0 + 16 * i + g, rb = ra + 8;
+        const float2 u = ra < M && k < K ? *reinterpret_cast<const float2*>(A + ra * lda + k)
+                                         : make_float2(0.f, 0.f);
+        const float2 v = rb < M && k < K ? *reinterpret_cast<const float2*>(A + rb * lda + k)
+                                         : make_float2(0.f, 0.f);
+        uint32_t ah[4], al[4];
+        tf32mma::split_tf32_bits(u.x, ah[0], al[0]);
+        tf32mma::split_tf32_bits(v.x, ah[1], al[1]);
+        tf32mma::split_tf32_bits(u.y, ah[2], al[2]);
+        tf32mma::split_tf32_bits(v.y, ah[3], al[3]);
+        tf32mma::mma_3xtf32(part[i], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
+      }
+    }
+  }
+}
+
+// Row h (0: g, 1: g + 8) of a warp_mm_tf32 tile's C fragments: columns
+// n0 + 4t .. n0 + 4t + 3.
+__device__ __forceinline__ float4 row4(const float (&c)[2][4], int h) {
+  return make_float4(c[0][2 * h], c[1][2 * h], c[0][2 * h + 1], c[1][2 * h + 1]);
+}
+
+// C = A [M][K] @ W on the tensor cores (3xTF32), as warp_mm_tf32 computes it:
+// the warps take tasks of kMT m16 tiles by kTf32Cols columns in a fixed order
+// and hand each row below M of each task to epi(row, column, float4 of four
+// columns) for the columns below N (N a multiple of 4).
+template <int kMT, class Mat, class Epi>
+__device__ __forceinline__ void block_mm_tf32(const float* A, int lda, const Mat& W, int M, int K,
+                                              int N, Epi epi) {
+  const int t = threadIdx.x & 3, g = (threadIdx.x & 31) >> 2;
+  const int groups = (N + kTf32Cols - 1) / kTf32Cols;
+  const int tasks = ((M + 16 * kMT - 1) / (16 * kMT)) * groups;
+  for (int task = threadIdx.x >> 5; task < tasks; task += blockDim.x >> 5) {
+    const int m0 = (task / groups) * 16 * kMT, n0 = (task % groups) * kTf32Cols;
+    float acc[kMT][2][4];
+    warp_mm_tf32<kMT>(A, lda, M, K, W, m0, n0, acc);
+    const int col = n0 + 4 * t;
+    if (col >= N) continue;
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + 16 * i + g + 8 * h;
+        if (row < M) epi(row, col, row4(acc[i], h));
+      }
+    }
   }
 }
 

@@ -3,7 +3,9 @@
 //
 // Replaces the Pallas TPU kernels of
 //   deeplearningrecommendationsystem_tpu/ops/pallas/din_head.py (din_head_fused):
-//   * _fwd_kernel (pallas_call :267)  -> din::din_fwd_kernel<T>
+//   * _fwd_kernel (pallas_call :267)  -> float32: dinpool::din_pool_kernel<., true>
+//                                        (din_pool.cuh) + din_head_fc_kernel;
+//                                        bf16: din::din_fwd_kernel<T>
 //   * _bwd_kernel (pallas_call :300)  -> din_head_bwd_kernel + din_head_bwd_fc_kernel
 //                                        + din_head_bwd_reduce_kernel
 // Their plain PyTorch versions are din_head_fwd_plain and din_head_bwd_plain in
@@ -25,16 +27,16 @@
 // DIN preset (D 64, A 128, 64, F 256, 128, L 10), the backward about three
 // times that, against 2.8 KB read a row. The TPU kernels' point, kept here: the
 // per-position activations never reach device memory, and the backward
-// recomputes them instead of saving them. The forward is din_common.cuh's; the
-// backward keeps a tile's activations in shared memory and turns them into their
-// gradients in place. The weight gradients are 90,916 floats at the preset, so
-// they cannot be one partial per tile: a persistent grid of one block per SM
-// walks the tiles, each block adding into its own slot in device memory (the
-// same thread owns the same elements on every tile, no atomics). The fc head's
-// two large ones (du1, du2: 65,536 floats) would cost a read and a write of
-// 512 KB of slot for every 16 rows, so the backward writes the fc head's rows
-// instead (3 KB a row) and din_head_bwd_fc_kernel sums them over a contiguous run
-// of rows per block, each product held in registers and written once.
+// recomputes them instead of saving them. The backward keeps a tile's
+// activations in shared memory and turns them into their gradients in place.
+// The weight gradients are 90,916 floats at the preset, so they cannot be one
+// partial per tile: a persistent grid of one block per SM walks the tiles,
+// each block adding into its own slot in device memory (the same thread owns
+// the same elements on every tile, no atomics). The fc head's two large ones
+// (du1, du2: 65,536 floats) would cost a read and a write of 512 KB of slot for
+// every 16 rows, so the backward writes the fc head's rows instead (3 KB a row)
+// and din_head_bwd_fc_kernel sums them over a contiguous run of rows per
+// block, each product held in registers and written once.
 // din_head_bwd_reduce_kernel then sums the slots in block order, so runs repeat
 // bit for bit.
 //
@@ -45,28 +47,43 @@
 // where the JAX kernel casts them (din_common.cuh, op<T>), writes bf16 logits,
 // and emits float32 gradients, which the caller casts to each input's dtype.
 // The fc head's rows for din_head_bwd_fc_kernel stay float32 and are rounded
-// as they are staged there. The bf16 path's products run on the tensor cores
-// (mma.sync m16n8k16, float32 accumulation: din_common.cuh's block_mm_mma and
-// block_mm_tn_acc_mma, and fc_weight_grad_mma here), those of the float32
-// path as float32 FMA on CUDA cores; everything between the products is the
-// same float32 code for both.
+// as they are staged there.
 //
-// One exception: the backward recomputes the forward on CUDA cores in both
-// dtypes. Its relu masks decide every gradient, and a mask at a kink follows
-// the order of summation: the CUDA-core fmaf chain sums in k order, as the
-// float32 reference (cuBLAS) does, so its z, and each operand rounded to bf16
-// downstream of it, mostly match the reference's bit for bit. Sums in the
-// tensor cores' order are as close to exact sums as the chain's (measured on
-// an H100 at the DIN train batch: 3-6 rows of d hist and d target off float64
-// products against the chain's 3-7), but they round intermediates differently
-// from the reference, and the bf16 roundings that follow carry each difference
-// to a kink: 5-8 rows off the reference, where the bf16 check allows 4
-// (tools/probe_din_bf16_order.py, three seeds).
+// Which cores multiply:
+// * bf16: every product on the tensor cores (mma.sync m16n8k16, float32
+//   accumulation: din_common.cuh's block_mm_mma and block_mm_tn_acc_mma, and
+//   fc_weight_grad_mma here), but the backward's recompute of the forward,
+//   which stays on CUDA cores: its relu masks decide every gradient, and a
+//   mask at a kink follows the order of summation. The CUDA-core fmaf chain
+//   sums in k order, as the float32 reference (cuBLAS) does, so its z, and
+//   each operand rounded to bf16 downstream of it, mostly match the
+//   reference's bit for bit; sums in the tensor cores' order round
+//   intermediates differently, and the bf16 roundings that follow carry each
+//   difference to a kink: 5-8 rows off the reference, where the bf16 check
+//   allows 4 (tools/probe_din_bf16_order.py, three seeds, on an H100).
+// * float32, the forward: on the tensor cores in float32 accuracy (3xTF32
+//   mma.sync m16n8k8). The attention unit, softmax and pool are the DIN window
+//   pool's kernel with the last bias kept (din_pool.cuh: wh and w2 split once
+//   a block into shared memory, relu(z1) handed to the second layer in
+//   registers), which writes the pooled rows [B, D] (the only intermediate in
+//   device memory); din_head_fc_kernel then takes 64 rows a block through
+//   [pooled | t] u1 and f1 u2 on the tensor cores (u1 and u2 read once a block
+//   and split as they are read; din_common.cuh's block_mm_tf32) and f2 u3 on
+//   CUDA cores. Widths whose tiles do not fit these two kernels' shared memory
+//   (D past about 350 at L 64) take din_fwd_kernel<float> on CUDA cores.
+// * float32, the backward: float32 FMA on CUDA cores, its recompute of the
+//   forward included. A recompute on the tensor cores (3xTF32, B from the
+//   float32 weights, each relu input near 0 summed again on CUDA cores) was
+//   slower on an H100 at the DIN train batch: the tile fills shared memory, so
+//   B comes from L2 at every task, and the fc head's products reuse each B
+//   fragment for only the tile's 16 rows (PERF.md, ROADMAP.md).
+// Everything between the products is the same float32 code for both dtypes.
 //
 // Each entry point returns cudaGetLastError() after its launch (or a cudaError_t
 // for arguments it does not take); the Python launcher raises when it is not 0.
 
 #include "din_common.cuh"
+#include "din_pool.cuh"
 
 namespace {
 
@@ -117,6 +134,104 @@ __device__ __forceinline__ void store_rows(const float* src, int ld, int width, 
     }
   }
 }
+
+// ------------------------------------------- float32: the forward's fc head
+
+constexpr int kFcThreads = 256;
+constexpr int kFcMT = 4;  // m16 tiles of a block's rows at most (64 rows)
+
+// A block of din_head_fc_kernel: R rows (a multiple of 16); X [R][ldx] =
+// [pooled | t], F1 [R][ld1], the logit partials P [R][parts] (one a 16-column
+// task of the second product). Row strides are 8 mod 32 floats (fragment loads
+// without bank conflicts).
+struct FcLayout {
+  int D, F1, F2, R, ldx, ld1, parts, oX, oF1, oP, total;
+};
+
+FcLayout make_fc_layout(int D, int F1, int F2, int R) {
+  FcLayout s;
+  s.D = D, s.F1 = F1, s.F2 = F2, s.R = R;
+  s.ldx = dinpool::stride8(2 * D), s.ld1 = dinpool::stride8(F1);
+  s.parts = (F2 + din::kTf32Cols - 1) / din::kTf32Cols;
+  s.oX = 0;
+  s.oF1 = s.oX + R * s.ldx;
+  s.oP = s.oF1 + R * s.ld1;
+  s.total = s.oP + din::round4(R * s.parts);
+  return s;
+}
+
+// The most rows (a multiple of 16, at most 16 kFcMT) whose block fits.
+bool fit_fc_layout(int D, int F1, int F2, FcLayout* out) {
+  for (int R = 16 * kFcMT; R >= 16; R -= 16) {
+    const FcLayout s = make_fc_layout(D, F1, F2, R);
+    if (sizeof(float) * static_cast<size_t>(s.total) <= din::kSmemLimit) {
+      *out = s;
+      return true;
+    }
+  }
+  return false;
+}
+
+// The float32 forward's fc head on the tensor cores, after din_pool_kernel
+// wrote the pooled rows: logit = relu(relu([pooled | t] u1 + c1) u2 + c2) u3 + c3
+// for R rows a block. Both products in 3xTF32 (block_mm_tf32 over all the
+// block's m16 tiles at once, so a block reads u1 and u2 once, split as they are
+// read); the last, f2 u3, in float32 on CUDA cores, as partial sums over each
+// task's 16 columns (f2 never stored), summed in a fixed order.
+__global__ void __launch_bounds__(kFcThreads, 2)
+din_head_fc_kernel(const float* __restrict__ pooled, const float* __restrict__ tgt,
+                   din::FcWeights<float> f, din::Tf32Mat u1, din::Tf32Mat u2,
+                   float* __restrict__ out, long long B, FcLayout s) {
+  extern __shared__ __align__(16) float sm[];
+  float* X = sm + s.oX;
+  float* F1 = sm + s.oF1;
+  float* P = sm + s.oP;
+  const long long r0 = static_cast<long long>(blockIdx.x) * s.R;
+  const int d4 = s.D >> 2;
+  for (int e = threadIdx.x; e < s.R * 2 * d4; e += kFcThreads) {
+    const int r = e / (2 * d4), c = (e - r * 2 * d4) * 4;
+    const float* src = c < s.D ? pooled + (r0 + r) * s.D + c : tgt + (r0 + r) * s.D + c - s.D;
+    as4(X + r * s.ldx + c) = r0 + r < B ? din::ldg4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+  din::block_mm_tf32<kFcMT>(X, s.ldx, u1, s.R, 2 * s.D, s.F1, [&](int r, int c, float4 v) {
+    const float4 b = din::load4(f.c1 + c);
+    as4(F1 + r * s.ld1 + c) = make_float4(din::relu(v.x + b.x), din::relu(v.y + b.y),
+                                          din::relu(v.z + b.z), din::relu(v.w + b.w));
+  });
+  __syncthreads();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int task = threadIdx.x >> 5; task < s.parts; task += kFcThreads / 32) {
+    const int n0 = task * din::kTf32Cols, c = n0 + 4 * t;
+    float acc[kFcMT][2][4];
+    din::warp_mm_tf32<kFcMT>(F1, s.ld1, s.R, s.F1, u2, 0, n0, acc);
+    float4 b = make_float4(0.f, 0.f, 0.f, 0.f), w = b;
+    if (c < s.F2) b = din::load4(f.c2 + c), w = din::load4(f.u3 + c);
+#pragma unroll
+    for (int i = 0; i < kFcMT; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = din::row4(acc[i], h);
+        float y = din::relu(v.x + b.x) * w.x;
+        y = fmaf(din::relu(v.y + b.y), w.y, y);
+        y = fmaf(din::relu(v.z + b.z), w.z, y);
+        y = fmaf(din::relu(v.w + b.w), w.w, y);
+        y += __shfl_xor_sync(din::kFull, y, 1);
+        y += __shfl_xor_sync(din::kFull, y, 2);
+        const int r = 16 * i + g + 8 * h;
+        if (t == 0 && r < s.R) P[r * s.parts + task] = y;
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < s.R; r += kFcThreads) {
+    float acc = 0.f;
+    for (int j = 0; j < s.parts; ++j) acc += P[r * s.parts + j];
+    if (r0 + r < B) out[r0 + r] = acc + load1(f.c3);
+  }
+}
+
+// ---------------------------------------------------------------- the backward
 
 template <class T>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -512,6 +627,13 @@ int launch_bwd_fc(const void* rows, void* part, long long B, int D, int F1, int 
   return cudaGetLastError();
 }
 
+// The float32 forward's two tensor-core launches take these widths: the attention
+// stage's layout (din_pool.cuh) and the fc head's block fit.
+bool tf32_forward_fits(int L, int D, int A1, int A2, int F1, int F2, dinpool::PoolLayout* ps,
+                       FcLayout* fs) {
+  return dinpool::fit_layout(L, D, A1, A2, ps) && fit_fc_layout(D, F1, F2, fs);
+}
+
 }  // namespace
 
 extern "C" {
@@ -542,6 +664,61 @@ int din_head_fwd(const void* hist, const void* tgt, const void* const* weights, 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_fwd<Bf16>(hist, tgt, weights, out, B, s, st)
               : launch_fwd<float>(hist, tgt, weights, out, B, s, st);
+}
+
+// 1 when the float32 forward at these widths is din_head_fwd_pool then
+// din_head_fwd_fc (the tensor cores), 0 when it is one din_head_fwd launch (the
+// CUDA cores: widths whose tiles do not fit the two kernels' shared memory).
+int din_head_fwd_tf32(int L, int D, int A1, int A2, int F1, int F2) {
+  dinpool::PoolLayout ps;
+  FcLayout fs;
+  return din::widths_ok(1, L, D, A1, A2, F1, F2) && tf32_forward_fits(L, D, A1, A2, F1, F2, &ps, &fs);
+}
+
+// The float32 forward's attention stage: din_pool_kernel with b3 kept (din_pool.cuh):
+// hist [B, L, D], tgt [B, D] and the 14 weights, f32 -> pooled [B, D] f32.
+int din_head_fwd_pool(const void* hist, const void* tgt, const void* const* weights, void* pooled,
+                      long long B, int L, int D, int A1, int A2, int F1, int F2, void* stream) {
+  dinpool::PoolLayout ps;
+  FcLayout fs;
+  if (!din::widths_ok(B, L, D, A1, A2, F1, F2) || !tf32_forward_fits(L, D, A1, A2, F1, F2, &ps, &fs)) {
+    return cudaErrorInvalidValue;
+  }
+  const auto* w = reinterpret_cast<const float* const*>(weights);
+  const dinpool::PoolWeights a{w[0], w[1], w[2], w[3], w[4], w[5]};
+  const auto* h = static_cast<const float*>(hist);
+  const auto* t = static_cast<const float*>(tgt);
+  auto* o = static_cast<float*>(pooled);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return ps.on_chip ? dinpool::launch<true, true>(h, t, a, o, B, ps, st, w[6])
+                    : dinpool::launch<false, true>(h, t, a, o, B, ps, st, w[6]);
+}
+
+// The float32 forward's fc head: pooled [B, D] (din_head_fwd_pool's), tgt [B, D]
+// and the 14 weights -> logits out [B], f32.
+int din_head_fwd_fc(const void* pooled, const void* tgt, const void* const* weights, void* out,
+                    long long B, int L, int D, int A1, int A2, int F1, int F2, void* stream) {
+  dinpool::PoolLayout ps;
+  FcLayout fs;
+  if (!din::widths_ok(B, L, D, A1, A2, F1, F2) || !tf32_forward_fits(L, D, A1, A2, F1, F2, &ps, &fs)) {
+    return cudaErrorInvalidValue;
+  }
+  din::AttentionWeights<float> a;
+  din::FcWeights<float> f;
+  split_weights(weights, &a, &f);
+  const size_t smem = sizeof(float) * static_cast<size_t>(fs.total);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        din_head_fc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const long long blocks = (B + fs.R - 1) / fs.R;
+  din_head_fc_kernel<<<static_cast<unsigned>(blocks), kFcThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pooled), static_cast<const float*>(tgt), f,
+      din::Tf32Mat{f.u1p, f.u1t, D, 2 * D, F1}, din::Tf32Mat{f.u2, nullptr, F1, F1, F2},
+      static_cast<float*>(out), B, fs);
+  return cudaGetLastError();
 }
 
 // The number of blocks (slots) din_head_bwd launches, for the launcher to size

@@ -1,17 +1,25 @@
 """Checked launchers of the fused DIN head kernels (``csrc/din_head.cu``).
 
-``din_head_fused`` launches the forward kernel once. ``din_head_fused_bwd``
-launches the backward kernel, which writes d hist, d target, one slot of
-weight-gradient sums per block and the fc head's rows; the kernel that turns
-those rows into the fc head's two large weight gradients, per block; and the
-kernel that sums the slots in block order: three launches. Each keeps a count
-of its launches (``.launches``), raised by one per kernel launch and nowhere
-else. Both take float32 or bfloat16, one dtype for hist_e, target_e and the 14
-weights (the JAX kernel's single compute dtype; a mix raises), on the device
-of ``hist_e``; the widths must be multiples of 4, the fc widths at most 2048
-and L at most 64. The forward returns logits in the inputs' dtype; the
-backward takes a cotangent g of either dtype (widened to float32 for the
-kernel) and returns float32 gradients.
+``din_head_fused``, the forward: in bfloat16 one launch of ``din_fwd_kernel``
+(its products on the tensor cores, m16n8k16); in float32 two launches on the
+tensor cores in float32 accuracy (3xTF32), the attention stage
+(``din_pool_kernel`` with b3, into a pooled [B, D] buffer) and the fc head
+(``din_head_fc_kernel``), or, at widths whose tiles do not fit those two
+kernels (``din_head_fwd_tf32``), one launch of ``din_fwd_kernel`` on CUDA
+cores. ``din_head_fused_bwd`` launches the backward kernel, which writes d
+hist, d target, one slot of weight-gradient sums per block and the fc head's
+rows; the kernel that turns those rows into the fc head's two large weight
+gradients, per block; and the kernel that sums the slots in block order:
+three launches (float32 FMA on CUDA cores in float32; bf16 products on the
+tensor cores but the recompute of the forward). Each keeps
+a count of its launches (``.launches``), raised by one per kernel launch and
+nowhere else, and the same count by the inputs' dtype
+(``.launches_by_dtype``). Both take float32 or bfloat16, one dtype for
+hist_e, target_e and the 14 weights (the JAX kernel's single compute dtype; a
+mix raises), on the device of ``hist_e``; the widths must be multiples of 4,
+the fc widths at most 2048 and L at most 64. The forward returns logits in the
+inputs' dtype; the backward takes a cotangent g of either dtype (widened to
+float32 for the kernel) and returns float32 gradients.
 
 The library is built and loaded at the first launch, never at import.
 """
@@ -60,6 +68,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.din_head_bwd_fc.restype = I
     lib.din_head_bwd_reduce.argtypes = [P, P, I, I, P]
     lib.din_head_bwd_reduce.restype = I
+    lib.din_head_fwd_tf32.argtypes = [I, I, I, I, I, I]
+    lib.din_head_fwd_tf32.restype = I
+    lib.din_head_fwd_pool.argtypes = [P, P, W, P, LL, I, I, I, I, I, I, P]
+    lib.din_head_fwd_pool.restype = I
+    lib.din_head_fwd_fc.argtypes = [P, P, W, P, LL, I, I, I, I, I, I, P]
+    lib.din_head_fwd_fc.restype = I
     lib.din_head_grad_offsets.argtypes = [I, I, I, I, I, ctypes.POINTER(I)]
     lib.din_head_grad_offsets.restype = I
     lib.din_head_error_string.argtypes = [I]
@@ -110,24 +124,47 @@ def _pointers(weights):
     return (P * 14)(*(w.data_ptr() for w in weights))
 
 
+def _counted(fn, dtype) -> None:
+    """One more launch of ``fn``'s kernels, of inputs in ``dtype``."""
+    fn.launches += 1
+    fn.launches_by_dtype[str(dtype).split(".")[1]] += 1
+
+
 def din_head_fused(hist_e, target_e, weights):
-    """Launch ``din_fwd_kernel<T>``: hist_e [B, L, D], target_e [B, D] and
-    the 14 weights, all f32 or all bf16 -> logits [B] in that dtype."""
+    """Launch the forward: hist_e [B, L, D], target_e [B, D] and the 14
+    weights, all f32 or all bf16 -> logits [B] in that dtype. bf16:
+    ``din_fwd_kernel<bf16>``; f32: ``din_pool_kernel`` (b3 kept) and
+    ``din_head_fc_kernel`` on the tensor cores, or ``din_fwd_kernel<float>`` on
+    CUDA cores where the widths do not fit the pair."""
     dims = _check(hist_e, target_e, weights, "din_head_fused")
+    B, L, D, A1, A2, F1, F2 = dims
     lib = _lib()
     device = hist_e.device
-    out = torch.empty((dims[0],), dtype=hist_e.dtype, device=device)
+    out = torch.empty((B,), dtype=hist_e.dtype, device=device)
+    bf16 = _is_bf16(hist_e)
     with torch.cuda.device(device):
-        code = lib.din_head_fwd(hist_e.data_ptr(), target_e.data_ptr(), _pointers(weights),
-                                out.data_ptr(), *dims, _is_bf16(hist_e), stream(device.index))
-    raise_on(lib.din_head_error_string, code, "din_head_fused")
-    din_head_fused.launches += 1
+        s = stream(device.index)
+        if bf16 or not lib.din_head_fwd_tf32(L, D, A1, A2, F1, F2):
+            code = lib.din_head_fwd(hist_e.data_ptr(), target_e.data_ptr(), _pointers(weights),
+                                    out.data_ptr(), *dims, bf16, s)
+            raise_on(lib.din_head_error_string, code, "din_head_fused")
+            _counted(din_head_fused, hist_e.dtype)
+            return out
+        pooled = torch.empty((B, D), dtype=torch.float32, device=device)
+        code = lib.din_head_fwd_pool(hist_e.data_ptr(), target_e.data_ptr(), _pointers(weights),
+                                     pooled.data_ptr(), *dims, s)
+        raise_on(lib.din_head_error_string, code, "din_head_fused (attention)")
+        _counted(din_head_fused, hist_e.dtype)
+        code = lib.din_head_fwd_fc(pooled.data_ptr(), target_e.data_ptr(), _pointers(weights),
+                                   out.data_ptr(), *dims, s)
+        raise_on(lib.din_head_error_string, code, "din_head_fused (fc)")
+        _counted(din_head_fused, hist_e.dtype)
     return out
 
 
 def din_head_fused_bwd(hist_e, target_e, weights, g):
-    """Launch ``din_head_bwd_kernel``, ``din_head_bwd_fc_kernel`` and
-    ``din_head_bwd_reduce_kernel``: the
+    """Launch ``din_head_bwd_kernel``,
+    ``din_head_bwd_fc_kernel`` and ``din_head_bwd_reduce_kernel``: the
     forward's inputs and the logit cotangent g [B] (f32 or bf16) -> (d hist_e,
     d target_e, the 14 weight gradients in their weights' shapes), all f32."""
     dims = _check(hist_e, target_e, weights, "din_head_fused_bwd")
@@ -155,14 +192,14 @@ def din_head_fused_bwd(hist_e, target_e, weights, g):
                                 g.data_ptr(), dhist.data_ptr(), dtgt.data_ptr(), part.data_ptr(),
                                 rows.data_ptr(), *dims, blocks, bf16, s)
         raise_on(lib.din_head_error_string, code, "din_head_fused_bwd")
-        din_head_fused_bwd.launches += 1
+        _counted(din_head_fused_bwd, hist_e.dtype)
         code = lib.din_head_bwd_fc(rows.data_ptr(), part.data_ptr(), B, D, A1, A2, F1, F2, blocks,
                                    bf16, s)
         raise_on(lib.din_head_error_string, code, "din_head_fused_bwd (fc)")
-        din_head_fused_bwd.launches += 1
+        _counted(din_head_fused_bwd, hist_e.dtype)
         code = lib.din_head_bwd_reduce(part.data_ptr(), grad.data_ptr(), blocks, total, s)
         raise_on(lib.din_head_error_string, code, "din_head_fused_bwd (reduce)")
-        din_head_fused_bwd.launches += 1
+        _counted(din_head_fused_bwd, hist_e.dtype)
     o = list(offsets)
     shapes = [(D, A1), (D, A1), (1, A1), (A1, A2), (1, A2), (A2, 1), (1, 1),
               (2 * D, F1), (1, F1), (F1, F2), (1, F2), (F2, 1), (1, 1)]
@@ -172,5 +209,11 @@ def din_head_fused_bwd(hist_e, target_e, weights, g):
     return (dhist, dtgt, *dweights)
 
 
-din_head_fused.launches = 0
-din_head_fused_bwd.launches = 0
+def reset_launches() -> None:
+    """Set both launchers' counts, in all and by dtype, to 0."""
+    for fn in (din_head_fused, din_head_fused_bwd):
+        fn.launches = 0
+        fn.launches_by_dtype = {str(dtype).split(".")[1]: 0 for dtype in DTYPES}
+
+
+reset_launches()

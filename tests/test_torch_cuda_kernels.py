@@ -716,16 +716,35 @@ def _close_db3(got, want, cot):
     assert float((got - want).abs().max()) <= 1e-6 * float(cot.abs().sum())
 
 
-@pytest.mark.parametrize("B,L,D,A,F", DIN_SHAPES)
+# the float32 forward only: the first fc width at its largest (K 2048 in the
+# second fc product), the preset at the longest history, and an embedding too
+# wide for the tensor-core forward's tiles at L 64 (its CUDA-core kernel, one
+# launch)
+DIN_F32_SHAPES = [(300, 10, 16, (32, 16, 1), (2048, 128, 1)),
+                  (2_000, 64, 64, (128, 64, 1), (256, 128, 1)),
+                  (20, 64, 512, (8, 4, 1), (8, 4, 1))]
+
+
+def _fwd_launches(L, D, A, F) -> int:
+    """Launches of one float32 forward: 2 on the tensor cores (attention stage,
+    fc head), 1 where the widths take the CUDA-core kernel."""
+    return 2 if cuda_dh._lib().din_head_fwd_tf32(L, D, A[0], A[1], F[0], F[1]) else 1
+
+
+@pytest.mark.parametrize("B,L,D,A,F", DIN_SHAPES + DIN_F32_SHAPES)
 def test_din_head_fused_matches_plain(cuda, B, L, D, A, F):
     att, fc, hist, tgt, _ = _din_inputs(cuda, B, L, D, A, F, seed=B + L)
     weights = dh.din_head_weights(att, fc, D)
-    before = cuda_dh.din_head_fused.launches
+    before = cuda_dh.din_head_fused.launches, cuda_dh.din_head_fused.launches_by_dtype["float32"]
     got = dh.din_head_fwd(hist, tgt, weights)
     torch.cuda.synchronize()
-    assert cuda_dh.din_head_fused.launches == before + 1
+    n = _fwd_launches(L, D, A, F)
+    assert (cuda_dh.din_head_fused.launches,
+            cuda_dh.din_head_fused.launches_by_dtype["float32"]) == (before[0] + n, before[1] + n)
+    assert n == 2 or D == 512  # the tensor cores take every shape but the widest
     assert got.shape == (B,) and got.dtype == torch.float32
     _close(got, dh.din_head_fwd_plain(hist, tgt, weights), 1e-5)
+    assert torch.equal(dh.din_head_fwd(hist, tgt, weights), got)  # two launches repeat bit for bit
 
 
 @pytest.mark.parametrize("B,L,D,A,F", [s for s in DIN_SHAPES if s[0] < 20_000])
@@ -766,7 +785,7 @@ def test_din_head_autograd_on_the_card(cuda):
     (dh.din_head(a_card, f_card, h_card, t_card) * cot).sum().backward()
     torch.cuda.synchronize()
     assert (cuda_dh.din_head_fused.launches, cuda_dh.din_head_fused_bwd.launches) == (
-        before[0] + 1, before[1] + 3)
+        before[0] + 2, before[1] + 3)
     (a_cpu, f_cpu), h_cpu, t_cpu = leaves("cpu")
     (dh.din_head(a_cpu, f_cpu, h_cpu, t_cpu) * cot.cpu()).sum().backward()
     _close_db3(a_card[2]["b"].grad.cpu(), a_cpu[2]["b"].grad, cot)
@@ -806,10 +825,12 @@ def test_din_head_fused_bwd_bf16_matches_plain(cuda, B, L, D, A, F):
     att, fc, hist, tgt, cot = _din_inputs(cuda, B, L, D, A, F, seed=B + D)
     weights = _bf16(*dh.din_head_weights(att, fc, D))
     hist, tgt, cot = _bf16(hist, tgt, cot)
-    before = cuda_dh.din_head_fused_bwd.launches
+    before = cuda_dh.din_head_fused_bwd.launches, dict(cuda_dh.din_head_fused_bwd.launches_by_dtype)
     got = dh.din_head_bwd(hist, tgt, weights, cot)
     torch.cuda.synchronize()
-    assert cuda_dh.din_head_fused_bwd.launches == before + 3
+    assert cuda_dh.din_head_fused_bwd.launches == before[0] + 3
+    assert cuda_dh.din_head_fused_bwd.launches_by_dtype == {
+        "float32": before[1]["float32"], "bfloat16": before[1]["bfloat16"] + 3}
     want = dh.din_head_bwd_plain(hist, tgt, weights, cot)
     for i, (gt, wt) in enumerate(zip(got, want)):
         assert gt.shape == wt.shape and gt.dtype == torch.float32

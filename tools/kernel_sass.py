@@ -13,10 +13,12 @@ kernel: its source, its name (demangled) and how many ``HMMA`` (warp-level
 tensor-core multiply) instructions its SASS holds. With ``--against`` it also
 builds the same sources from another ``csrc`` directory (say, the parent
 commit's) with the same flags and says, for each kernel, whether the two SASS
-listings are the same instruction for instruction; it exits 1 if a kernel of
-``din_head.cu``, ``serving_topk.cu`` or ``mf_epoch.cu`` differs (those must
-not change when only the pools change; a kernel that shares a source with a changed one, as
-the AFM backward does, may compile with other register numbers). Branch labels
+listings are the same instruction for instruction, and whether they are so
+but for the numbers of their registers (``same_but_registers``: a kernel
+whose source file gained other kernels may be allocated other registers); it
+exits 1 if a kernel of ``din_head.cu``, ``serving_topk.cu`` or ``mf_epoch.cu``
+that the other tree has differs beyond its register numbers (those must not
+change when only the pools or the kernels new to ``din_head.cu`` change). Branch labels
 are renumbered within each kernel, since the disassembler numbers them across
 the file. The DIN head's forward kernel was ``din_fwd_kernel<true, T>`` before
 its pool branch went; its old name is matched to ``din_fwd_kernel<T>``
@@ -47,10 +49,24 @@ def renamed(name: str) -> str:
     """An earlier tree's kernel name as this tree calls it: din_fwd_kernel<(bool)1,
     T> became din_fwd_kernel<T>, so its parameters' T2 (the second template
     parameter) became T1; mf_epoch_kernel<kBf16, Id> became its 4-column
-    instantiation mf_epoch_kernel<kBf16, Id, 4>."""
+    instantiation mf_epoch_kernel<kBf16, Id, 4>; the DIN pool's
+    din_pool_kernel<kOnChip> moved to din_pool.cuh's namespace
+    and took kB3 (false: the window pool) and a last parameter, b3 (unread
+    without kB3)."""
     if "din_fwd_kernel<(bool)1, " in name:
         return name.replace("din_fwd_kernel<(bool)1, ", "din_fwd_kernel<").replace("T2", "T1")
+    m = re.fullmatch(r"void <unnamed>::din_pool_kernel<\(bool\)(\d)>\((.*)\)", name)
+    if m:
+        args = m.group(2).replace("<unnamed>::", "dinpool::")
+        return f"void dinpool::din_pool_kernel<(bool){m.group(1)}, (bool)0>({args}, const float *)"
     return re.sub(r"mf_epoch_kernel<(\(bool\)\d, (?:int|long long))>", r"mf_epoch_kernel<\1, (int)4>", name)
+
+
+def registers_renamed(code: list) -> list:
+    """The instructions with every register number (R, UR, P, UP) and their
+    encodings dropped."""
+    return [re.sub(r"\b(U?[RP])\d+\b", r"\1", re.sub(r"/\* 0x[0-9a-f]+ \*/", "", i)).strip()
+            for i in code]
 
 
 def kernels(library: Path, rename=lambda name: name) -> dict:
@@ -98,9 +114,10 @@ def main() -> int:
             if theirs is not None:
                 other = theirs.get(name, [])
                 row["same_sass_as_against"] = other == code
+                row["same_but_registers"] = registers_renamed(other) == registers_renamed(code)
                 row["hmma_against"] = sum("HMMA" in i for i in other)
                 row["new"] = name not in theirs  # no counterpart there (mf_epoch_kernel's 8 and 16 columns)
-                if source in UNCHANGED and not row["new"] and not row["same_sass_as_against"]:
+                if source in UNCHANGED and not row["new"] and not row["same_but_registers"]:
                     changed.append(name)
                     diff = [(i, a, b) for i, (a, b) in enumerate(zip(code, other)) if a != b]
                     print(f"kernel_sass: {name}: {len(code)} against {len(other)} instructions, "

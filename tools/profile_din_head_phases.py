@@ -19,8 +19,12 @@ and its cycles per tile and share (the cycles summed over the blocks, over
 the tiles; a barrier's cycles are those of the phase that ends at it, waits
 included). The first barrier of a loop over tiles or chunks ("the previous
 tile's readers are done") closes the previous pass's last phase: the code
-after the loop's last barrier. Then the card's name and power limit. The copy
-is not the shipped library; it needs a card.
+after the loop's last barrier. Cycles are per 16 rows in every kernel. The
+float32 forward is its attention stage (``din_pool.cuh``, whose group barriers
+this tool does not mark: ``tools/profile_din_pool_phases.py`` times that
+kernel's phases) and ``din_head_fc_kernel``, 64 rows a block, whose phase up to
+its first barrier (the staging of its rows) is not counted. Then the card's
+name and power limit. The copy is not the shipped library; it needs a card.
 """
 
 from __future__ import annotations
@@ -45,15 +49,17 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_head as cuda
 
 FILES = ("din_common.cuh", "din_head.cu")  # barrier ids: 1000 * file index + line
 COUNTERS = 4096
+SLOTS = 4 * 8192  # a block's last mark in each of four kernels: blocks of a launch up to 8192
 HELPER = f"""
 __device__ unsigned long long g_phase_cycles[{COUNTERS}];
-__device__ long long g_phase_last[{COUNTERS}];
+__device__ long long g_phase_last[{SLOTS}];
 // Thread 0 adds the cycles since this block's previous mark in the same kernel
-// (kernel: the fc kernel's marks sit past line 1250 of din_head.cu) to barrier id.
-__device__ __forceinline__ void phase_mark(int id) {{
+// (kernel: 0 for din_common.cuh's marks and the kernels they run in, else the
+// din_head.cu kernel the mark lies in) to barrier id.
+__device__ __forceinline__ void phase_mark(int id, int kernel) {{
   if (threadIdx.x == 0) {{
     const long long now = clock64();
-    const int slot = blockIdx.x * 4 + (id >= 1250 ? 1 : 0);
+    const int slot = blockIdx.x * 4 + kernel;
     const long long last = g_phase_last[slot];
     if (last != 0) atomicAdd(&g_phase_cycles[id], static_cast<unsigned long long>(now - last));
     g_phase_last[slot] = now;
@@ -65,9 +71,10 @@ int din_phase_read(unsigned long long* out) {{
   return cudaMemcpyFromSymbol(out, din::g_phase_cycles, sizeof(unsigned long long) * {COUNTERS});
 }}
 int din_phase_reset() {{
-  static long long zeros[{COUNTERS}];
+  static long long zeros[{SLOTS}];
   const cudaError_t err = cudaMemcpyToSymbol(din::g_phase_last, zeros, sizeof zeros);
-  return err != cudaSuccess ? err : cudaMemcpyToSymbol(din::g_phase_cycles, zeros, sizeof zeros);
+  return err != cudaSuccess ? err : cudaMemcpyToSymbol(din::g_phase_cycles, zeros,
+                                                        sizeof(unsigned long long) * {COUNTERS});
 }}
 """
 
@@ -87,16 +94,39 @@ def work(lines: list, barrier: int) -> list:
     return found[::-1]
 
 
+# din_head.cu's sections whose barriers lie in a kernel of their own, each its own
+# slot of a block's last mark: from the line that opens a section to the next
+# one (the backward kernel's section and din_common.cuh's marks take slot 0)
+SECTIONS = (("constexpr int kFcThreads", 2),  # din_head_fc_kernel, the float32 forward's fc head
+            ("// -------------------------------------------------------------", 0),
+            ("constexpr int kFcChunk", 1))  # din_head_bwd_fc_kernel and its products
+
+
+def kernel_slots(lines: list) -> list:
+    """The slot of each line of din_head.cu: that of the section it lies in."""
+    slots, slot = [], 0
+    for line in lines:
+        for opens, s in SECTIONS:
+            if line.startswith(opens):
+                slot = s
+        slots.append(slot)
+    return slots
+
+
 def instrumented() -> Path:
     """Build the instrumented copy; returns the library's path."""
     out_dir = build.BUILD_DIR / "din_head_phases"
     out_dir.mkdir(parents=True, exist_ok=True)
+    for header in build.CSRC_DIR.glob("*.cuh"):  # the headers it does not mark
+        if header.name not in FILES:
+            (out_dir / header.name).write_text(header.read_text())
     for index, name in enumerate(FILES):
         lines = (build.CSRC_DIR / name).read_text().splitlines()
+        slots = kernel_slots(lines) if name == "din_head.cu" else [0] * len(lines)
         for no, line in enumerate(lines, 1):
             if "__syncthreads();" in line and not line.strip().startswith("//"):
-                lines[no - 1] = line.replace("__syncthreads();",
-                                             f"__syncthreads(); din::phase_mark({1000 * index + no});", 1)
+                mark = f"din::phase_mark({1000 * index + no}, {slots[no - 1]});"
+                lines[no - 1] = line.replace("__syncthreads();", f"__syncthreads(); {mark}", 1)
         text = "\n".join(lines) + "\n"
         if name == "din_common.cuh":
             text = text.replace("namespace din {\n", "namespace din {\n" + HELPER, 1)
