@@ -17,9 +17,10 @@ no result line.
    kernel, its plain version and one PyTorch library call, beside the card's
    bound (for the kernels that multiply on the tensor cores in 3xTF32, the
    top-k matmul, the two attention pools' forwards, the float32 DIN head's
-   forward and the AFM backward's z and W dz, three TF32 products at the
-   tensor cores' rate; the pools' and the float32 head forward's rows also
-   carry the CUDA-core bound as ``cuda_core_bound_ms``). The two pools, the
+   forward, the products of its backward that run there
+   (din_bwd_tensor_products) and the AFM backward's z and W dz, three TF32
+   products at the tensor cores' rate; the pools' and the float32 head's rows
+   also carry the CUDA-core bound as ``cuda_core_bound_ms``). The two pools, the
    AFM backward and the float32 DIN head, both ways, must repeat bit for bit. The AFM pool is also checked
    at widths past the preset's (AFM_WIDE), the fused MF trainer at factors of
    MF_WIDE_DIM. The lookup pair (gather_rows, onehot_grad) is also checked at the
@@ -30,8 +31,12 @@ no result line.
    a call is host-bound, kernel and library are timed in turns. The DIN head
    is checked in float32 and in bfloat16, both also at ragged widths
    (DIN_RAGGED) at the train batch's row count, in float32 also at the
-   longest history the kernels take (DIN_LONG_ROWS rows at L 64); the bf16
-   forward at the train batch on the inputs of each of DIN_BF16_FWD_SEEDS;
+   longest history the kernels take (DIN_LONG_ROWS rows at L 64), the
+   backward in both dtypes also at the widest fc the kernels take
+   (DIN_WIDE_FC); the float32 backward also timed with the forward's pooled
+   rows handed to it (``kernel_ms_pooled_given``, as training runs it), whose
+   gradients must be the recomputing call's bit for bit; the bf16 forward at
+   the train batch on the inputs of each of DIN_BF16_FWD_SEEDS;
 4. train   -- the MF training path (slice 2) through the entry points a user
    calls: ``run_experiment(PRESETS["mf"])`` for 20 epochs at full width on a
    synthetic ml-100k-format dataset, then ``MatrixFactorization.fast_fit`` on
@@ -226,6 +231,11 @@ DIN_RAGGED = (7, 8, (12, 8, 1), (20, 12, 1))
 # generator of each of these seeds
 DIN_BF16_FWD_SEEDS = (0, 1, 2, 3, 4)
 DIN_LONG_ROWS = 16_384  # rows of the float32 head's rows at the longest history the kernels take
+# The head's backward at the widest fc the kernels take, both dtypes, on rows of
+# a generator of their own; float32 there takes din_head_bwd_kernel<float>, whose
+# tile walk holds the whole fc head on CUDA cores (the tensor-core kernels' fc
+# tile does not fit)
+DIN_WIDE_FC, DIN_WIDE_FC_ROWS = (2048, 2048, 1), 4_096
 DIN_EPOCHS = 3  # the CPU reference's plain path is slow at full width
 DIN_BF16_EPOCHS = 2  # DIN under bf16 compute: fewer epochs, for the run's time
 HISTORY_TILE = 16  # users per tile of catalog_scores_from_history
@@ -269,9 +279,12 @@ KERNELS = {
                            "replaces": f"{PALLAS}/din_attention.py:82"},
 }
 # kernel launches of one call of the DIN head's launchers at the preset's widths,
-# by dtype: the float32 forward is the attention stage and the fc head
+# by dtype: the float32 forward is the attention stage and the fc head; the
+# float32 backward under autograd (the forward's pooled rows handed to it) the
+# fc head's backward, the attention unit's, the fc weight gradients and the
+# slots' sum
 DIN_HEAD_LAUNCHES = {"din_head_fused": {"float32": 2, "bfloat16": 1},
-                     "din_head_fused_bwd": {"float32": 3, "bfloat16": 3}}
+                     "din_head_fused_bwd": {"float32": 4, "bfloat16": 3}}
 LAUNCHERS = {"topk_serve_matmul": cuda_topk.topk_serve_matmul,
              "topk_scores": cuda_topk.topk_scores,
              "gather_rows": cuda_gather.gather_rows,
@@ -803,6 +816,18 @@ def din_work(B: int, L: int, D: int, A: tuple, F: tuple, part: str, es: int = 4)
     return 3 * B * (att_mm + fc_mm), B * bwd, es * (inputs + B) + 4 * inputs
 
 
+def din_bwd_tensor_products(B: int, L: int, D: int, A: tuple, F: tuple) -> int:
+    """The float32 backward's products that run in 3xTF32 on the tensor cores
+    (0 where its widths take din_head_bwd_kernel<float>, CUDA cores
+    throughout): the fc head's recompute, [pooled | t] u1 and f1 u2, and its
+    two input gradients, dzf2 u2^T and dzf1 u1^T, 2 (2 (2D) F1 + 2 F1 F2) a
+    row. The rest (the attention unit, the weight gradients, f2 u3) is float32
+    on CUDA cores."""
+    if not cuda_dh.fits(L, D, A[0], A[1], F[0], F[1]) & cuda_dh.TF32_BWD:
+        return 0
+    return B * 2 * (2 * 2 * D * F[0] + 2 * F[0] * F[1])
+
+
 def din_library_fwd(hist, tgt, att, fc):
     """The eager composition: attention_pool and mlp, torch.matmul throughout."""
     return mlp(fc, torch.cat([attention_pool(att, hist, tgt), tgt], dim=-1))[:, 0]
@@ -1024,6 +1049,14 @@ def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.
             got, want = kernel(*sub), plain(*sub)
             if not all(torch.equal(a, b) for a, b in zip(kernel(*sub), got)):
                 raise AssertionError("din_head_fused_bwd: two launches differ")
+            if cuda_dh.fits(L, D, A[0], A[1], F[0], F[1]) & cuda_dh.TF32_BWD:
+                # the forward's pooled rows: the same gradients, bit for bit, one launch fewer
+                pooled = cuda_dh.din_head_fused_pooled(*sub[:3])[1]
+                if not all(torch.equal(a, b) for a, b in zip(kernel(*sub, pooled=pooled), got)):
+                    raise AssertionError("din_head_fused_bwd: the forward's pooled rows change it")
+                full = cuda_dh.din_head_fused_pooled(hist, tgt, weights)[1]
+                checked["kernel_ms_pooled_given"] = time_ms(lambda: kernel(*args, pooled=full))
+                del pooled, full
             errs = []
             for n, gt, wt in zip(("hist", "target") + dh.WEIGHT_NAMES, got, want):
                 if n == "b3":  # the sum of ds: 0 up to rounding in both versions
@@ -1052,8 +1085,11 @@ def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.
     mm, ops, nbytes = din_work(B, L, D, A, F, part, hist.element_size())
     if dtype == torch.bfloat16:
         t_bound, bound_by = bound_of(ops, nbytes, bf16_flops=mm)
-    elif part == "bwd":  # float32 FMA on CUDA cores
-        t_bound, bound_by = bound_of(mm + ops, nbytes)
+    elif part == "bwd":  # the products din_bwd_tensor_products counts in 3xTF32, the rest on CUDA cores
+        moved = din_bwd_tensor_products(B, L, D, A, F)
+        t_bound, bound_by = bound_of(mm - moved + ops, nbytes, 3 * moved)
+        if moved:
+            checked["cuda_core_bound_ms"] = bound_of(mm + ops, nbytes)[0]
     else:  # the pool and the float32 head's forward multiply in 3xTF32 on the tensor cores
         t_bound, bound_by = bound_of(ops, nbytes, 3 * mm)
         checked["cuda_core_bound_ms"] = bound_of(mm + ops, nbytes)[0]
@@ -1738,6 +1774,9 @@ def main() -> int:
         ragged = "train batch's rows at ragged widths"
         long_dims = (cuda_dh.MAX_HISTORY,) + din_dims[1:]
         long_label = f"{DIN_LONG_ROWS} rows at history {cuda_dh.MAX_HISTORY}"
+        wide_fc_dims = din_dims[:3] + (DIN_WIDE_FC,)
+        wide_fc_label = f"{DIN_WIDE_FC_ROWS} rows at the widest fc"
+        wide_fc_gen = torch.Generator(device=DEVICE).manual_seed(2)
         for name, part, B, dims, label, dtype, draw, seeds in (
                 ("din_head_fused", "fwd", din_rows, din_dims, "train batch", torch.float32, gen, ()),
                 ("din_head_fused_bwd", "bwd", din_rows, din_dims, "train batch", torch.float32, gen,
@@ -1756,7 +1795,11 @@ def main() -> int:
                 ("din_head_fused", "fwd", DIN_LONG_ROWS, long_dims, long_label, torch.float32,
                  wide_gen, ()),
                 ("din_head_fused_bwd", "bwd", DIN_LONG_ROWS, long_dims, long_label, torch.float32,
-                 wide_gen, ())):
+                 wide_gen, ()),
+                ("din_head_fused_bwd", "bwd", DIN_WIDE_FC_ROWS, wide_fc_dims, wide_fc_label,
+                 torch.float32, wide_fc_gen, ()),
+                ("din_head_fused_bwd", "bwd", DIN_WIDE_FC_ROWS, wide_fc_dims, wide_fc_label,
+                 torch.bfloat16, wide_fc_gen, ())):
             rows[name].append(check_din(part, B, *dims, draw, label, dtype, seeds))
             emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
         torch.cuda.empty_cache()

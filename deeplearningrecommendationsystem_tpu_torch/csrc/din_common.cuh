@@ -29,10 +29,12 @@
 // order of summation differs; a caller can keep bf16 products on the CUDA
 // cores (kTensor false): din_head.cu's backward does, for its recompute of the
 // forward. For float, float32 FMA on CUDA cores (block_mm_fma,
-// block_mm_tn_acc_fma): the float32 backward, and din_fwd_kernel<float> at
-// widths the tensor-core forward does not take. The float32 forward's fc head
-// (din_head.cu's din_head_fc_kernel) multiplies on the tensor cores in float32
-// accuracy (3xTF32 mma.sync m16n8k8: block_mm_tf32).
+// block_mm_tn_acc_fma): the float32 backward's attention unit, and the
+// kernels of the float32 head at widths its tensor-core kernels do not take.
+// The float32 fc head, forward and backward (din_head.cu's din_head_fc_kernel
+// and din_head_bwd_fc_head_kernel), multiplies on the tensor cores in float32
+// accuracy (3xTF32 mma.sync m16n8k8: block_mm_tf32, B from Tf32Mat or, for
+// A @ W^T, Tf32MatT).
 //
 // Widths D, A1, A2, F1, F2 must be multiples of 4 (float4 loads, or 8-byte
 // quads of bf16), L at most kMaxHistory; the Python launchers check them.
@@ -446,10 +448,11 @@ __device__ __forceinline__ void block_mm_tn_acc(const float* X, int ldx, const f
 
 // ------------------------------------------------------- tensor cores (float32)
 //
-// The float32 forward's fc products (din_head.cu's din_head_fc_kernel) in
-// float32 accuracy on the tensor cores: 3xTF32 mma.sync m16n8k8
-// (tf32_mma.cuh), B the float32 weight in device memory, read through L1 and
-// L2 and split into TF32 hi and lo parts as each fragment is loaded.
+// The float32 fc head's products (din_head.cu's din_head_fc_kernel and
+// din_head_bwd_fc_head_kernel) in float32 accuracy on the tensor cores: 3xTF32
+// mma.sync m16n8k8 (tf32_mma.cuh), B the float32 weight in device memory, read
+// through L1 and L2 and split into TF32 hi and lo parts as each fragment is
+// loaded.
 
 // W [K][N] (row-major; rows Ktop .. K - 1 from bottom when it is given: u1 is
 // u1p over u1t) as the B operand: frag(n, k) gives the hi and lo parts of
@@ -465,6 +468,25 @@ struct Tf32Mat {
     const float x0 = in ? __ldg(w + n) : 0.f, x1 = in ? __ldg(w + N + n) : 0.f;
     tf32mma::split_tf32_bits(x0, bh[0], bl[0]);
     tf32mma::split_tf32_bits(x1, bh[1], bl[1]);
+  }
+};
+
+// W [N][K] (row-major; rows Ntop .. N - 1 from bottom when it is given: u1 is
+// u1p over u1t) as the B operand of A @ W^T: frag(n, k) gives the hi and lo
+// parts of W[n][k] and W[n][k + 1], one 8-byte load (k even; K a multiple of
+// 4, so k < K means k + 1 < K), zeros past K and N.
+struct Tf32MatT {
+  const float* __restrict__ top;
+  const float* __restrict__ bottom;
+  int Ntop, N, K;
+  __device__ __forceinline__ void frag(int n, int k, uint32_t (&bh)[2], uint32_t (&bl)[2]) const {
+    float2 x = make_float2(0.f, 0.f);
+    if (n < N && k < K) {
+      const float* w = n < Ntop ? top + static_cast<size_t>(n) * K : bottom + static_cast<size_t>(n - Ntop) * K;
+      x = __ldg(reinterpret_cast<const float2*>(w + k));
+    }
+    tf32mma::split_tf32_bits(x.x, bh[0], bl[0]);
+    tf32mma::split_tf32_bits(x.y, bh[1], bl[1]);
   }
 };
 

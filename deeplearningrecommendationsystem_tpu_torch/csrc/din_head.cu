@@ -6,8 +6,12 @@
 //   * _fwd_kernel (pallas_call :267)  -> float32: dinpool::din_pool_kernel<., true>
 //                                        (din_pool.cuh) + din_head_fc_kernel;
 //                                        bf16: din::din_fwd_kernel<T>
-//   * _bwd_kernel (pallas_call :300)  -> din_head_bwd_kernel + din_head_bwd_fc_kernel
-//                                        + din_head_bwd_reduce_kernel
+//   * _bwd_kernel (pallas_call :300)  -> float32: din_pool_kernel<., true>
+//                                        + din_head_bwd_fc_head_kernel
+//                                        + din_head_bwd_att_kernel; bf16 (and float32
+//                                        where those tiles do not fit):
+//                                        din_head_bwd_kernel<T>; then
+//                                        din_head_bwd_fc_kernel + din_head_bwd_reduce_kernel
 // Their plain PyTorch versions are din_head_fwd_plain and din_head_bwd_plain in
 // deeplearningrecommendationsystem_tpu_torch/ops/din_head.py.
 //
@@ -71,12 +75,21 @@
 //   and split as they are read; din_common.cuh's block_mm_tf32) and f2 u3 on
 //   CUDA cores. Widths whose tiles do not fit these two kernels' shared memory
 //   (D past about 350 at L 64) take din_fwd_kernel<float> on CUDA cores.
-// * float32, the backward: float32 FMA on CUDA cores, its recompute of the
-//   forward included. A recompute on the tensor cores (3xTF32, B from the
-//   float32 weights, each relu input near 0 summed again on CUDA cores) was
-//   slower on an H100 at the DIN train batch: the tile fills shared memory, so
-//   B comes from L2 at every task, and the fc head's products reuse each B
-//   fragment for only the tile's 16 rows (PERF.md, ROADMAP.md).
+// * float32, the backward: the fc head apart from the attention unit, so that
+//   the fc head's products reuse their B fragments over 64 rows. The pool's
+//   kernel (b3 kept) writes the pooled rows again; din_head_bwd_fc_head_kernel
+//   takes 64 rows a tile through f1, f2 (3xTF32, u1 and u2 split as read; a
+//   relu input within the sum's error bound of 0 summed again in float32 before
+//   its mask is taken), dzf2, dzf1 = dzf2 u2^T and [dpooled | dt] = dzf1 u1^T
+//   (3xTF32 with B read transposed, Tf32MatT), writes [dpooled | dt] and the
+//   rows, and sums du3, dc3, dc2, dc1; din_head_bwd_att_kernel then walks tiles
+//   of 16 rows through the attention unit's recompute and backward, float32 FMA
+//   on CUDA cores. A recompute of the whole head inside one per-tile kernel on
+//   the tensor cores was slower on an H100: that tile fills shared memory, so B
+//   came from L2 at every task, and the fc head's products reused each B
+//   fragment for the tile's 16 rows only (PERF.md). Widths whose tiles do not
+//   fit these kernels take din_head_bwd_kernel<float> (the whole head on CUDA
+//   cores).
 // Everything between the products is the same float32 code for both dtypes.
 //
 // Each entry point returns cudaGetLastError() after its launch (or a cudaError_t
@@ -231,6 +244,213 @@ din_head_fc_kernel(const float* __restrict__ pooled, const float* __restrict__ t
   }
 }
 
+// ------------------------------------------- float32: the backward's fc head
+
+constexpr int kFcBwdMT = 2;  // m16 tiles of a warp's task in the fc head's backward (32 rows)
+constexpr int kFcBwdRows = 64;  // rows of its tile at most
+// A relu input z = x W[:, c] + b whose 3xTF32 sum lies below kKink (sum_k |x_k|)
+// max_k |W[k][c]| from 0 is summed again in float32 on CUDA cores before its
+// mask is taken (refine_dot). The 3xTF32 sum is off by at most about (30 + K /
+// 128) 2^-23 sum_k |x_k W[k][c]|: 2^-22 of a product for each operand's low
+// part rounded to TF32 and for the dropped lo lo, one rounding of the
+// accumulator for each of a chunk's 24 mma.sync (kTf32Chunk k-steps, three
+// products each), and one float32 add a chunk; below 2^-14 for any K the
+// kernels take (K <= 2D + F1).
+constexpr float kKink = 6.103515625e-05f;  // 2^-14
+
+// A tile of din_head_bwd_fc_head_kernel: R rows (a multiple of 16); Xa [R][lda]
+// holds [pooled | t], later f2 and then dzf2 in place; F1 [R][ld1] f1, then dzf1
+// in place; G [R] the logit cotangent, RA [R] the rows' sum |x| of the product
+// at hand; CM1 [F1], CM2 [F2] the columns' max |W| of u1 and u2; the block's
+// sums over its tiles S1 [F1] (dc1), S2 [F2] (dc2), U3 [F2] (du3) and S3 (dc3).
+// Row strides are 8 mod 32 floats (fragment loads without bank conflicts).
+struct FcBwdLayout {
+  int D, F1, F2, R, lda, ld1, oA, oF1, oG, oRA, oCM1, oCM2, oS1, oS2, oU3, oS3, total;
+};
+
+FcBwdLayout make_fc_bwd_layout(int D, int F1, int F2, int R) {
+  FcBwdLayout s;
+  s.D = D, s.F1 = F1, s.F2 = F2, s.R = R;
+  s.lda = dinpool::stride8(max(2 * D, F2)), s.ld1 = dinpool::stride8(F1);
+  int o = 0;
+  auto take = [&o](int n) {
+    const int start = o;
+    o += din::round4(n);
+    return start;
+  };
+  s.oA = take(R * s.lda);
+  s.oF1 = take(R * s.ld1);
+  s.oG = take(R);
+  s.oRA = take(R);
+  s.oCM1 = take(F1);
+  s.oCM2 = take(F2);
+  s.oS1 = take(F1);
+  s.oS2 = take(F2);
+  s.oU3 = take(F2);
+  s.oS3 = take(1);
+  s.total = o;
+  return s;
+}
+
+// The most rows (a multiple of 16, at most kFcBwdRows) whose tile fits.
+bool fit_fc_bwd_layout(int D, int F1, int F2, FcBwdLayout* out) {
+  for (int R = kFcBwdRows; R >= 16; R -= 16) {
+    const FcBwdLayout s = make_fc_bwd_layout(D, F1, F2, R);
+    if (sizeof(float) * static_cast<size_t>(s.total) <= din::kSmemLimit) {
+      *out = s;
+      return true;
+    }
+  }
+  return false;
+}
+
+// x [K] (shared memory) @ W[:, c] in float32 on CUDA cores, in k order from 0.
+__device__ __forceinline__ float refine_dot(const float* x, const din::Tf32Mat& W, int c) {
+  float z = 0.f;
+  for (int k = 0; k < W.K; ++k) {
+    const float* w = k < W.Ktop ? W.top + static_cast<size_t>(k) * W.N
+                                : W.bottom + static_cast<size_t>(k - W.Ktop) * W.N;
+    z = fmaf(x[k], __ldg(w + c), z);
+  }
+  return z;
+}
+
+// relu(x W + b) of four columns c .. c + 3 of a row from their 3xTF32 sums v,
+// each within the error bound of 0 (bound max_k |W[k][c]|: bound = kKink sum |x|)
+// summed again by refine_dot.
+__device__ __forceinline__ float4 relu_refined(float4 v, const float* x, const din::Tf32Mat& W,
+                                               const float* b, const float* cm, float bound, int c) {
+  const float4 bb = din::ldg4(b + c), m = *reinterpret_cast<const float4*>(cm + c);
+  float z[4] = {v.x + bb.x, v.y + bb.y, v.z + bb.z, v.w + bb.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (fabsf(z[q]) < bound * din::at(m, q)) z[q] = refine_dot(x, W, c + q) + din::at(bb, q);
+  }
+  return make_float4(din::relu(z[0]), din::relu(z[1]), din::relu(z[2]), din::relu(z[3]));
+}
+
+// RA [r] = sum_k |X [r][k]| for the R rows (one warp a row, fixed order).
+__device__ __forceinline__ void row_abs(const float* X, int ldx, int R, int K, float* RA) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < R; r += blockDim.x >> 5) {
+    float acc = 0.f;
+    for (int k = lane; k < K; k += 32) acc += fabsf(X[r * ldx + k]);
+    acc = din::warp_sum(acc);
+    if (lane == 0) RA[r] = acc;
+  }
+}
+
+// The float32 backward's fc head on the tensor cores, from the pooled rows that
+// din_pool_kernel<., true> wrote, for tiles of R rows: f1 = relu([pooled | t] u1
+// + c1), f2 = relu(f1 u2 + c2) (3xTF32, block_mm_tf32, each relu input near 0
+// summed again in float32), dzf2 = (f2 > 0) g u3, dzf1 = (f1 > 0) dzf2 u2^T and
+// [dpooled | dt] = dzf1 [u1p | u1t]^T (3xTF32 with B = W^T, Tf32MatT) into dpt
+// [B, 2D] for din_head_bwd_att_kernel; the rows din_head_bwd_fc_kernel reads
+// ([pooled | t], f1, dzf1, dzf2) into rows; du3, dc3, dc2 and dc1 summed over the
+// block's tiles in a fixed order and written once into its slot of part. A
+// persistent grid (one block a slot) walks the tiles.
+__global__ void __launch_bounds__(kThreads, 1)
+din_head_bwd_fc_head_kernel(const float* __restrict__ pooled, const float* __restrict__ tgt,
+                            const float* __restrict__ g, din::FcWeights<float> f, din::Tf32Mat u1,
+                            din::Tf32Mat u2, din::Tf32MatT u2t, din::Tf32MatT u1t,
+                            float* __restrict__ dpt, float* __restrict__ rows,
+                            float* __restrict__ part, long long B, FcBwdLayout s, GradSlots o) {
+  extern __shared__ __align__(16) float sm[];
+  float* Xa = sm + s.oA;
+  float* F1 = sm + s.oF1;
+  float* G = sm + s.oG;
+  float* RA = sm + s.oRA;
+  float* CM1 = sm + s.oCM1;
+  float* CM2 = sm + s.oCM2;
+  float* S1 = sm + s.oS1;
+  float* S2 = sm + s.oS2;
+  float* U3 = sm + s.oU3;
+  float* S3 = sm + s.oS3;
+  const int D2 = 2 * s.D, R = s.R;
+  float* xg = rows;
+  float* f1g = xg + static_cast<size_t>(B) * D2;
+  float* z1g = f1g + static_cast<size_t>(B) * s.F1;
+  float* z2g = z1g + static_cast<size_t>(B) * s.F1;
+  for (int c = threadIdx.x; c < s.F1; c += blockDim.x) {
+    float m = 0.f;
+    for (int k = 0; k < D2; ++k) {
+      m = fmaxf(m, fabsf(__ldg(k < s.D ? f.u1p + static_cast<size_t>(k) * s.F1 + c
+                                       : f.u1t + static_cast<size_t>(k - s.D) * s.F1 + c)));
+    }
+    CM1[c] = m, S1[c] = 0.f;
+  }
+  for (int c = threadIdx.x; c < s.F2; c += blockDim.x) {
+    float m = 0.f;
+    for (int k = 0; k < s.F1; ++k) m = fmaxf(m, fabsf(__ldg(f.u2 + static_cast<size_t>(k) * s.F2 + c)));
+    CM2[c] = m, S2[c] = 0.f, U3[c] = 0.f;
+  }
+  if (threadIdx.x == 0) S3[0] = 0.f;
+  const long long tiles = (B + R - 1) / R;
+  const int d4 = s.D >> 2;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long r0 = t * R;
+    __syncthreads();  // set up; the previous tile's readers are done
+    for (int e = threadIdx.x; e < R * 2 * d4; e += blockDim.x) {
+      const int r = e / (2 * d4), c = (e - r * 2 * d4) * 4;
+      const bool in = r0 + r < B;
+      const float* src = c < s.D ? pooled + (r0 + r) * s.D + c : tgt + (r0 + r) * s.D + c - s.D;
+      const float4 v = in ? din::ldg4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+      as4(Xa + r * s.lda + c) = v;
+      if (in) as4(xg + (r0 + r) * D2 + c) = v;
+    }
+    for (int r = threadIdx.x; r < R; r += blockDim.x) G[r] = r0 + r < B ? g[r0 + r] : 0.f;
+    __syncthreads();
+    row_abs(Xa, s.lda, R, D2, RA);
+    __syncthreads();
+    din::block_mm_tf32<kFcBwdMT>(Xa, s.lda, u1, R, D2, s.F1, [&](int r, int c, float4 v) {
+      as4(F1 + r * s.ld1 + c) = relu_refined(v, Xa + r * s.lda, u1, f.c1, CM1, kKink * RA[r], c);
+    });
+    __syncthreads();
+    store_rows(F1, s.ld1, s.F1, r0, B, R, f1g);
+    row_abs(F1, s.ld1, R, s.F1, RA);
+    __syncthreads();
+    din::block_mm_tf32<kFcBwdMT>(F1, s.ld1, u2, R, s.F1, s.F2, [&](int r, int c, float4 v) {
+      as4(Xa + r * s.lda + c) = relu_refined(v, F1 + r * s.ld1, u2, f.c2, CM2, kKink * RA[r], c);
+    });
+    __syncthreads();
+    // du3, dc3; then dzf2 in place of f2, and dc2
+    din::block_colsum_acc<float>(Xa, s.lda, G, R, s.F2, U3);
+    if (threadIdx.x == 0) {
+      float acc = 0.f;
+      for (int r = 0; r < R; ++r) acc += G[r];
+      S3[0] += acc;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < R * s.F2; i += blockDim.x) {
+      const int r = i / s.F2, c = i - r * s.F2;
+      float& z = Xa[r * s.lda + c];
+      z = z > 0.f ? G[r] * load1(f.u3 + c) : 0.f;
+    }
+    __syncthreads();
+    store_rows(Xa, s.lda, s.F2, r0, B, R, z2g);
+    din::block_colsum_acc<float>(Xa, s.lda, nullptr, R, s.F2, S2);
+    // dzf1 = (f1 > 0) dzf2 u2^T, in place of f1
+    din::block_mm_tf32<kFcBwdMT>(Xa, s.lda, u2t, R, s.F2, s.F1, [&](int r, int c, float4 v) {
+      float4& z = as4(F1 + r * s.ld1 + c);
+      const float4 p = z;
+      z = make_float4(p.x > 0.f ? v.x : 0.f, p.y > 0.f ? v.y : 0.f, p.z > 0.f ? v.z : 0.f,
+                      p.w > 0.f ? v.w : 0.f);
+    });
+    __syncthreads();
+    // dc1; [dpooled | dt] = dzf1 [u1p | u1t]^T
+    store_rows(F1, s.ld1, s.F1, r0, B, R, z1g);
+    din::block_colsum_acc<float>(F1, s.ld1, nullptr, R, s.F1, S1);
+    din::block_mm_tf32<kFcBwdMT>(F1, s.ld1, u1t, R, s.F1, D2, [&](int r, int c, float4 v) {
+      if (r0 + r < B) as4(dpt + (r0 + r) * D2 + c) = v;
+    });
+  }
+  __syncthreads();
+  float* slot = part + static_cast<size_t>(blockIdx.x) * o.total;
+  for (int c = threadIdx.x; c < s.F1; c += blockDim.x) slot[o.c1 + c] = S1[c];
+  for (int c = threadIdx.x; c < s.F2; c += blockDim.x) slot[o.c2 + c] = S2[c], slot[o.u3 + c] = U3[c];
+  if (threadIdx.x < 4) slot[o.c3 + threadIdx.x] = threadIdx.x == 0 ? S3[0] : 0.f;
+}
+
 // ---------------------------------------------------------------- the backward
 
 template <class T>
@@ -369,23 +589,158 @@ din_head_bwd_kernel(const T* __restrict__ hist, const T* __restrict__ tgt,
   }
 }
 
-constexpr int kFcChunk = 16;  // rows staged at a time by din_head_bwd_fc_kernel
+// The float32 backward's attention unit, after din_head_bwd_fc_head_kernel wrote
+// [dpooled | dt] into dpt [B, 2D]: din_head_bwd_kernel's tile walk without the fc
+// head (the layout of din::fit_layout with fc widths of 4, its fc regions
+// unused; P holds dpooled), float32 FMA on CUDA cores. Its slot's fc entries
+// are din_head_bwd_fc_head_kernel's and din_head_bwd_fc_kernel's: it zeroes and
+// sums the attention unit's alone.
+__global__ void __launch_bounds__(kThreads, 1)
+din_head_bwd_att_kernel(const float* __restrict__ hist, const float* __restrict__ tgt,
+                        din::AttentionWeights<float> a, const float* __restrict__ dpt,
+                        float* __restrict__ dhist, float* __restrict__ dtgt,
+                        float* __restrict__ part, long long B, din::Layout s, GradSlots o) {
+  extern __shared__ __align__(16) float sm[];
+  float* slot = part + static_cast<size_t>(blockIdx.x) * o.total;
+  for (int j = threadIdx.x; j < o.u1; j += blockDim.x) slot[j] = 0.f;
+  float* H = sm + s.oH;
+  float* X = sm + s.oX;
+  float* R1 = sm + s.oR1;
+  float* R2 = sm + s.oR2;
+  float* Tt = sm + s.oT;
+  float* W = sm + s.oW;
+  float* S = sm + s.oS;
+  float* P = sm + s.oP;
+  const int D = s.D, L = s.L, d4 = D >> 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long tiles = (B + s.R - 1) / s.R;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long r0 = t * s.R;
+    __syncthreads();  // the slot is zeroed; the previous tile's readers are done
+    din::stage_tile<float>(hist, tgt, nullptr, r0, B, s, sm);
+    for (int e = threadIdx.x; e < s.R * d4; e += blockDim.x) {
+      const int r = e / d4, c = (e - r * d4) * 4;
+      as4(P + r * s.ldx + c) =
+          r0 + r < B ? din::ldg4(dpt + (r0 + r) * 2 * D + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+    din::attention_forward<float, false>(a, s, sm);
+
+    // ---- the softmax: ds_l = w_l (dw_l - sum_k w_k dw_k), dw_l = dpooled . h_l
+    for (int r = warp; r < s.R; r += kThreads / 32) {
+      for (int l = 0; l < L; ++l) {
+        const int m = r * L + l;
+        float acc = 0.f;
+        for (int d = lane; d < D; d += 32) acc = fmaf(P[r * s.ldx + d], H[m * s.ldh + d], acc);
+        acc = din::warp_sum(acc);
+        if (lane == 0) S[m] = acc;
+      }
+      __syncwarp();
+      float wd = 0.f;
+      for (int l = lane; l < L; l += 32) wd = fmaf(W[r * L + l], S[r * L + l], wd);
+      wd = din::warp_sum(wd);
+      for (int l = lane; l < L; l += 32) S[r * L + l] = W[r * L + l] * (S[r * L + l] - wd);
+    }
+    __syncthreads();
+
+    // ---- the activation unit: dw3, db3, then dz2 in place of r2
+    din::block_colsum_acc<float>(R2, s.ld2, S, s.M, s.A2, slot + o.w3);
+    din::block_colsum_acc<float>(S, 1, nullptr, s.M, 1, slot + o.b3);
+    __syncthreads();
+    for (int i = threadIdx.x; i < s.M * s.A2; i += blockDim.x) {
+      const int m = i / s.A2, c = i - m * s.A2;
+      float& z = R2[m * s.ld2 + c];
+      z = z > 0.f ? S[m] * load1(a.w3 + c) : 0.f;
+    }
+    __syncthreads();
+    din::block_mm_tn_acc<float>(R1, s.ld1, R2, s.ld2, s.M, s.A1, s.A2, slot + o.w2);
+    din::block_colsum_acc<float>(R2, s.ld2, nullptr, s.M, s.A2, slot + o.b2);
+    __syncthreads();
+    // dz1 = (z1 > 0) dz2 w2^T, in place of r1
+    din::block_mm<10, true>(R2, s.ld2, a.w2, s.A2, s.M, s.A2, s.A1, [&](int m, int c, float4 v) {
+      float4& z = as4(R1 + m * s.ld1 + c);
+      const float4 p = z;
+      z = make_float4(p.x > 0.f ? v.x : 0.f, p.y > 0.f ? v.y : 0.f, p.z > 0.f ? v.z : 0.f,
+                      p.w > 0.f ? v.w : 0.f);
+    });
+    __syncthreads();
+    // dwh = h^T dz1, db1; the sum of dz1 over the positions into T
+    din::block_mm_tn_acc<float>(H, s.ldh, R1, s.ld1, s.M, D, s.A1, slot + o.wh);
+    din::block_colsum_acc<float>(R1, s.ld1, nullptr, s.M, s.A1, slot + o.b1);
+    for (int i = threadIdx.x; i < s.R * s.A1; i += blockDim.x) {
+      const int r = i / s.A1, c = i - r * s.A1;
+      float acc = 0.f;
+      for (int l = 0; l < L; ++l) acc += R1[(r * L + l) * s.ld1 + c];
+      Tt[r * s.ldt + c] = acc;
+    }
+    __syncthreads();
+    // dwt = t^T (sum_l dz1_l); d hist = w dpooled + dz1 wh^T; d target = dt + (sum_l dz1_l) wt^T
+    din::block_mm_tn_acc<float>(X + D, s.ldx, Tt, s.ldt, s.R, D, s.A1, slot + o.wt);
+    din::block_mm<5, true>(R1, s.ld1, a.wh, s.A1, s.M, s.A1, D, [&](int m, int c, float4 v) {
+      const int r = m / L;
+      if (r0 + r < B) {
+        const float w = W[m];
+        const float4 p = as4(P + r * s.ldx + c);
+        as4(dhist + (static_cast<size_t>(r0) * L + m) * D + c) =
+            make_float4(fmaf(w, p.x, v.x), fmaf(w, p.y, v.y), fmaf(w, p.z, v.z), fmaf(w, p.w, v.w));
+      }
+    });
+    din::block_mm<1, true>(Tt, s.ldt, a.wt, s.A1, s.R, s.A1, D, [&](int r, int c, float4 v) {
+      if (r0 + r < B) {
+        const float4 p = din::ldg4(dpt + (r0 + r) * 2 * D + D + c);
+        as4(dtgt + static_cast<size_t>(r0 + r) * D + c) =
+            make_float4(p.x + v.x, p.y + v.y, p.z + v.z, p.w + v.w);
+      }
+    });
+  }
+}
+
+constexpr int kFcChunk = 16;  // rows staged at a time by din_head_bwd_fc_kernel, at most
+// staged floats a row of kFcChunk rows may hold, pads included
+constexpr int kFcWidest = static_cast<int>(din::kSmemLimit / (sizeof(float) * kFcChunk));
+
+// How din_head_bwd_fc_kernel stages its two products, X^T Z with (K, N) (2D, F1)
+// and (F1, F2): float32 rows of whole X and Z rows at a time (kFcChunk, or fewer
+// where they do not fit); bf16 kFcChunk rows (one k-step of the mma) of a window
+// of kw columns of X and nw of Z (all of them where they fit: K + N + 8 <=
+// kFcWidest; else multiples of 16).
+struct FcStage {
+  int rows, kw[2], nw[2];
+  size_t bytes;
+};
+
+FcStage fc_stage(int D, int F1, int F2, bool bf16) {
+  FcStage st;
+  const int K[2] = {2 * D, F1}, N[2] = {F1, F2};
+  auto up16 = [](int n) { return (n + 15) & ~15; };
+  int widest = 0;
+  for (int p = 0; p < 2; ++p) {
+    st.kw[p] = K[p], st.nw[p] = N[p];
+    if (bf16 && K[p] + N[p] + 8 > kFcWidest) {
+      st.kw[p] = min(up16(K[p]), ((kFcWidest - 16) / 2) & ~15);
+      st.nw[p] = min(up16(N[p]), (kFcWidest - 8 - st.kw[p]) & ~15);
+    }
+    widest = max(widest, st.kw[p] + st.nw[p] + (bf16 ? 8 : 0));
+  }
+  st.rows = bf16 ? kFcChunk : min(kFcChunk, kFcWidest * kFcChunk / widest);
+  st.bytes = sizeof(float) * static_cast<size_t>(st.rows) * widest;
+  return st;
+}
 
 // G [K][N] = X [rows][K]^T Z [rows][N] over this block's rows b0 .. b1 - 1, X and Z
-// in device memory (float32), staged kFcChunk rows at a time as op<T> of their
-// values (they feed nothing but this product); G is this block's slot.
-// A thread owns 4 columns and up to 4 groups of 4 k-rows a pass, summing over the
-// rows in order, and writes its part of G once.
-template <class T>
+// in device memory (float32), staged `chunk` rows at a time (they feed nothing
+// but this product); G is this block's slot. A thread owns 4 columns and up to
+// 4 groups of 4 k-rows a pass, summing over the rows in order (the same order
+// whatever the chunk), and writes its part of G once.
 __device__ void fc_weight_grad_fma(const float* __restrict__ X, int K, const float* __restrict__ Z,
                                    int N, long long b0, long long b1, float* sm,
-                                   float* __restrict__ G) {
+                                   float* __restrict__ G, int chunk) {
   const int n4 = N >> 2, k4 = K >> 2;
   const int per_pass = blockDim.x / n4;  // k-groups a pass takes, 4 a thread
   const int cg = threadIdx.x % n4, kg0 = threadIdx.x / n4, c0 = cg * 4;
   const bool active = kg0 < per_pass;
-  float* xs = sm;                       // [kFcChunk][K]
-  float* zs = sm + kFcChunk * K;        // [kFcChunk][N]
+  float* xs = sm;                  // [chunk][K]
+  float* zs = sm + chunk * K;      // [chunk][N]
   for (int base = 0; base < k4; base += 4 * per_pass) {
     float acc[4][4][4];
 #pragma unroll
@@ -396,16 +751,16 @@ __device__ void fc_weight_grad_fma(const float* __restrict__ X, int K, const flo
         for (int q = 0; q < 4; ++q) acc[j][i][q] = 0.f;
       }
     }
-    for (long long m0 = b0; m0 < b1; m0 += kFcChunk) {
-      const int rows = static_cast<int>(min(static_cast<long long>(kFcChunk), b1 - m0));
+    for (long long m0 = b0; m0 < b1; m0 += chunk) {
+      const int rows = static_cast<int>(min(static_cast<long long>(chunk), b1 - m0));
       __syncthreads();  // the previous chunk's readers are done
       for (int i = threadIdx.x; i < rows * k4; i += blockDim.x) {
         const int r = i / k4, c = (i - r * k4) * 4;
-        as4(xs + r * K + c) = din::op4<T>(din::ldg4(X + static_cast<size_t>(m0 + r) * K + c));
+        as4(xs + r * K + c) = din::ldg4(X + static_cast<size_t>(m0 + r) * K + c);
       }
       for (int i = threadIdx.x; i < rows * n4; i += blockDim.x) {
         const int r = i / n4, c = (i - r * n4) * 4;
-        as4(zs + r * N + c) = din::op4<T>(din::ldg4(Z + static_cast<size_t>(m0 + r) * N + c));
+        as4(zs + r * N + c) = din::ldg4(Z + static_cast<size_t>(m0 + r) * N + c);
       }
       __syncthreads();
       if (!active) continue;
@@ -443,104 +798,102 @@ __device__ void fc_weight_grad_fma(const float* __restrict__ X, int K, const flo
 
 constexpr int kFcTasks = 8;  // tasks a warp holds in registers a pass (fc_weight_grad_mma)
 
-// fc_weight_grad for bf16 on the tensor cores. A chunk of kFcChunk rows is one
-// step of the mma's reduction. A warp takes tasks of one m16 tile of G's rows by
-// kMmaNT n8 tiles, up to kFcTasks of them a pass (every chunk of the block's rows
-// staged once a pass), in a fixed order, and writes its part of G once. The
-// staged rows are the values as op<bf16> rounds them, with a row stride of width
-// + 4 floats so that a warp's reads of two rows 2t apart and 8 neighbouring
-// columns fall in 32 different banks; staged rows past b1 are zeros.
+// fc_weight_grad_fma's product for bf16, on the tensor cores. A chunk of kFcChunk rows is one
+// step of the mma's reduction. G is taken a window at a time: its rows k_lo ..
+// k_lo + kw - 1 by its columns n_lo .. n_lo + nw - 1 (all of G where X's and Z's
+// rows fit in shared memory together), for which a chunk stages kw columns of X
+// and nw of Z. In a window a warp takes tasks of one m16 tile of G's rows by
+// kMmaNT n8 tiles, up to kFcTasks of them a pass (every chunk of the block's
+// rows staged once a pass), in a fixed order, and writes its part of G once;
+// each element of G sums over the chunks in row order whatever the windows, so
+// they do not change the results. The staged rows are the values as op<bf16>
+// rounds them, with a row stride of width + 4 floats so that a warp's reads of
+// two rows 2t apart and 8 neighbouring columns fall in 32 different banks;
+// staged rows past b1 are zeros.
 __device__ void fc_weight_grad_mma(const float* __restrict__ X, int K, const float* __restrict__ Z,
                                    int N, long long b0, long long b1, float* sm,
-                                   float* __restrict__ G) {
+                                   float* __restrict__ G, int kw, int nw) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  const int n4 = N >> 2, k4 = K >> 2, ldx = K + 4, ldz = N + 4;
-  const int groups = (N + 8 * din::kMmaNT - 1) / (8 * din::kMmaNT);
-  const int tasks = ((K + 15) >> 4) * groups;
+  const int ldx = kw + 4, ldz = nw + 4;
   float* xs = sm;                  // [kFcChunk][ldx]
   float* zs = sm + kFcChunk * ldx;  // [kFcChunk][ldz]
-  for (int base = 0; base < tasks; base += warps * kFcTasks) {
-    float acc[kFcTasks][din::kMmaNT][4];
+  for (int k_lo = 0; k_lo < K; k_lo += kw) {
+    const int kn = min(kw, K - k_lo), k4 = kn >> 2;
+    for (int n_lo = 0; n_lo < N; n_lo += nw) {
+      const int nn = min(nw, N - n_lo), n4 = nn >> 2;
+      const int groups = (nn + 8 * din::kMmaNT - 1) / (8 * din::kMmaNT);
+      const int tasks = ((kn + 15) >> 4) * groups;
+      for (int base = 0; base < tasks; base += warps * kFcTasks) {
+        float acc[kFcTasks][din::kMmaNT][4];
 #pragma unroll
-    for (int q = 0; q < kFcTasks; ++q) {
+        for (int q = 0; q < kFcTasks; ++q) {
 #pragma unroll
-      for (int j = 0; j < din::kMmaNT; ++j) acc[q][j][0] = acc[q][j][1] = acc[q][j][2] = acc[q][j][3] = 0.f;
-    }
-    for (long long m0 = b0; m0 < b1; m0 += kFcChunk) {
-      const int rows = static_cast<int>(min(static_cast<long long>(kFcChunk), b1 - m0));
-      __syncthreads();  // the previous chunk's readers are done
-      for (int i = threadIdx.x; i < kFcChunk * k4; i += blockDim.x) {
-        const int r = i / k4, c = (i - r * k4) * 4;
-        as4(xs + r * ldx + c) = r < rows ? din::op4<Bf16>(din::ldg4(X + static_cast<size_t>(m0 + r) * K + c))
-                                         : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      for (int i = threadIdx.x; i < kFcChunk * n4; i += blockDim.x) {
-        const int r = i / n4, c = (i - r * n4) * 4;
-        as4(zs + r * ldz + c) = r < rows ? din::op4<Bf16>(din::ldg4(Z + static_cast<size_t>(m0 + r) * N + c))
-                                         : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      __syncthreads();
-      const int m = 2 * t;
-#pragma unroll
-      for (int q = 0; q < kFcTasks; ++q) {
-        const int task = base + q * warps + warp;
-        if (task >= tasks) continue;  // warp-uniform
-        const int ka = (task / groups) * 16 + g, kb = ka + 8, n0 = (task % groups) * 8 * din::kMmaNT;
-        auto x = [&](int r, int k) { return k < K ? xs[r * ldx + k] : 0.f; };
-        const uint32_t a[4] = {din::pack_bf16(x(m, ka), x(m + 1, ka)),
-                               din::pack_bf16(x(m, kb), x(m + 1, kb)),
-                               din::pack_bf16(x(m + 8, ka), x(m + 9, ka)),
-                               din::pack_bf16(x(m + 8, kb), x(m + 9, kb))};
-#pragma unroll
-        for (int j = 0; j < din::kMmaNT; ++j) {
-          const int n = n0 + 8 * j + g;
-          auto z = [&](int r) { return n < N ? zs[r * ldz + n] : 0.f; };
-          const uint32_t b[2] = {din::pack_bf16(z(m), z(m + 1)), din::pack_bf16(z(m + 8), z(m + 9))};
-          din::mma_bf16(acc[q][j], a, b);
+          for (int j = 0; j < din::kMmaNT; ++j) acc[q][j][0] = acc[q][j][1] = acc[q][j][2] = acc[q][j][3] = 0.f;
         }
-      }
-    }
+        for (long long m0 = b0; m0 < b1; m0 += kFcChunk) {
+          const int rows = static_cast<int>(min(static_cast<long long>(kFcChunk), b1 - m0));
+          __syncthreads();  // the previous chunk's readers are done
+          for (int i = threadIdx.x; i < kFcChunk * k4; i += blockDim.x) {
+            const int r = i / k4, c = (i - r * k4) * 4;
+            as4(xs + r * ldx + c) =
+                r < rows ? din::op4<Bf16>(din::ldg4(X + static_cast<size_t>(m0 + r) * K + k_lo + c))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+          for (int i = threadIdx.x; i < kFcChunk * n4; i += blockDim.x) {
+            const int r = i / n4, c = (i - r * n4) * 4;
+            as4(zs + r * ldz + c) =
+                r < rows ? din::op4<Bf16>(din::ldg4(Z + static_cast<size_t>(m0 + r) * N + n_lo + c))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+          __syncthreads();
+          const int m = 2 * t;
 #pragma unroll
-    for (int q = 0; q < kFcTasks; ++q) {
-      const int task = base + q * warps + warp;
-      if (task >= tasks) continue;
-      const int ka = (task / groups) * 16 + g, kb = ka + 8, n0 = (task % groups) * 8 * din::kMmaNT;
+          for (int q = 0; q < kFcTasks; ++q) {
+            const int task = base + q * warps + warp;
+            if (task >= tasks) continue;  // warp-uniform
+            const int ka = (task / groups) * 16 + g, kb = ka + 8, n0 = (task % groups) * 8 * din::kMmaNT;
+            auto x = [&](int r, int k) { return k < kn ? xs[r * ldx + k] : 0.f; };
+            const uint32_t a[4] = {din::pack_bf16(x(m, ka), x(m + 1, ka)),
+                                   din::pack_bf16(x(m, kb), x(m + 1, kb)),
+                                   din::pack_bf16(x(m + 8, ka), x(m + 9, ka)),
+                                   din::pack_bf16(x(m + 8, kb), x(m + 9, kb))};
 #pragma unroll
-      for (int j = 0; j < din::kMmaNT; ++j) {
-        const int c = n0 + 8 * j + 2 * t;
-        if (c >= N) continue;
-        if (ka < K) {
-          *reinterpret_cast<float2*>(G + static_cast<size_t>(ka) * N + c) =
-              make_float2(acc[q][j][0], acc[q][j][1]);
+            for (int j = 0; j < din::kMmaNT; ++j) {
+              const int n = n0 + 8 * j + g;
+              auto z = [&](int r) { return n < nn ? zs[r * ldz + n] : 0.f; };
+              const uint32_t b[2] = {din::pack_bf16(z(m), z(m + 1)), din::pack_bf16(z(m + 8), z(m + 9))};
+              din::mma_bf16(acc[q][j], a, b);
+            }
+          }
         }
-        if (kb < K) {
-          *reinterpret_cast<float2*>(G + static_cast<size_t>(kb) * N + c) =
-              make_float2(acc[q][j][2], acc[q][j][3]);
+#pragma unroll
+        for (int q = 0; q < kFcTasks; ++q) {
+          const int task = base + q * warps + warp;
+          if (task >= tasks) continue;
+          const int ka = (task / groups) * 16 + g, kb = ka + 8, n0 = (task % groups) * 8 * din::kMmaNT;
+#pragma unroll
+          for (int j = 0; j < din::kMmaNT; ++j) {
+            const int c = n0 + 8 * j + 2 * t;
+            if (c >= nn) continue;
+            float* o = G + static_cast<size_t>(k_lo) * N + n_lo + c;
+            if (ka < kn) *reinterpret_cast<float2*>(o + static_cast<size_t>(ka) * N) = make_float2(acc[q][j][0], acc[q][j][1]);
+            if (kb < kn) *reinterpret_cast<float2*>(o + static_cast<size_t>(kb) * N) = make_float2(acc[q][j][2], acc[q][j][3]);
+          }
         }
       }
     }
   }
 }
 
-template <class T>
-__device__ void fc_weight_grad(const float* __restrict__ X, int K, const float* __restrict__ Z,
-                               int N, long long b0, long long b1, float* sm,
-                               float* __restrict__ G) {
-  if constexpr (std::is_same_v<T, Bf16>) {
-    fc_weight_grad_mma(X, K, Z, N, b0, b1, sm, G);
-  } else {
-    fc_weight_grad_fma<T>(X, K, Z, N, b0, b1, sm, G);
-  }
-}
-
-// The fc head's weight gradients from the rows din_head_bwd_kernel wrote: block b
-// takes a contiguous run of rows and writes du1 = [pooled | t]^T dzf1 and
-// du2 = f1^T dzf2 over them into its slot.
+// The fc head's weight gradients from the rows din_head_bwd_kernel (or, in
+// float32 on the tensor cores, din_head_bwd_fc_head_kernel) wrote: block b takes
+// a contiguous run of rows and writes du1 = [pooled | t]^T dzf1 and du2 = f1^T
+// dzf2 over them into its slot.
 template <class T>
 __global__ void __launch_bounds__(kThreads)
 din_head_bwd_fc_kernel(const float* __restrict__ rows, float* __restrict__ part, long long B,
-                       int D, int F1, int F2, GradSlots o) {
+                       int D, int F1, int F2, GradSlots o, FcStage st) {
   extern __shared__ __align__(16) float sm[];
   const float* xg = rows;
   const float* f1g = xg + static_cast<size_t>(B) * 2 * D;
@@ -549,14 +902,13 @@ din_head_bwd_fc_kernel(const float* __restrict__ rows, float* __restrict__ part,
   const long long per = (B + gridDim.x - 1) / gridDim.x;
   const long long b0 = min(B, per * blockIdx.x), b1 = min(B, b0 + per);
   float* slot = part + static_cast<size_t>(blockIdx.x) * o.total;
-  fc_weight_grad<T>(xg, 2 * D, z1g, F1, b0, b1, sm, slot + o.u1);
-  fc_weight_grad<T>(f1g, F1, z2g, F2, b0, b1, sm, slot + o.u2);
-}
-
-// fc_weight_grad's staging; the bf16 path pads each staged row by 4 floats.
-size_t fc_smem_bytes(int D, int F1, int F2, bool bf16) {
-  const int k = max(2 * D + F1, F1 + F2) + (bf16 ? 8 : 0);
-  return sizeof(float) * static_cast<size_t>(kFcChunk) * k;
+  if constexpr (std::is_same_v<T, Bf16>) {
+    fc_weight_grad_mma(xg, 2 * D, z1g, F1, b0, b1, sm, slot + o.u1, st.kw[0], st.nw[0]);
+    fc_weight_grad_mma(f1g, F1, z2g, F2, b0, b1, sm, slot + o.u2, st.kw[1], st.nw[1]);
+  } else {
+    fc_weight_grad_fma(xg, 2 * D, z1g, F1, b0, b1, sm, slot + o.u1, st.rows);
+    fc_weight_grad_fma(f1g, F1, z2g, F2, b0, b1, sm, slot + o.u2, st.rows);
+  }
 }
 
 // grad [total] = the nparts slots of part [nparts, total], summed in block order.
@@ -615,15 +967,16 @@ int launch_bwd(const void* hist, const void* tgt, const void* const* weights, co
 template <class T>
 int launch_bwd_fc(const void* rows, void* part, long long B, int D, int F1, int F2, GradSlots o,
                   int blocks, cudaStream_t stream) {
-  const size_t smem = fc_smem_bytes(D, F1, F2, std::is_same_v<T, Bf16>);
-  if (smem > 48 * 1024) {
+  const FcStage st = fc_stage(D, F1, F2, std::is_same_v<T, Bf16>);
+  if (st.rows < 1 || st.bytes > din::kSmemLimit) return cudaErrorInvalidValue;
+  if (st.bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         din_head_bwd_fc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(st.bytes));
     if (err != cudaSuccess) return err;
   }
-  din_head_bwd_fc_kernel<T><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const float*>(rows), static_cast<float*>(part), B, D, F1, F2, o);
+  din_head_bwd_fc_kernel<T><<<blocks, kThreads, st.bytes, stream>>>(
+      static_cast<const float*>(rows), static_cast<float*>(part), B, D, F1, F2, o, st);
   return cudaGetLastError();
 }
 
@@ -632,6 +985,23 @@ int launch_bwd_fc(const void* rows, void* part, long long B, int D, int F1, int 
 bool tf32_forward_fits(int L, int D, int A1, int A2, int F1, int F2, dinpool::PoolLayout* ps,
                        FcLayout* fs) {
   return dinpool::fit_layout(L, D, A1, A2, ps) && fit_fc_layout(D, F1, F2, fs);
+}
+
+// The float32 backward on the tensor cores takes these widths: the forward's
+// attention stage (for the pooled rows), the fc head's backward tile and the
+// attention unit's backward tile (din::fit_layout without the fc head: fc widths 4).
+bool tf32_backward_fits(int L, int D, int A1, int A2, int F1, int F2, FcBwdLayout* fs,
+                        din::Layout* as) {
+  dinpool::PoolLayout pl;
+  FcLayout fl;
+  return tf32_forward_fits(L, D, A1, A2, F1, F2, &pl, &fl) && fit_fc_bwd_layout(D, F1, F2, fs) &&
+         din::fit_layout(L, D, A1, A2, 4, 4, true, as);
+}
+
+cudaError_t set_smem(const void* kernel, size_t smem) {
+  return smem > 48 * 1024 ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem))
+                          : cudaSuccess;
 }
 
 }  // namespace
@@ -654,6 +1024,26 @@ int din_head_grad_offsets(int D, int A1, int A2, int F1, int F2, int* offsets) {
   return o.total;
 }
 
+// Which of the head's tile layouts fit a block's shared memory at these widths
+// (0 for widths din::widths_ok refuses), as bits: 1 the forward's
+// (din_fwd_kernel), 2 the backward's (din_head_bwd_kernel), 4 the window pool's
+// (din_pool.cuh), 8 the float32 forward on the tensor cores (din_head_fwd_pool
+// and din_head_fwd_fc; else din_fwd_kernel<float>), 16 the float32 backward on
+// the tensor cores (din_head_fwd_pool, din_head_bwd_fc_head and din_head_bwd_att;
+// else din_head_bwd). ops/cuda/din_head.py::fits mirrors it.
+int din_head_fits(int L, int D, int A1, int A2, int F1, int F2) {
+  if (!din::widths_ok(1, L, D, A1, A2, F1, F2)) return 0;
+  din::Layout s;
+  dinpool::PoolLayout ps;
+  FcLayout fs;
+  FcBwdLayout bs;
+  return (din::fit_layout(L, D, A1, A2, F1, F2, false, &s) ? 1 : 0) |
+         (din::fit_layout(L, D, A1, A2, F1, F2, true, &s) ? 2 : 0) |
+         (dinpool::fit_layout(L, D, A1, A2, &ps) ? 4 : 0) |
+         (tf32_forward_fits(L, D, A1, A2, F1, F2, &ps, &fs) ? 8 : 0) |
+         (tf32_backward_fits(L, D, A1, A2, F1, F2, &bs, &s) ? 16 : 0);
+}
+
 // hist [B, L, D], tgt [B, D] and the 14 weights (in din_head_weights' order), all
 // f32 (bf16 = 0) or all bf16 (bf16 = 1) -> logits out [B] in the same dtype.
 int din_head_fwd(const void* hist, const void* tgt, const void* const* weights, void* out,
@@ -666,17 +1056,9 @@ int din_head_fwd(const void* hist, const void* tgt, const void* const* weights, 
               : launch_fwd<float>(hist, tgt, weights, out, B, s, st);
 }
 
-// 1 when the float32 forward at these widths is din_head_fwd_pool then
-// din_head_fwd_fc (the tensor cores), 0 when it is one din_head_fwd launch (the
-// CUDA cores: widths whose tiles do not fit the two kernels' shared memory).
-int din_head_fwd_tf32(int L, int D, int A1, int A2, int F1, int F2) {
-  dinpool::PoolLayout ps;
-  FcLayout fs;
-  return din::widths_ok(1, L, D, A1, A2, F1, F2) && tf32_forward_fits(L, D, A1, A2, F1, F2, &ps, &fs);
-}
-
 // The float32 forward's attention stage: din_pool_kernel with b3 kept (din_pool.cuh):
-// hist [B, L, D], tgt [B, D] and the 14 weights, f32 -> pooled [B, D] f32.
+// hist [B, L, D], tgt [B, D] and the 14 weights, f32 -> pooled [B, D] f32. The
+// float32 backward on the tensor cores launches it too, for its pooled rows.
 int din_head_fwd_pool(const void* hist, const void* tgt, const void* const* weights, void* pooled,
                       long long B, int L, int D, int A1, int A2, int F1, int F2, void* stream) {
   dinpool::PoolLayout ps;
@@ -707,11 +1089,8 @@ int din_head_fwd_fc(const void* pooled, const void* tgt, const void* const* weig
   din::FcWeights<float> f;
   split_weights(weights, &a, &f);
   const size_t smem = sizeof(float) * static_cast<size_t>(fs.total);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        din_head_fc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = set_smem(reinterpret_cast<const void*>(din_head_fc_kernel), smem);
+  if (err != cudaSuccess) return err;
   const long long blocks = (B + fs.R - 1) / fs.R;
   din_head_fc_kernel<<<static_cast<unsigned>(blocks), kFcThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
@@ -721,16 +1100,23 @@ int din_head_fwd_fc(const void* pooled, const void* tgt, const void* const* weig
   return cudaGetLastError();
 }
 
-// The number of blocks (slots) din_head_bwd launches, for the launcher to size
-// part [blocks, slot size].
+// The number of blocks (slots) the backward launches, for the launcher to size
+// part [blocks, slot size]: the persistent grid of din_head_bwd_kernel, or, for
+// the float32 backward on the tensor cores (din_head_fits' bit 16), of
+// din_head_bwd_att_kernel, which din_head_bwd_fc_head_kernel then takes too.
 int din_head_bwd_blocks(long long B, int L, int D, int A1, int A2, int F1, int F2, int bf16) {
   din::Layout s;
-  if (!layout_for(B, L, D, A1, A2, F1, F2, true, &s)) return -1;
+  FcBwdLayout fs;
   int blocks = 0;
-  const long long tiles = (B + s.R - 1) / s.R;
-  const cudaError_t err =
-      bf16 ? din::persistent_blocks(din_head_bwd_kernel<Bf16>, din::smem_bytes(s), tiles, &blocks)
-           : din::persistent_blocks(din_head_bwd_kernel<float>, din::smem_bytes(s), tiles, &blocks);
+  cudaError_t err;
+  if (!bf16 && din::widths_ok(B, L, D, A1, A2, F1, F2) && tf32_backward_fits(L, D, A1, A2, F1, F2, &fs, &s)) {
+    err = din::persistent_blocks(din_head_bwd_att_kernel, din::smem_bytes(s), (B + s.R - 1) / s.R, &blocks);
+  } else {
+    if (!layout_for(B, L, D, A1, A2, F1, F2, true, &s)) return -1;
+    const long long tiles = (B + s.R - 1) / s.R;
+    err = bf16 ? din::persistent_blocks(din_head_bwd_kernel<Bf16>, din::smem_bytes(s), tiles, &blocks)
+               : din::persistent_blocks(din_head_bwd_kernel<float>, din::smem_bytes(s), tiles, &blocks);
+  }
   return err == cudaSuccess ? blocks : -1;
 }
 
@@ -739,7 +1125,8 @@ int din_head_bwd_blocks(long long B, int L, int D, int A1, int A2, int F1, int F
 // size] (all but the fc head's du1, du2) and the fc head's rows for
 // din_head_bwd_fc: rows [B, 2D + 2 F1 + F2] as [pooled | t] [B, 2D], f1 [B, F1],
 // dzf1 [B, F1], dzf2 [B, F2]; all outputs f32; `blocks` as din_head_bwd_blocks
-// gave it.
+// gave it. One launch of din_head_bwd_kernel: the path where din_head_fits has
+// no bit 16 or the inputs are bf16.
 int din_head_bwd(const void* hist, const void* tgt, const void* const* weights, const void* g,
                  void* dhist, void* dtgt, void* part, void* rows, long long B, int L, int D,
                  int A1, int A2, int F1, int F2, int blocks, int bf16, void* stream) {
@@ -751,9 +1138,64 @@ int din_head_bwd(const void* hist, const void* tgt, const void* const* weights, 
               : launch_bwd<float>(hist, tgt, weights, g, dhist, dtgt, part, rows, B, s, o, blocks, st);
 }
 
+// The float32 backward on the tensor cores, its fc head (din_head_bwd_fc_head_kernel):
+// pooled [B, D] (din_head_fwd_pool's), tgt [B, D], the 14 weights and g [B], all
+// f32 -> dpt [B, 2D] = [dpooled | dt], the rows as din_head_bwd writes them, and
+// the fc head's bias gradients and du3 into the slots of part; `blocks` as
+// din_head_bwd_blocks gave it.
+int din_head_bwd_fc_head(const void* pooled, const void* tgt, const void* const* weights,
+                         const void* g, void* dpt, void* rows, void* part, long long B, int L,
+                         int D, int A1, int A2, int F1, int F2, int blocks, void* stream) {
+  din::Layout as;
+  FcBwdLayout fs;
+  if (!din::widths_ok(B, L, D, A1, A2, F1, F2) || !tf32_backward_fits(L, D, A1, A2, F1, F2, &fs, &as) ||
+      blocks < 1) {
+    return cudaErrorInvalidValue;
+  }
+  din::AttentionWeights<float> a;
+  din::FcWeights<float> f;
+  split_weights(weights, &a, &f);
+  const size_t smem = sizeof(float) * static_cast<size_t>(fs.total);
+  const cudaError_t err = set_smem(reinterpret_cast<const void*>(din_head_bwd_fc_head_kernel), smem);
+  if (err != cudaSuccess) return err;
+  din_head_bwd_fc_head_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pooled), static_cast<const float*>(tgt), static_cast<const float*>(g), f,
+      din::Tf32Mat{f.u1p, f.u1t, D, 2 * D, F1}, din::Tf32Mat{f.u2, nullptr, F1, F1, F2},
+      din::Tf32MatT{f.u2, nullptr, F1, F1, F2}, din::Tf32MatT{f.u1p, f.u1t, D, 2 * D, F1},
+      static_cast<float*>(dpt), static_cast<float*>(rows), static_cast<float*>(part), B, fs,
+      grad_slots(D, A1, A2, F1, F2));
+  return cudaGetLastError();
+}
+
+// The float32 backward on the tensor cores, its attention unit
+// (din_head_bwd_att_kernel): hist [B, L, D], tgt [B, D], the 14 weights and dpt
+// (din_head_bwd_fc_head's), all f32 -> dhist, dtgt and the attention unit's
+// weight gradients into the slots of part.
+int din_head_bwd_att(const void* hist, const void* tgt, const void* const* weights, const void* dpt,
+                     void* dhist, void* dtgt, void* part, long long B, int L, int D, int A1, int A2,
+                     int F1, int F2, int blocks, void* stream) {
+  din::Layout s;
+  FcBwdLayout fs;
+  if (!din::widths_ok(B, L, D, A1, A2, F1, F2) || !tf32_backward_fits(L, D, A1, A2, F1, F2, &fs, &s) ||
+      blocks < 1) {
+    return cudaErrorInvalidValue;
+  }
+  din::AttentionWeights<float> a;
+  din::FcWeights<float> f;
+  split_weights(weights, &a, &f);
+  const size_t smem = din::smem_bytes(s);
+  const cudaError_t err = set_smem(reinterpret_cast<const void*>(din_head_bwd_att_kernel), smem);
+  if (err != cudaSuccess) return err;
+  din_head_bwd_att_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(hist), static_cast<const float*>(tgt), a,
+      static_cast<const float*>(dpt), static_cast<float*>(dhist), static_cast<float*>(dtgt),
+      static_cast<float*>(part), B, s, grad_slots(D, A1, A2, F1, F2));
+  return cudaGetLastError();
+}
+
 // The fc head's weight gradients into the slots of part, from the rows
-// din_head_bwd wrote (rounded to bf16 as they enter the products when bf16 = 1);
-// `blocks` as din_head_bwd_blocks gave it.
+// din_head_bwd or din_head_bwd_fc_head wrote (rounded to bf16 as they enter the
+// products when bf16 = 1); `blocks` as din_head_bwd_blocks gave it.
 int din_head_bwd_fc(const void* rows, void* part, long long B, int D, int A1, int A2, int F1,
                     int F2, int blocks, int bf16, void* stream) {
   if (!din::widths_ok(B, 1, D, A1, A2, F1, F2) || blocks < 1 || F1 > 4 * kThreads ||

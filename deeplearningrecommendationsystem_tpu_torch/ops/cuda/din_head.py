@@ -5,21 +5,32 @@
 tensor cores in float32 accuracy (3xTF32), the attention stage
 (``din_pool_kernel`` with b3, into a pooled [B, D] buffer) and the fc head
 (``din_head_fc_kernel``), or, at widths whose tiles do not fit those two
-kernels (``din_head_fwd_tf32``), one launch of ``din_fwd_kernel`` on CUDA
-cores. ``din_head_fused_bwd`` launches the backward kernel, which writes d
-hist, d target, one slot of weight-gradient sums per block and the fc head's
-rows; the kernel that turns those rows into the fc head's two large weight
-gradients, per block; and the kernel that sums the slots in block order:
-three launches (float32 FMA on CUDA cores in float32; bf16 products on the
-tensor cores but the recompute of the forward). Each keeps
-a count of its launches (``.launches``), raised by one per kernel launch and
-nowhere else, and the same count by the inputs' dtype
-(``.launches_by_dtype``). Both take float32 or bfloat16, one dtype for
+kernels (``fits`` without ``TF32_FWD``), one launch of ``din_fwd_kernel`` on
+CUDA cores (``din_head_fused_pooled`` also returns that pooled buffer).
+``din_head_fused_bwd``, the backward: in float32 five launches, the attention
+stage again for the pooled rows (none when the forward's are given: four), the
+fc head's backward on the tensor cores (``din_head_bwd_fc_head_kernel``:
+[dpooled | dt], its bias gradients and the rows below), the attention unit's
+backward on CUDA cores (``din_head_bwd_att_kernel``: d hist, d target, one
+slot of weight-gradient sums per block), the fc head's two large weight
+gradients from those rows (``din_head_bwd_fc_kernel``) and the sum of the
+slots in block order (``din_head_bwd_reduce_kernel``); in bfloat16, and in
+float32 at widths whose tiles do not fit the first three (``fits`` without
+``TF32_BWD``), three launches: ``din_head_bwd_kernel`` (the whole head's tile
+walk, which writes d hist, d target, the slots and the fc head's rows), then
+the last two. Each keeps a count of its launches (``.launches``), raised by
+one per kernel launch and nowhere else, and the same count by the inputs'
+dtype (``.launches_by_dtype``). Both take float32 or bfloat16, one dtype for
 hist_e, target_e and the 14 weights (the JAX kernel's single compute dtype; a
 mix raises), on the device of ``hist_e``; the widths must be multiples of 4,
 the fc widths at most 2048 and L at most 64. The forward returns logits in the
 inputs' dtype; the backward takes a cotangent g of either dtype (widened to
 float32 for the kernel) and returns float32 gradients.
+
+``fits`` says from the widths alone which of the kernels' tile layouts fit a
+block's shared memory, mirroring ``din_head_fits`` of the library; DIN takes
+its kernels only where every launch it sends fits (``ops/din_head.py::
+kernel_route``).
 
 The library is built and loaded at the first launch, never at import.
 """
@@ -44,7 +55,12 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda.launch import (
 
 SOURCE = "din_head.cu"
 MAX_HISTORY = 64  # kMaxHistory in csrc/din_common.cuh
-MAX_FC = 2048  # the fc widths din_head_bwd_fc_kernel takes: 4 columns a thread
+MAX_FC = 2048  # the fc widths din_head_bwd_fc_kernel takes: 4 columns a thread of 512
+SMEM_LIMIT = 232_448  # kSmemLimit: shared memory a block may use on Hopper
+# din_head_fits' bits: the tile layouts of the forward (din_fwd_kernel), the
+# backward (din_head_bwd_kernel), the window pool (din_pool.cuh), and the
+# float32 forward and backward on the tensor cores
+FWD, BWD, POOL, TF32_FWD, TF32_BWD = 1, 2, 4, 8, 16
 DTYPES = (torch.float32, torch.bfloat16)
 _GRADS = 13  # the slot's blocks: u1p and u1t share one, u1 [2D, F1]
 
@@ -68,8 +84,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.din_head_bwd_fc.restype = I
     lib.din_head_bwd_reduce.argtypes = [P, P, I, I, P]
     lib.din_head_bwd_reduce.restype = I
-    lib.din_head_fwd_tf32.argtypes = [I, I, I, I, I, I]
-    lib.din_head_fwd_tf32.restype = I
+    lib.din_head_fits.argtypes = [I, I, I, I, I, I]
+    lib.din_head_fits.restype = I
+    lib.din_head_bwd_fc_head.argtypes = [P, P, W, P, P, P, P, LL, I, I, I, I, I, I, I, P]
+    lib.din_head_bwd_fc_head.restype = I
+    lib.din_head_bwd_att.argtypes = [P, P, W, P, P, P, P, LL, I, I, I, I, I, I, I, P]
+    lib.din_head_bwd_att.restype = I
     lib.din_head_fwd_pool.argtypes = [P, P, W, P, LL, I, I, I, I, I, I, P]
     lib.din_head_fwd_pool.restype = I
     lib.din_head_fwd_fc.argtypes = [P, P, W, P, LL, I, I, I, I, I, I, P]
@@ -83,6 +103,66 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.din_head_max_history() != MAX_HISTORY:
         raise RuntimeError("din_head.cu and its launcher disagree on the longest history")
     return lib
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _stride8(n: int) -> int:
+    return n + (8 - n % 32 + 32) % 32
+
+
+def _head_floats(L, D, A1, A2, F1, F2, R, backward) -> int:
+    """din::make_layout's total (floats) for a tile of R rows."""
+    M = R * L
+    fc = _r4(R * (F1 + 4)) + R * (F2 + 4)
+    regions = [M * (D + 4), R * (2 * D + 4), M * (A1 + 4)] + [M * (A2 + 4)] * backward + [
+        R * (A1 + 4), max(M * (A2 // 4), fc), M] + [M, R * (2 * D + 4), R] * backward
+    return sum(_r4(n) for n in regions)
+
+
+def _pool_floats(L, D, A1, A2, R, on_chip) -> int:
+    """dinpool::make_layout's total (floats)."""
+    Mp, Rp, Dk = _up(R * L, 16), _up(R, 16), _up(D, 8)
+    A1p, A2p = _up(A1, 64), _up(A2, 64)
+    ldh, ldt = _stride8(Dk), _stride8(A1p)
+    weights = [4 * A1p * _up(Dk // 2, 8), 4 * A2p * _up(A1p // 2, 8), A1p, A2p, A2p] * on_chip
+    return sum(_up(n, 4) for n in weights + [2 * Mp * ldh, 2 * Rp * ldh, 2 * R * ldt, 2 * Mp])
+
+
+def _fc_floats(D, F1, F2, R) -> int:
+    """make_fc_layout's total (floats), the float32 forward's fc head."""
+    return R * _stride8(2 * D) + R * _stride8(F1) + _r4(R * -(-F2 // 16))
+
+
+def _fc_bwd_floats(D, F1, F2, R) -> int:
+    """make_fc_bwd_layout's total (floats), the float32 backward's fc head."""
+    return sum(_r4(n) for n in (R * _stride8(max(2 * D, F2)), R * _stride8(F1), R, R, F1, F2, F1,
+                                F2, F2, 1))
+
+
+def fits(L: int, D: int, A1: int, A2: int, F1: int, F2: int) -> int:
+    """``din_head_fits`` of the library, from the widths alone: the bits FWD,
+    BWD, POOL, TF32_FWD and TF32_BWD of the tile layouts whose smallest tile
+    (the fewest rows each takes) fits in SMEM_LIMIT bytes; 0 for widths the
+    kernels refuse (L past MAX_HISTORY, widths not multiples of 4)."""
+    if not 1 <= L <= MAX_HISTORY or any(n < 4 or n % 4 for n in (D, A1, A2, F1, F2)):
+        return 0
+
+    def ok(floats):
+        return 4 * floats <= SMEM_LIMIT
+
+    fwd, bwd = ok(_head_floats(L, D, A1, A2, F1, F2, 1, 0)), ok(_head_floats(L, D, A1, A2, F1, F2, 1, 1))
+    pool = ok(_pool_floats(L, D, A1, A2, 1, False))
+    tf32_fwd = pool and ok(_fc_floats(D, F1, F2, 16))
+    tf32_bwd = (tf32_fwd and ok(_fc_bwd_floats(D, F1, F2, 16))
+                and ok(_head_floats(L, D, A1, A2, 4, 4, 1, 1)))
+    return FWD * fwd | BWD * bwd | POOL * pool | TF32_FWD * tf32_fwd | TF32_BWD * tf32_bwd
 
 
 def _check(hist_e, target_e, weights, name: str):
@@ -135,7 +215,15 @@ def din_head_fused(hist_e, target_e, weights):
     weights, all f32 or all bf16 -> logits [B] in that dtype. bf16:
     ``din_fwd_kernel<bf16>``; f32: ``din_pool_kernel`` (b3 kept) and
     ``din_head_fc_kernel`` on the tensor cores, or ``din_fwd_kernel<float>`` on
-    CUDA cores where the widths do not fit the pair."""
+    CUDA cores where the widths do not fit the pair (no ``TF32_FWD``)."""
+    return din_head_fused_pooled(hist_e, target_e, weights)[0]
+
+
+def din_head_fused_pooled(hist_e, target_e, weights):
+    """``din_head_fused``, and the pooled rows [B, D] (float32) that its
+    attention stage wrote, or None where the forward has no such stage (bf16,
+    or ``din_fwd_kernel<float>``): ``din_head_fused_bwd`` takes them in place
+    of launching the attention stage again, which would write the same bits."""
     dims = _check(hist_e, target_e, weights, "din_head_fused")
     B, L, D, A1, A2, F1, F2 = dims
     lib = _lib()
@@ -144,12 +232,12 @@ def din_head_fused(hist_e, target_e, weights):
     bf16 = _is_bf16(hist_e)
     with torch.cuda.device(device):
         s = stream(device.index)
-        if bf16 or not lib.din_head_fwd_tf32(L, D, A1, A2, F1, F2):
+        if bf16 or not lib.din_head_fits(L, D, A1, A2, F1, F2) & TF32_FWD:
             code = lib.din_head_fwd(hist_e.data_ptr(), target_e.data_ptr(), _pointers(weights),
                                     out.data_ptr(), *dims, bf16, s)
             raise_on(lib.din_head_error_string, code, "din_head_fused")
             _counted(din_head_fused, hist_e.dtype)
-            return out
+            return out, None
         pooled = torch.empty((B, D), dtype=torch.float32, device=device)
         code = lib.din_head_fwd_pool(hist_e.data_ptr(), target_e.data_ptr(), _pointers(weights),
                                      pooled.data_ptr(), *dims, s)
@@ -159,14 +247,17 @@ def din_head_fused(hist_e, target_e, weights):
                                    out.data_ptr(), *dims, s)
         raise_on(lib.din_head_error_string, code, "din_head_fused (fc)")
         _counted(din_head_fused, hist_e.dtype)
-    return out
+    return out, pooled
 
 
-def din_head_fused_bwd(hist_e, target_e, weights, g):
-    """Launch ``din_head_bwd_kernel``,
-    ``din_head_bwd_fc_kernel`` and ``din_head_bwd_reduce_kernel``: the
-    forward's inputs and the logit cotangent g [B] (f32 or bf16) -> (d hist_e,
-    d target_e, the 14 weight gradients in their weights' shapes), all f32."""
+def din_head_fused_bwd(hist_e, target_e, weights, g, pooled=None):
+    """Launch the backward: the forward's inputs and the logit cotangent g [B]
+    (f32 or bf16) -> (d hist_e, d target_e, the 14 weight gradients in their
+    weights' shapes), all f32. f32 where the widths fit (``TF32_BWD``): the
+    attention stage for the pooled rows (unless ``pooled``, the forward's from
+    ``din_head_fused_pooled``, is given), ``din_head_bwd_fc_head_kernel``,
+    ``din_head_bwd_att_kernel``; else ``din_head_bwd_kernel``; then
+    ``din_head_bwd_fc_kernel`` and ``din_head_bwd_reduce_kernel``."""
     dims = _check(hist_e, target_e, weights, "din_head_fused_bwd")
     B, L, D, A1, A2, F1, F2 = dims
     device = hist_e.device
@@ -181,6 +272,7 @@ def din_head_fused_bwd(hist_e, target_e, weights, g):
     dhist = torch.empty((B, L, D), dtype=torch.float32, device=device)
     dtgt = torch.empty((B, D), dtype=torch.float32, device=device)
     grad = torch.empty((total,), dtype=torch.float32, device=device)
+    w = _pointers(weights)
     with torch.cuda.device(device):
         blocks = lib.din_head_bwd_blocks(*dims, bf16)
         if blocks < 1:
@@ -188,11 +280,34 @@ def din_head_fused_bwd(hist_e, target_e, weights, g):
         part = torch.empty((blocks, total), dtype=torch.float32, device=device)
         rows = torch.empty((B * (2 * D + 2 * F1 + F2),), dtype=torch.float32, device=device)
         s = stream(device.index)
-        code = lib.din_head_bwd(hist_e.data_ptr(), target_e.data_ptr(), _pointers(weights),
-                                g.data_ptr(), dhist.data_ptr(), dtgt.data_ptr(), part.data_ptr(),
-                                rows.data_ptr(), *dims, blocks, bf16, s)
-        raise_on(lib.din_head_error_string, code, "din_head_fused_bwd")
-        _counted(din_head_fused_bwd, hist_e.dtype)
+        if not bf16 and lib.din_head_fits(L, D, A1, A2, F1, F2) & TF32_BWD:
+            if pooled is None:
+                pooled = torch.empty((B, D), dtype=torch.float32, device=device)
+                code = lib.din_head_fwd_pool(hist_e.data_ptr(), target_e.data_ptr(), w,
+                                             pooled.data_ptr(), *dims, s)
+                raise_on(lib.din_head_error_string, code, "din_head_fused_bwd (attention stage)")
+                _counted(din_head_fused_bwd, hist_e.dtype)
+            else:
+                check("pooled", pooled, (torch.float32,), 2, device)
+                if tuple(pooled.shape) != (B, D):
+                    raise ValueError(f"pooled {tuple(pooled.shape)} is not [B, D] = [{B}, {D}]")
+            dpt = torch.empty((B, 2 * D), dtype=torch.float32, device=device)
+            code = lib.din_head_bwd_fc_head(pooled.data_ptr(), target_e.data_ptr(), w, g.data_ptr(),
+                                            dpt.data_ptr(), rows.data_ptr(), part.data_ptr(), *dims,
+                                            blocks, s)
+            raise_on(lib.din_head_error_string, code, "din_head_fused_bwd (fc head)")
+            _counted(din_head_fused_bwd, hist_e.dtype)
+            code = lib.din_head_bwd_att(hist_e.data_ptr(), target_e.data_ptr(), w, dpt.data_ptr(),
+                                        dhist.data_ptr(), dtgt.data_ptr(), part.data_ptr(), *dims,
+                                        blocks, s)
+            raise_on(lib.din_head_error_string, code, "din_head_fused_bwd (attention unit)")
+            _counted(din_head_fused_bwd, hist_e.dtype)
+        else:
+            code = lib.din_head_bwd(hist_e.data_ptr(), target_e.data_ptr(), w, g.data_ptr(),
+                                    dhist.data_ptr(), dtgt.data_ptr(), part.data_ptr(),
+                                    rows.data_ptr(), *dims, blocks, bf16, s)
+            raise_on(lib.din_head_error_string, code, "din_head_fused_bwd")
+            _counted(din_head_fused_bwd, hist_e.dtype)
         code = lib.din_head_bwd_fc(rows.data_ptr(), part.data_ptr(), B, D, A1, A2, F1, F2, blocks,
                                    bf16, s)
         raise_on(lib.din_head_error_string, code, "din_head_fused_bwd (fc)")

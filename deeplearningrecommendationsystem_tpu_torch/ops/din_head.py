@@ -52,18 +52,21 @@ def kernel_route(att: Layers, fc: Layers, L: int, D: int) -> bool:
     ``ops/din_attention.py``) take nets ``att``, ``fc`` at history length L
     and embedding width D. True only for two hidden layers in each net ending
     in one unit, biases on the attention net's hidden layers, L at most
-    ``MAX_HISTORY``, and D, A1, A2, F1, F2 multiples of 4 with F at most
-    ``MAX_FC``. Otherwise DIN takes the composition ``attention_pool`` +
-    ``mlp``, the JAX DIN's default route. Decided from shapes alone, before
-    any launch."""
+    ``MAX_HISTORY``, D, A1, A2, F1, F2 multiples of 4 with F at most
+    ``MAX_FC``, and widths at which a tile of every launch the route sends (the
+    head's forward and backward, the window pool) fits a block's shared memory
+    (``ops/cuda/din_head.py::fits``: at L 64 and the preset's nets, D up to
+    360). Otherwise DIN takes the composition ``attention_pool`` + ``mlp``,
+    the JAX DIN's default route. Decided from shapes alone, before any
+    launch."""
     if len(att) != 3 or len(fc) != 3 or any("b" not in layer for layer in att[:2]):
         return False
     A1, A2 = att[0]["w"].shape[1], att[1]["w"].shape[1]
     F1, F2 = fc[0]["w"].shape[1], fc[1]["w"].shape[1]
     if att[2]["w"].shape[1] != 1 or fc[2]["w"].shape[1] != 1:
         return False
-    return (1 <= L <= _cuda.MAX_HISTORY and all(n >= 4 and n % 4 == 0 for n in (D, A1, A2, F1, F2))
-            and max(F1, F2) <= _cuda.MAX_FC)
+    every = _cuda.FWD | _cuda.BWD | _cuda.POOL
+    return max(F1, F2) <= _cuda.MAX_FC and _cuda.fits(L, D, A1, A2, F1, F2) & every == every
 
 
 def din_head_weights(att: Layers, fc: Layers, D: int) -> Tuple[torch.Tensor, ...]:
@@ -170,27 +173,36 @@ def din_head_fwd(hist_e, target_e, weights):
     return _cuda.din_head_fused(hist_e, target_e, weights)
 
 
-def din_head_bwd(hist_e, target_e, weights, g):
-    """(d hist_e, d target_e, d wh, ..., d c3) for the logit cotangent g [B], float32."""
+def din_head_bwd(hist_e, target_e, weights, g, pooled=None):
+    """(d hist_e, d target_e, d wh, ..., d c3) for the logit cotangent g [B],
+    float32. On the card, ``pooled`` (the forward's pooled rows, from
+    ``ops/cuda/din_head.py::din_head_fused_pooled``) saves the float32
+    backward a launch; the plain version recomputes everything."""
     if _on_cpu(hist_e, target_e, *weights, g):
         return din_head_bwd_plain(hist_e, target_e, weights, g)
-    return _cuda.din_head_fused_bwd(hist_e, target_e, weights, g)
+    return _cuda.din_head_fused_bwd(hist_e, target_e, weights, g, pooled)
 
 
 class DinHead(torch.autograd.Function):
     """The differentiable DIN head: forward ``din_head_fwd``, backward
-    ``din_head_bwd``; ``apply(hist_e, target_e, *weights)``."""
+    ``din_head_bwd``; ``apply(hist_e, target_e, *weights)``. On the card the
+    forward's pooled rows, where it has them, go to the backward."""
 
     @staticmethod
     def forward(ctx, hist_e, target_e, *weights):
         args = tuple(t.contiguous() for t in (hist_e, target_e, *weights))
         ctx.save_for_backward(*args)
-        return din_head_fwd(args[0], args[1], args[2:])
+        ctx.pooled = None
+        if _on_cpu(*args):
+            return din_head_fwd(args[0], args[1], args[2:])
+        out, ctx.pooled = _cuda.din_head_fused_pooled(args[0], args[1], args[2:])
+        return out
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        grads = din_head_bwd(saved[0], saved[1], saved[2:], g.contiguous())
+        args = (saved[0], saved[1], saved[2:], g.contiguous())
+        grads = din_head_bwd(*args) if ctx.pooled is None else din_head_bwd(*args, pooled=ctx.pooled)
         return tuple(d.to(t.dtype) for d, t in zip(grads, saved))
 
 

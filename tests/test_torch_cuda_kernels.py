@@ -728,7 +728,26 @@ DIN_F32_SHAPES = [(300, 10, 16, (32, 16, 1), (2048, 128, 1)),
 def _fwd_launches(L, D, A, F) -> int:
     """Launches of one float32 forward: 2 on the tensor cores (attention stage,
     fc head), 1 where the widths take the CUDA-core kernel."""
-    return 2 if cuda_dh._lib().din_head_fwd_tf32(L, D, A[0], A[1], F[0], F[1]) else 1
+    return 2 if cuda_dh._lib().din_head_fits(L, D, A[0], A[1], F[0], F[1]) & cuda_dh.TF32_FWD else 1
+
+
+def _bwd_launches(L, D, A, F, dtype=torch.float32) -> int:
+    """Launches of one backward: 5 in float32 on the tensor cores (attention
+    stage, fc head, attention unit, fc weight gradients, reduce), 3 in bf16 and
+    where the widths take din_head_bwd_kernel<float>."""
+    tf32 = cuda_dh._lib().din_head_fits(L, D, A[0], A[1], F[0], F[1]) & cuda_dh.TF32_BWD
+    return 5 if dtype == torch.float32 and tf32 else 3
+
+
+# the backward besides DIN_SHAPES: an embedding whose float32 backward keeps
+# din_head_bwd_kernel<float> at L 64, and the preset at the longest history on
+# the tensor cores
+DIN_BWD_SHAPES = [(60, 64, 512, (8, 4, 1), (8, 4, 1)),
+                  (2_000, 64, 64, (128, 64, 1), (256, 128, 1))]
+# the widest fc the kernels take: its fc tile is too wide for the float32
+# tensor-core kernels (din_head_bwd_kernel<float>), and the fc weight gradients
+# stage a few rows (float32), or a window of columns (bf16), at a time
+DIN_WIDE_FC_SHAPE = (300, 10, 64, (128, 64, 1), (2048, 2048, 1))
 
 
 @pytest.mark.parametrize("B,L,D,A,F", DIN_SHAPES + DIN_F32_SHAPES)
@@ -747,14 +766,15 @@ def test_din_head_fused_matches_plain(cuda, B, L, D, A, F):
     assert torch.equal(dh.din_head_fwd(hist, tgt, weights), got)  # two launches repeat bit for bit
 
 
-@pytest.mark.parametrize("B,L,D,A,F", [s for s in DIN_SHAPES if s[0] < 20_000])
+@pytest.mark.parametrize("B,L,D,A,F", [s for s in DIN_SHAPES if s[0] < 20_000] + DIN_BWD_SHAPES)
 def test_din_head_fused_bwd_matches_plain(cuda, B, L, D, A, F):
     att, fc, hist, tgt, cot = _din_inputs(cuda, B, L, D, A, F, seed=B + D)
     weights = dh.din_head_weights(att, fc, D)
     before = cuda_dh.din_head_fused_bwd.launches
     got = dh.din_head_bwd(hist, tgt, weights, cot)
     torch.cuda.synchronize()
-    assert cuda_dh.din_head_fused_bwd.launches == before + 3
+    assert cuda_dh.din_head_fused_bwd.launches == before + _bwd_launches(L, D, A, F)
+    assert _bwd_launches(L, D, A, F) == (3 if D == 512 else 5)
     want = dh.din_head_bwd_plain(hist, tgt, weights, cot)
     assert len(got) == len(want) == 16
     for i, (gt, wt) in enumerate(zip(got, want)):
@@ -768,8 +788,50 @@ def test_din_head_fused_bwd_matches_plain(cuda, B, L, D, A, F):
         assert torch.equal(a, b_)
 
 
+def _kinked_rows(hist, tgt, weights, limit=1e-6):
+    """[B] bool: rows with a relu input (z1, z2, and the fc head's before its
+    relus) within ``limit`` of its layer's largest |value| from 0, in float64.
+    There the mask, so the row's gradient, may follow the order of summation
+    (chip_smoke.py's DIN_KINK rule)."""
+    wh, wt, b1, w2, b2, w3, b3, u1p, u1t, c1, u2, c2, u3, c3 = (w.double() for w in weights)
+    h, t = hist.double(), tgt.double()
+    z1 = h @ wh + (t @ wt + b1)[:, None, :]
+    z2 = torch.relu(z1) @ w2 + b2
+    w = torch.softmax((torch.relu(z2) @ w3 + b3)[..., 0], dim=-1)
+    y1 = torch.einsum("bl,bld->bd", w, h) @ u1p + t @ u1t + c1
+    y2 = torch.relu(y1) @ u2 + c2
+    near = torch.zeros(h.shape[0], dtype=torch.bool, device=h.device)
+    for z in (z1, z2, y1, y2):
+        z = z.abs().reshape(h.shape[0], -1)
+        near |= z.amin(dim=1) <= limit * z.max()
+    return near
+
+
+def test_din_head_fused_bwd_at_the_widest_fc(cuda):
+    """F (2048, 2048) in float32: three launches (din_head_bwd_kernel<float>)
+    and the plain version's gradients on the rows none of whose 4,096 fc relu
+    inputs lies at a kink; two launches repeat bit for bit."""
+    B, L, D, A, F = DIN_WIDE_FC_SHAPE
+    att, fc, hist, tgt, cot = _din_inputs(cuda, B, L, D, A, F, seed=B + D)
+    weights = dh.din_head_weights(att, fc, D)
+    keep = ~_kinked_rows(hist, tgt, weights)
+    assert int(keep.sum()) > B // 2
+    sub = (hist[keep].contiguous(), tgt[keep].contiguous(), weights, cot[keep].contiguous())
+    before = cuda_dh.din_head_fused_bwd.launches
+    got = dh.din_head_bwd(*sub)
+    torch.cuda.synchronize()
+    assert cuda_dh.din_head_fused_bwd.launches == before + _bwd_launches(L, D, A, F) == before + 3
+    for i, (gt, wt) in enumerate(zip(got, dh.din_head_bwd_plain(*sub))):
+        if i == DB3:
+            _close_db3(gt, wt, sub[3])
+        else:
+            _close(gt, wt, 1e-4)
+    assert all(torch.equal(a, b_) for a, b_ in zip(dh.din_head_bwd(*sub), got))
+
+
 def test_din_head_autograd_on_the_card(cuda):
-    """DinHead under autograd: one forward and three backward launches; the
+    """DinHead under autograd: two forward and four backward launches (the
+    forward's pooled rows handed to the backward); the
     gradients of the MLPs' params (through the decomposition) and of the
     embeddings are those of the CPU plain versions."""
     att, fc, hist, tgt, cot = _din_inputs(cuda, 300, 10, 16, (32, 16, 1), (64, 32, 1), seed=3)
@@ -785,7 +847,7 @@ def test_din_head_autograd_on_the_card(cuda):
     (dh.din_head(a_card, f_card, h_card, t_card) * cot).sum().backward()
     torch.cuda.synchronize()
     assert (cuda_dh.din_head_fused.launches, cuda_dh.din_head_fused_bwd.launches) == (
-        before[0] + 2, before[1] + 3)
+        before[0] + 2, before[1] + 4)
     (a_cpu, f_cpu), h_cpu, t_cpu = leaves("cpu")
     (dh.din_head(a_cpu, f_cpu, h_cpu, t_cpu) * cot.cpu()).sum().backward()
     _close_db3(a_card[2]["b"].grad.cpu(), a_cpu[2]["b"].grad, cot)
@@ -794,6 +856,28 @@ def test_din_head_autograd_on_the_card(cuda):
         for lc, lp in zip(nc, npu) for k in lc if lc is not a_card[2] or k != "b"]
     for got, want in pairs:
         _close(got.grad.cpu(), want.grad, 1e-4)
+
+
+def test_din_head_backward_takes_the_forwards_pooled_rows(cuda):
+    """The float32 forward's pooled rows (``din_head_fused_pooled``) are the bits
+    the backward's own attention stage writes: handed to the backward they save
+    its first launch and change no gradient's bits. bf16, and the CUDA-core
+    forward, keep none."""
+    att, fc, hist, tgt, cot = _din_inputs(cuda, 5_003, 10, 64, (128, 64, 1), (256, 128, 1), seed=1)
+    weights = dh.din_head_weights(att, fc, 64)
+    out, pooled = cuda_dh.din_head_fused_pooled(hist, tgt, weights)
+    assert pooled.shape == (5_003, 64) and pooled.dtype == torch.float32
+    assert torch.equal(out, cuda_dh.din_head_fused(hist, tgt, weights))
+    before = cuda_dh.din_head_fused_bwd.launches
+    got = cuda_dh.din_head_fused_bwd(hist, tgt, weights, cot, pooled)
+    torch.cuda.synchronize()
+    assert cuda_dh.din_head_fused_bwd.launches == before + 4
+    want = cuda_dh.din_head_fused_bwd(hist, tgt, weights, cot)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+    bf16 = _bf16(hist, tgt, *weights)
+    assert cuda_dh.din_head_fused_pooled(bf16[0], bf16[1], bf16[2:])[1] is None
+    att, fc, hist, tgt, _ = _din_inputs(cuda, 20, 64, 512, (8, 4, 1), (8, 4, 1), seed=2)
+    assert cuda_dh.din_head_fused_pooled(hist, tgt, dh.din_head_weights(att, fc, 512))[1] is None
 
 
 def _bf16(*tensors):
@@ -820,7 +904,7 @@ def test_din_head_fused_bf16_matches_plain(cuda, B, L, D, A, F):
     _close(got.float(), want.float(), DIN_BF16_RTOL["fwd"])
 
 
-@pytest.mark.parametrize("B,L,D,A,F", [s for s in DIN_SHAPES if s[0] < 20_000])
+@pytest.mark.parametrize("B,L,D,A,F", [s for s in DIN_SHAPES if s[0] < 20_000] + [DIN_WIDE_FC_SHAPE])
 def test_din_head_fused_bwd_bf16_matches_plain(cuda, B, L, D, A, F):
     att, fc, hist, tgt, cot = _din_inputs(cuda, B, L, D, A, F, seed=B + D)
     weights = _bf16(*dh.din_head_weights(att, fc, D))
@@ -838,6 +922,50 @@ def test_din_head_fused_bwd_bf16_matches_plain(cuda, B, L, D, A, F):
             _close_db3(gt, wt, cot.float())
         else:
             _close(gt, wt, DIN_BF16_RTOL["bwd"])
+
+
+def test_din_head_fit_mirror_matches_the_library(cuda):
+    """``fits`` (the layouts' shared-memory sums in Python, which
+    ``kernel_route`` decides from on any device) says what ``din_head_fits``
+    of the library says, over a grid of widths: L 1 to 64, D past every fit
+    at L 64, narrow, preset and wide attention and fc nets."""
+    lib = cuda_dh._lib()
+    for L in (1, 7, 10, 33, 64):
+        for D in (4, 8, 64, 128, 256, 352, 360, 364, 512, 640, 644, 1024, 2048):
+            for A in ((12, 8), (128, 64), (256, 256)):
+                for F in ((20, 12), (256, 128), (2048, 128), (2048, 2048)):
+                    assert cuda_dh.fits(L, D, *A, *F) == lib.din_head_fits(L, D, *A, *F), (L, D, A, F)
+    assert cuda_dh.fits(10, 6, 128, 64, 256, 128) == lib.din_head_fits(10, 6, 128, 64, 256, 128) == 0
+    assert cuda_dh.fits(65, 64, 128, 64, 256, 128) == lib.din_head_fits(65, 64, 128, 64, 256, 128) == 0
+
+
+# (L, D, whether every launch fits) at the preset's nets: the widest D whose
+# tiles all fit at L 64, the next width (the window pool's tile no longer
+# fits), and one past every tile of the head
+DIN_FIT_EDGES = [(64, 360, True), (64, 364, False), (64, 1024, False)]
+
+
+@pytest.mark.parametrize("L,D,fit", DIN_FIT_EDGES)
+def test_din_launches_fit_where_the_route_says(cuda, L, D, fit):
+    """Where ``kernel_route`` takes a shape, the head (both dtypes, both ways)
+    and the window pool launch; past it some launch cannot fit and raises."""
+    att, fc, hist, tgt, cot = _din_inputs(cuda, 20, L, D, (128, 64, 1), (256, 128, 1), seed=D)
+    assert dh.kernel_route(att, fc, L, D) is fit
+    weights = dh.din_head_weights(att, fc, D)
+    calls = [lambda: dinatt.din_attention_pool(hist, tgt, att)]
+    for dtype in (torch.float32, torch.bfloat16):
+        w = [x.to(dtype) for x in weights]
+        h, t = hist.to(dtype), tgt.to(dtype)
+        calls += [lambda h=h, t=t, w=w: dh.din_head_fwd(h, t, w),
+                  lambda h=h, t=t, w=w: dh.din_head_bwd(h, t, w, cot)]
+    raised = 0
+    for call in calls:
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            raised += 1
+    assert (raised == 0) is fit
 
 
 def test_din_head_launcher_refuses_mixed_dtypes(cuda):

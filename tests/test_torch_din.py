@@ -481,7 +481,31 @@ ROUTE_CASES = {
     "f2_not_multiple_of_4": (((128, 64, 1), (256, 126, 1), 10, 64), False),
     "fc_wider_than_2048": (((128, 64, 1), (4096, 128, 1), 10, 64), False),
     "last_attention_width_2": (((128, 64, 2), (256, 128, 1), 10, 64), False),
+    # the widths at which a tile of every launch fits (ops/cuda/din_head.py::fits)
+    "fc_2048_2048": (((128, 64, 1), (2048, 2048, 1), 10, 64), True),
+    "history_64_d_360": (((128, 64, 1), (256, 128, 1), 64, 360), True),
+    "history_64_d_364_pool_too_wide": (((128, 64, 1), (256, 128, 1), 64, 364), False),
+    "history_64_d_640_pool_too_wide": (((128, 64, 1), (256, 128, 1), 64, 640), False),
+    "history_64_d_1024_no_tile_fits": (((128, 64, 1), (256, 128, 1), 64, 1024), False),
+    "history_10_d_1024_pool_too_wide": (((128, 64, 1), (256, 128, 1), 10, 1024), False),
 }
+
+
+# (L, D, F, bits) at the preset's attention net as launches on an H100 showed
+# them before the route took the fit into account: at L 64, D 1024 the
+# forward, the backward and the window pool all raised; at D 512, 600 and 640
+# the head launched and the window pool raised; at F (2048, 2048) the forward
+# and the pool launched (the backward's fc weight gradients then raised, staged
+# 16 rows at a time).
+CARD_FITS = [(64, 1024, (256, 128), 0), (64, 512, (256, 128), 3), (64, 600, (256, 128), 3),
+             (64, 640, (256, 128), 3), (10, 64, (2048, 2048), 15)]
+
+
+@pytest.mark.parametrize("L,D,F,bits", CARD_FITS)
+def test_fit_mirror_matches_the_cards_launches(L, D, F, bits):
+    from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_head as cuda_dh
+
+    assert cuda_dh.fits(L, D, 128, 64, *F) == bits
 
 
 @pytest.mark.parametrize("case", list(ROUTE_CASES))

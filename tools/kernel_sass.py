@@ -24,7 +24,11 @@ the file. The DIN head's forward kernel was ``din_fwd_kernel<true, T>`` before
 its pool branch went; its old name is matched to ``din_fwd_kernel<T>``
 (``renamed``); so is ``mf_epoch_kernel<kBf16, Id>`` to
 ``mf_epoch_kernel<kBf16, Id, 4>``, its 4-column instantiation (D <= 128) since
-it took wider D. Needs ``nvcc``, ``cuobjdump`` and ``cu++filt``, not a card.
+it took wider D. ``din_head_bwd_fc_kernel`` takes a staging plan (``FcStage``:
+fewer rows, or windows of columns, where a chunk's rows do not fit) that
+earlier trees' did not, so it counts as new: ``tools/din_bwd_digest.py`` holds
+its results against another tree's bit for bit. Needs ``nvcc``, ``cuobjdump``
+and ``cu++filt``, not a card.
 """
 
 from __future__ import annotations

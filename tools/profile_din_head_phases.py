@@ -11,8 +11,9 @@ times whole kernels cannot split. This tool builds an instrumented copy of
 the two sources, beside the launcher's library in ``build/kernels/``: after
 every ``__syncthreads()``, thread 0 of each block adds the ``clock64()``
 cycles since the block's previous barrier to a counter of that barrier. It
-then runs the forward and the backward (three launches) once at the DIN train
-batch (D 64, L 10, attention (128, 64, 1), fc (256, 128, 1), ``chip_smoke.py``'s
+then runs the forward and the backward (bf16: three launches; float32: the
+attention stage, unmarked, then the fc head's backward, the attention unit's,
+the fc weight gradients and the slots' sum) once at the DIN train batch (D 64, L 10, attention (128, 64, 1), fc (256, 128, 1), ``chip_smoke.py``'s
 inputs) and prints one JSON line per dtype and direction: each barrier's file
 and line, the calls and loops written between it and the barrier above it,
 and its cycles per tile and share (the cycles summed over the blocks, over
@@ -23,7 +24,9 @@ after the loop's last barrier. Cycles are per 16 rows in every kernel. The
 float32 forward is its attention stage (``din_pool.cuh``, whose group barriers
 this tool does not mark: ``tools/profile_din_pool_phases.py`` times that
 kernel's phases) and ``din_head_fc_kernel``, 64 rows a block, whose phase up to
-its first barrier (the staging of its rows) is not counted. Then the card's
+its first barrier (the staging of its rows) is not counted. The float32
+backward's fc head kernel (64 rows a tile) is marked the same way; its loop's
+first barrier also closes its set-up (the columns' largest |weight|). Then the card's
 name and power limit. The copy is not the shipped library; it needs a card.
 """
 
@@ -47,8 +50,8 @@ from deeplearningrecommendationsystem_tpu_torch.ops import din_head as dh  # noq
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import build  # noqa: E402
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_head as cuda_dh  # noqa: E402
 
-FILES = ("din_common.cuh", "din_head.cu")  # barrier ids: 1000 * file index + line
-COUNTERS = 4096
+FILES = ("din_common.cuh", "din_head.cu")  # barrier ids: 10000 * file index + line
+COUNTERS = 20000
 SLOTS = 4 * 8192  # a block's last mark in each of four kernels: blocks of a launch up to 8192
 HELPER = f"""
 __device__ unsigned long long g_phase_cycles[{COUNTERS}];
@@ -87,7 +90,8 @@ def work(lines: list, barrier: int) -> list:
         line = lines[no - 1].strip()
         if "__syncthreads();" in line:
             break
-        m = re.match(r"(?:din::)?(block_mm\w*<[^>]*>\(\w+|block_colsum_acc<T>\(\w+|store_rows\(\w+|"
+        m = re.match(r"(?:din::)?(block_mm\w*<[^>]*>\(\w+|block_colsum_acc<\w+>\(\w+|store_rows\(\w+|"
+                     r"row_abs\(\w+|"
                      r"stage_tile|attention_forward|fc_forward|fc_weight_grad\w*|for \(\w+ \w+ = \w+)", line)
         if m:
             found.append(m.group(1))
@@ -97,7 +101,7 @@ def work(lines: list, barrier: int) -> list:
 # din_head.cu's sections whose barriers lie in a kernel of their own, each its own
 # slot of a block's last mark: from the line that opens a section to the next
 # one (the backward kernel's section and din_common.cuh's marks take slot 0)
-SECTIONS = (("constexpr int kFcThreads", 2),  # din_head_fc_kernel, the float32 forward's fc head
+SECTIONS = (("constexpr int kFcThreads", 2),  # the float32 fc head's kernels, forward and backward
             ("// -------------------------------------------------------------", 0),
             ("constexpr int kFcChunk", 1))  # din_head_bwd_fc_kernel and its products
 
@@ -125,7 +129,7 @@ def instrumented() -> Path:
         slots = kernel_slots(lines) if name == "din_head.cu" else [0] * len(lines)
         for no, line in enumerate(lines, 1):
             if "__syncthreads();" in line and not line.strip().startswith("//"):
-                mark = f"din::phase_mark({1000 * index + no}, {slots[no - 1]});"
+                mark = f"din::phase_mark({10000 * index + no}, {slots[no - 1]});"
                 lines[no - 1] = line.replace("__syncthreads();", f"__syncthreads(); {mark}", 1)
         text = "\n".join(lines) + "\n"
         if name == "din_common.cuh":
@@ -175,7 +179,7 @@ def main() -> int:
                 lib.din_phase_read(counts)
                 tiles = -(-args.rows // 16)  # the layout's 16-row tiles at these widths
                 total = sum(counts)
-                phases = [{"at": f"{FILES[i // 1000]}:{i % 1000}", "work": work(src[i // 1000], i % 1000),
+                phases = [{"at": f"{FILES[i // 10000]}:{i % 10000}", "work": work(src[i // 10000], i % 10000),
                            "kcycles_per_tile": counts[i] / tiles / 1e3,
                            "share": counts[i] / total} for i in range(COUNTERS) if counts[i]]
                 print(json.dumps({"dtype": name, "direction": part, "rows": args.rows,
