@@ -32,11 +32,16 @@ no result line.
    is checked in float32 and in bfloat16, both also at ragged widths
    (DIN_RAGGED) at the train batch's row count, in float32 also at the
    longest history the kernels take (DIN_LONG_ROWS rows at L 64), the
-   backward in both dtypes also at the widest fc the kernels take
-   (DIN_WIDE_FC); the float32 backward also timed with the forward's pooled
-   rows handed to it (``kernel_ms_pooled_given``, as training runs it), whose
-   gradients must be the recomputing call's bit for bit; the bf16 forward at
-   the train batch on the inputs of each of DIN_BF16_FWD_SEEDS;
+   backward in both dtypes and the bf16 forward also at the widest fc the
+   kernels take (DIN_WIDE_FC); the backward in both dtypes also timed with
+   the forward's pooled rows handed to it (``kernel_ms_pooled_given``, as
+   training runs it), whose gradients must be the recomputing call's bit for
+   bit; the bf16
+   backward held against its plain version and the float64 sums
+   (check_din_bf16_bwd, a limit in proportion to the relu inputs near a kink,
+   and a fixed excess over the plain version's rows off the float64 sums);
+   the bf16 forward at the train batch on the inputs of each of
+   DIN_BF16_FWD_SEEDS;
 4. train   -- the MF training path (slice 2) through the entry points a user
    calls: ``run_experiment(PRESETS["mf"])`` for 20 epochs at full width on a
    synthetic ml-100k-format dataset, then ``MatrixFactorization.fast_fit`` on
@@ -207,17 +212,30 @@ DIN_FWD_RTOL, DIN_BWD_RTOL, DIN_DB3_ATOL, DIN_KINK = 1e-5, 1e-4, 1e-6, 1e-6
 # bf16 roundings put a logit two ulps apart, so the limit is two ulps, the
 # smallest whole number that every seed meets.
 # Backward: a flip can put a relu input on the other side of 0 and flip a row's
-# d hist and d target: at most DIN_BF16_ROWS_OFF rows (observed
-# 0-2, fewer than a 16-row tile) may be off by more than DIN_BF16_BWD_RTOL of
-# the tensor's largest |value|, each with a relu input within DIN_BF16_KINK of
-# its layer's largest |value| from 0 on the bf16 path (observed 1.3e-6 to
-# 6.2e-5). Without those rows every gradient lies within DIN_BF16_BWD_RTOL of
-# its tensor's largest |value| (observed at most 2.4e-4). The same values through
-# the plain head in float32 throughout (no operand rounded) must fail both
-# checks (observed: 21,400 logits differ; each rounded gradient 2.6e-3 to 0.17
-# off), so they tell rounding where the head rounds from not rounding.
+# d hist and d target. At most one row in 1 / DIN_BF16_OFF_SHARE of the relu
+# inputs that lie within DIN_BF16_KINK of their layer's largest |value| from 0
+# (``kink_distance``'s measure, on the rows checked) may be off by more than
+# DIN_BF16_BWD_RTOL of the tensor's largest |value|, each with a relu input
+# within DIN_BF16_KINK; and the kernel may be off the gradients with every sum
+# in float64 (the same operands rounded, din_head_bwd_exact) in at most
+# DIN_BF16_EXACT_EXCESS more rows than the plain version is. Measured on an
+# H100 over seeds 0-39 of the kernel before its sums changed order
+# (tools/probe_din_bf16_bwd_seeds.py): at the train batch 0-6 rows off among
+# 180k-202k such inputs, at fc (2048, 2048) 0-1 on 4,096 rows (20k-22k inputs)
+# and 1-9 on 20,000 rows (104k-119k), at most 8.3e-5 of them; kernel and plain
+# version each off the float64 gradients in 1-36 rows at a kink, the kernel in
+# at most 2, 1 and 3 more than the plain version at those three shapes, so the
+# excess allowed is 3. Which of the two lies nearer the float64 gradients on a
+# flipped row is a coin toss (the kernel farther on 10-18 of the 40 seeds), so
+# those distances are reported, not held. Without the rows off every gradient
+# lies within DIN_BF16_BWD_RTOL of its tensor's largest |value| (observed at
+# most 2.4e-4). The same values through the plain head in float32 throughout
+# (no operand rounded) must fail both checks (observed: 21,400 logits differ;
+# each rounded gradient 2.6e-3 to 0.17 off), so they tell rounding where the
+# head rounds from not rounding.
 DIN_BF16_LOGITS_OFF, DIN_BF16_FWD_ATOL, DIN_BF16_FWD_ULPS = 64, 2.0 ** -10, 2
-DIN_BF16_ROWS_OFF, DIN_BF16_BWD_RTOL, DIN_BF16_KINK = 4, 1e-3, 2e-4
+DIN_BF16_OFF_SHARE, DIN_BF16_BWD_RTOL, DIN_BF16_KINK = 1e-4, 1e-3, 2e-4
+DIN_BF16_EXACT_EXCESS = 3
 # the gradients that the rounding moves (d b3 is 0 in exact arithmetic, d c3 the
 # sum of g, d c2 a masked product of g alone)
 DIN_BF16_ROUNDED = ("hist", "target", "wh", "wt", "b1", "w2", "b2", "w3", "u1p", "u1t", "c1",
@@ -231,10 +249,11 @@ DIN_RAGGED = (7, 8, (12, 8, 1), (20, 12, 1))
 # generator of each of these seeds
 DIN_BF16_FWD_SEEDS = (0, 1, 2, 3, 4)
 DIN_LONG_ROWS = 16_384  # rows of the float32 head's rows at the longest history the kernels take
-# The head's backward at the widest fc the kernels take, both dtypes, on rows of
-# a generator of their own; float32 there takes din_head_bwd_kernel<float>, whose
-# tile walk holds the whole fc head on CUDA cores (the tensor-core kernels' fc
-# tile does not fit)
+# The head's backward at the widest fc the kernels take, both dtypes, and the
+# bf16 forward there (its tensor-core attention unit: no pooled rows kept), on
+# rows of a generator of their own; both backwards take the split there, the fc
+# head's backward in din_head_bwd_fc_stream_kernel (din_head_bwd_fc_head_kernel's
+# tile of two full-width regions does not fit)
 DIN_WIDE_FC, DIN_WIDE_FC_ROWS = (2048, 2048, 1), 4_096
 DIN_EPOCHS = 3  # the CPU reference's plain path is slow at full width
 DIN_BF16_EPOCHS = 2  # DIN under bf16 compute: fewer epochs, for the run's time
@@ -279,12 +298,12 @@ KERNELS = {
                            "replaces": f"{PALLAS}/din_attention.py:82"},
 }
 # kernel launches of one call of the DIN head's launchers at the preset's widths,
-# by dtype: the float32 forward is the attention stage and the fc head; the
-# float32 backward under autograd (the forward's pooled rows handed to it) the
-# fc head's backward, the attention unit's, the fc weight gradients and the
-# slots' sum
+# by dtype: the float32 forward is the attention stage and the fc head, the
+# bf16 forward din_fwd_kernel; the backward in either dtype under autograd (the
+# forward's pooled rows handed to it) the fc head's backward, the attention
+# unit's, the fc weight gradients and the slots' sum
 DIN_HEAD_LAUNCHES = {"din_head_fused": {"float32": 2, "bfloat16": 1},
-                     "din_head_fused_bwd": {"float32": 4, "bfloat16": 3}}
+                     "din_head_fused_bwd": {"float32": 4, "bfloat16": 4}}
 LAUNCHERS = {"topk_serve_matmul": cuda_topk.topk_serve_matmul,
              "topk_scores": cuda_topk.topk_scores,
              "gather_rows": cuda_gather.gather_rows,
@@ -819,11 +838,12 @@ def din_work(B: int, L: int, D: int, A: tuple, F: tuple, part: str, es: int = 4)
 def din_bwd_tensor_products(B: int, L: int, D: int, A: tuple, F: tuple) -> int:
     """The float32 backward's products that run in 3xTF32 on the tensor cores
     (0 where its widths take din_head_bwd_kernel<float>, CUDA cores
-    throughout): the fc head's recompute, [pooled | t] u1 and f1 u2, and its
+    throughout): the fc head's recompute (in din_head_bwd_fc_head_kernel or,
+    where its tile does not fit, din_head_bwd_fc_stream_kernel), [pooled | t] u1 and f1 u2, and its
     two input gradients, dzf2 u2^T and dzf1 u1^T, 2 (2 (2D) F1 + 2 F1 F2) a
     row. The rest (the attention unit, the weight gradients, f2 u3) is float32
     on CUDA cores."""
-    if not cuda_dh.fits(L, D, A[0], A[1], F[0], F[1]) & cuda_dh.TF32_BWD:
+    if not cuda_dh.fits(L, D, A[0], A[1], F[0], F[1]) & cuda_dh.SPLIT_F32:
         return 0
     return B * 2 * (2 * 2 * D * F[0] + 2 * F[0] * F[1])
 
@@ -868,10 +888,12 @@ def din_inputs(B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.Generator)
     return hist, tgt, att, fc, g
 
 
-def kink_distance(hist, tgt, weights) -> torch.Tensor:
+def kink_distance(hist, tgt, weights, near: float = 0.0):
     """[B]: each row's least |relu input| (z1, z2, f1 and f2 before the relu)
     over its layer's largest |value|, in float64, each product's operand
-    rounded to the weights' dtype where the head rounds it (``_mdot``)."""
+    rounded to the weights' dtype where the head rounds it (``_mdot``). Given
+    ``near``, also [B]: each row's count of relu inputs within ``near`` of 0 by
+    that measure."""
     dt = weights[0].dtype
     wh, wt, b1, w2, b2, w3, b3, u1p, u1t, c1, u2, c2, u3, c3 = (w.double() for w in weights)
     h, t = hist.double(), tgt.double()
@@ -885,10 +907,13 @@ def kink_distance(hist, tgt, weights) -> torch.Tensor:
     y1 = rnd(torch.einsum("bl,bld->bd", w, h)) @ u1p + t @ u1t + c1
     y2 = rnd(torch.relu(y1)) @ u2 + c2
     dist = torch.full((h.shape[0],), float("inf"), dtype=torch.float64, device=h.device)
+    count = torch.zeros((h.shape[0],), dtype=torch.int64, device=h.device)
     for z in (z1, z2, y1, y2):
         z = z.abs().reshape(h.shape[0], -1)
         dist = torch.minimum(dist, z.amin(dim=1) / z.max())
-    return dist
+        if near:
+            count += (z <= near * z.max()).sum(dim=1)
+    return (dist, count) if near else dist
 
 
 def din_head_fwd_exact(hist, tgt, weights) -> torch.Tensor:
@@ -910,6 +935,88 @@ def din_head_fwd_exact(hist, tgt, weights) -> torch.Tensor:
     f1 = torch.relu(rnd(torch.einsum("bl,bld->bd", w, h)) @ u1p + t @ u1t + c1)
     f2 = torch.relu(rnd(f1) @ u2 + c2)
     return (rnd(f2) @ u3 + c3)[:, 0].float().to(dt)
+
+
+def din_head_bwd_exact(hist, tgt, weights, g) -> tuple:
+    """The head's backward (``din_head_bwd_plain``'s 16 gradients) with every sum
+    in float64: each product's operand rounded to the weights' dtype where the
+    head rounds it (``_mdot``, ``_cdot``; from float32), the rest exact to
+    float64. The backward twin of ``din_head_fwd_exact``."""
+    dt = weights[0].dtype
+    wh, wt, b1, w2, b2, w3, b3, u1p, u1t, c1, u2, c2, u3, c3 = (w.double() for w in weights)
+    B, L, D = hist.shape
+    h, t = hist.double().reshape(B * L, D), tgt.double()
+
+    def rnd(x):
+        return x.float().to(dt).double()
+
+    z1 = h @ wh + (t @ wt + b1).repeat_interleave(L, dim=0)
+    z2 = rnd(torch.relu(z1)) @ w2 + b2
+    w = torch.softmax((rnd(torch.relu(z2)) @ w3 + b3).reshape(B, L), dim=-1)
+    pooled = torch.einsum("bl,bld->bd", w, h.reshape(B, L, D))
+    f1 = torch.relu(rnd(pooled) @ u1p + t @ u1t + c1)
+    f2 = torch.relu(rnd(f1) @ u2 + c2)
+    gf = g.double()[:, None]
+    du3, dc3 = rnd(f2).T @ rnd(gf), gf.sum(0, keepdim=True)
+    dzf2 = (rnd(gf) @ u3.T) * (f2 > 0)
+    du2, dc2 = rnd(f1).T @ rnd(dzf2), dzf2.sum(0, keepdim=True)
+    dzf1 = (rnd(dzf2) @ u2.T) * (f1 > 0)
+    du1p, du1t, dc1 = rnd(pooled).T @ rnd(dzf1), t.T @ rnd(dzf1), dzf1.sum(0, keepdim=True)
+    dpooled, dtgt = rnd(dzf1) @ u1p.T, rnd(dzf1) @ u1t.T
+    dw_cols = torch.einsum("bd,bld->bl", dpooled, h.reshape(B, L, D))
+    ds = (w * (dw_cols - (w * dw_cols).sum(-1, keepdim=True))).reshape(B * L, 1)
+    dz2 = (rnd(ds) @ w3.T) * (z2 > 0)
+    dw3, db3 = rnd(torch.relu(z2)).T @ rnd(ds), ds.sum(0, keepdim=True)
+    dw2, db2 = rnd(torch.relu(z1)).T @ rnd(dz2), dz2.sum(0, keepdim=True)
+    dz1 = (rnd(dz2) @ w2.T) * (z1 > 0)
+    dwh, db1 = h.T @ rnd(dz1), dz1.sum(0, keepdim=True)
+    dz1_rows = dz1.reshape(B, L, -1).sum(1)
+    dwt = t.T @ rnd(dz1_rows)
+    dtgt = dtgt + rnd(dz1_rows) @ wt.T
+    dhist = w[..., None] * dpooled[:, None, :] + (rnd(dz1) @ wh.T).reshape(B, L, D)
+    return (dhist, dtgt, dwh, dwt, db1, dw2, db2, dw3, db3, du1p, du1t, dc1, du2, dc2, du3, dc3)
+
+
+def din_bwd_rows_off(got, want) -> torch.Tensor:
+    """[B] bool: the rows whose d hist or d target lies off ``want``'s by more
+    than DIN_BF16_BWD_RTOL of that tensor's largest |value|."""
+    def beyond(x, y):
+        x, y = x.double(), y.double()
+        return (x - y).abs().reshape(x.shape[0], -1).amax(dim=1) > DIN_BF16_BWD_RTOL * float(y.abs().max())
+
+    return beyond(got[0], want[0]) | beyond(got[1], want[1])
+
+
+def din_bwd_row_gap(got, exact, rows) -> float:
+    """How far ``got``'s d hist and d target lie from the float64 gradients on
+    ``rows``: the largest |difference| over each tensor's largest |value|."""
+    if not bool(rows.any()):
+        return 0.0
+    return max(float((x[rows].double() - e[rows]).abs().max()) / float(e.abs().max())
+               for x, e in zip(got[:2], exact[:2]))
+
+
+def din_bf16_bwd_readings(sub, dist, pooled=None) -> tuple:
+    """The bf16 head backward, its plain version and the float64 sums on the
+    rows ``sub`` (their kink distances ``dist``): (kernel, plain, readings).
+    Readings: the rows off between each pair (``din_bwd_rows_off``) with the
+    kink distances of those of kernel against plain, the rows within
+    DIN_BF16_KINK of a kink, and how far the kernel's and the plain version's
+    off rows lie from the float64 gradients (``din_bwd_row_gap``). ``pooled``:
+    pooled rows for the kernel in place of its forward's."""
+    got, want = dh.din_head_bwd(*sub, pooled=pooled), dh.din_head_bwd_plain(*sub)
+    exact = din_head_bwd_exact(*sub)
+    off = din_bwd_rows_off(got, want)
+    off_k, off_p = din_bwd_rows_off(got, exact), din_bwd_rows_off(want, exact)
+    readings = {
+        "rows": int(dist.shape[0]), "near_kink": int((dist <= DIN_BF16_KINK).sum()),
+        "off": off, "rows_off": int(off.sum()), "off_kink": dist[off].tolist(),
+        "kernel_off_exact": int(off_k.sum()), "plain_off_exact": int(off_p.sum()),
+        "kernel_gap": din_bwd_row_gap(got, exact, off_k | off_p),
+        "plain_gap": din_bwd_row_gap(want, exact, off_k | off_p),
+    }
+    del exact
+    return got, want, readings
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -954,22 +1061,26 @@ def check_din_bf16_fwd(hist, tgt, weights) -> dict:
             "ulps_exact": ulps_exact}
 
 
-def check_din_bf16_bwd(sub, dist) -> dict:
-    """The bf16 head backward against its plain version on the rows ``sub``
-    (their kink distances ``dist``): at most DIN_BF16_ROWS_OFF rows off in d hist
-    or d target, each at a bf16 kink; without them, every gradient within
-    DIN_BF16_BWD_RTOL of its tensor's largest |value|, where the unrounded
-    float32 head is not; d b3 as in float32."""
-    def rows_beyond(got, want):
-        return ((got - want).abs().reshape(got.shape[0], -1).amax(dim=1)
-                > DIN_BF16_BWD_RTOL * float(want.abs().max()))
-
-    got, want = dh.din_head_bwd(*sub), dh.din_head_bwd_plain(*sub)
-    off = rows_beyond(got[0], want[0]) | rows_beyond(got[1], want[1])
-    rows_off, off_dist = int(off.sum()), dist[off]
-    if rows_off > DIN_BF16_ROWS_OFF or not bool((off_dist <= DIN_BF16_KINK).all()):
-        raise AssertionError(f"din_head_fused_bwd bf16: {rows_off} rows off, kink distances "
-                             f"{off_dist.tolist()[:8]}")
+def check_din_bf16_bwd(sub, dist, near: int) -> dict:
+    """The bf16 head backward against its plain version and the float64 sums on
+    the rows ``sub`` (their kink distances ``dist``, ``near`` relu inputs within
+    DIN_BF16_KINK of 0 among them): at most ceil(DIN_BF16_OFF_SHARE near) rows
+    off in d hist or d target, each at a bf16 kink, and at most
+    DIN_BF16_EXACT_EXCESS more rows off the float64 gradients than the plain
+    version's; without the rows off, every gradient within DIN_BF16_BWD_RTOL
+    of its tensor's largest |value|, where the unrounded float32 head is not;
+    d b3 as in float32."""
+    allowed = int(np.ceil(DIN_BF16_OFF_SHARE * near))
+    got, want, r = din_bf16_bwd_readings(sub, dist)
+    off = r.pop("off")
+    rows_off, off_dist = r["rows_off"], dist[off]
+    if rows_off > allowed or not bool((off_dist <= DIN_BF16_KINK).all()):
+        raise AssertionError(f"din_head_fused_bwd bf16: {rows_off} rows off (at most {allowed}), "
+                             f"kink distances {off_dist.tolist()[:8]}")
+    if r["kernel_off_exact"] > r["plain_off_exact"] + DIN_BF16_EXACT_EXCESS:
+        raise AssertionError(f"din_head_fused_bwd bf16: {r['kernel_off_exact']} rows off the float64 "
+                             f"gradients, the plain version {r['plain_off_exact']} "
+                             f"(+ {DIN_BF16_EXACT_EXCESS})")
     if rows_off:  # the weight gradients sum over every row: again without the off rows
         keep = ~off
         sub = tuple(x[keep].contiguous() if i != 2 else x for i, x in enumerate(sub))
@@ -990,9 +1101,10 @@ def check_din_bf16_bwd(sub, dist) -> dict:
     gap = min(gaps[n] for n in DIN_BF16_ROUNDED)
     if not gap > DIN_BF16_BWD_RTOL:
         raise AssertionError(f"din_head_fused_bwd bf16: the unrounded head passes too: {gaps}")
-    return {"max_abs_err": max(errs), "rows_off": rows_off, "off_rows_kink": off_dist.tolist(),
-            "rows_near_a_bf16_kink": int((dist <= DIN_BF16_KINK).sum()),
-            "rtol": rels[worst], "rtol_of": f"d{worst}", "unrounded_min_rtol": gap}
+    return {"max_abs_err": max(errs), "rows_off_allowed": allowed, "inputs_near_a_bf16_kink": near,
+            **{k: v for k, v in r.items() if k not in ("rows", "off_kink")},
+            "off_rows_kink": off_dist.tolist(), "rtol": rels[worst], "rtol_of": f"d{worst}",
+            "unrounded_min_rtol": gap}
 
 
 def din_inputs_as(dtype, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.Generator):
@@ -1037,26 +1149,29 @@ def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.
         lib_name = "eager: attention_pool and mlp, torch.matmul"
     elif part == "bwd":
         args, kernel, plain = (hist, tgt, weights, g), dh.din_head_bwd, dh.din_head_bwd_plain
-        dist = kink_distance(hist, tgt, weights)
+        dist, near = kink_distance(hist, tgt, weights, DIN_BF16_KINK)
         smooth = dist > DIN_KINK
         kinked = int((~smooth).sum())
         if kinked > B // 20 * max(1, L // 10):  # a row's relu inputs grow with L
             raise AssertionError(f"din_head_fused_bwd: {kinked} of {B} rows at a relu kink")
         sub = (hist[smooth].contiguous(), tgt[smooth].contiguous(), weights, g[smooth].contiguous())
+        got = kernel(*sub)
+        if not all(torch.equal(a, b) for a, b in zip(kernel(*sub), got)):
+            raise AssertionError("din_head_fused_bwd: two launches differ")
+        split = cuda_dh.SPLIT_BF16 if dtype == torch.bfloat16 else cuda_dh.SPLIT_F32
+        if cuda_dh.fits(L, D, A[0], A[1], F[0], F[1]) & split:
+            # the forward's pooled rows: the same gradients, bit for bit, one launch fewer
+            pooled = cuda_dh.din_head_fused_pooled(*sub[:3])[1]
+            if not all(torch.equal(a, b) for a, b in zip(kernel(*sub, pooled=pooled), got)):
+                raise AssertionError("din_head_fused_bwd: the forward's pooled rows change it")
+            full = cuda_dh.din_head_fused_pooled(hist, tgt, weights)[1]
+            checked["kernel_ms_pooled_given"] = time_ms(lambda: kernel(*args, pooled=full))
+            del pooled, full
         if dtype == torch.bfloat16:
-            checked = check_din_bf16_bwd(sub, dist[smooth])
+            del got
+            checked.update(check_din_bf16_bwd(sub, dist[smooth], int(near[smooth].sum())))
         else:
-            got, want = kernel(*sub), plain(*sub)
-            if not all(torch.equal(a, b) for a, b in zip(kernel(*sub), got)):
-                raise AssertionError("din_head_fused_bwd: two launches differ")
-            if cuda_dh.fits(L, D, A[0], A[1], F[0], F[1]) & cuda_dh.TF32_BWD:
-                # the forward's pooled rows: the same gradients, bit for bit, one launch fewer
-                pooled = cuda_dh.din_head_fused_pooled(*sub[:3])[1]
-                if not all(torch.equal(a, b) for a, b in zip(kernel(*sub, pooled=pooled), got)):
-                    raise AssertionError("din_head_fused_bwd: the forward's pooled rows change it")
-                full = cuda_dh.din_head_fused_pooled(hist, tgt, weights)[1]
-                checked["kernel_ms_pooled_given"] = time_ms(lambda: kernel(*args, pooled=full))
-                del pooled, full
+            want = plain(*sub)
             errs = []
             for n, gt, wt in zip(("hist", "target") + dh.WEIGHT_NAMES, got, want):
                 if n == "b3":  # the sum of ds: 0 up to rounding in both versions
@@ -1069,7 +1184,7 @@ def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.
             checked["max_abs_err"] = max(errs)
             del got, want
         checked = {"max_abs_err": checked.pop("max_abs_err"), "rows_at_a_kink": kinked, **checked}
-        del sub, dist
+        del sub, dist, near
         library, lib_args = din_library_bwd, (hist, tgt, att, fc, g)
         lib_name = "eager composition's autograd (forward included)"
     else:
@@ -1799,6 +1914,8 @@ def main() -> int:
                 ("din_head_fused_bwd", "bwd", DIN_WIDE_FC_ROWS, wide_fc_dims, wide_fc_label,
                  torch.float32, wide_fc_gen, ()),
                 ("din_head_fused_bwd", "bwd", DIN_WIDE_FC_ROWS, wide_fc_dims, wide_fc_label,
+                 torch.bfloat16, wide_fc_gen, ()),
+                ("din_head_fused", "fwd", DIN_WIDE_FC_ROWS, wide_fc_dims, wide_fc_label,
                  torch.bfloat16, wide_fc_gen, ())):
             rows[name].append(check_din(part, B, *dims, draw, label, dtype, seeds))
             emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})

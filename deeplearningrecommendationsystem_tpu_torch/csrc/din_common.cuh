@@ -159,9 +159,18 @@ __device__ __forceinline__ float op(float x) {
   }
 }
 
+// op<T> of four values; for bf16 rounded two at a time (one packing
+// conversion a pair: the same round to nearest even as op<bf16>).
 template <class T>
 __device__ __forceinline__ float4 op4(float4 v) {
-  return make_float4(op<T>(v.x), op<T>(v.y), op<T>(v.z), op<T>(v.w));
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+    const uint32_t ua = *reinterpret_cast<const uint32_t*>(&a), ub = *reinterpret_cast<const uint32_t*>(&b);
+    return make_float4(__uint_as_float(ua << 16), __uint_as_float(ua & 0xffff0000u),
+                       __uint_as_float(ub << 16), __uint_as_float(ub & 0xffff0000u));
+  }
 }
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
@@ -172,12 +181,13 @@ __device__ __forceinline__ float relu(float x) { return fmaxf(x, 0.f); }
 // C [M][N] = A [M][K] @ B: A in shared memory (row stride lda), B in device
 // memory (type T), [K][N] with row stride ldb, or with kTransB stored transposed,
 // [N][K] with row stride ldb (then C = A @ B^T); A's values enter the product as
-// op<T>. Each thread computes patches of TM rows
+// op<T>, or as they are with kExactA (values already of type T: op<T> would
+// leave them as they are). Each thread computes patches of TM rows
 // by 4 columns, summing over k in order, and hands each row of a patch that lies
 // below M to epi(row, column, float4). A warp takes 8 row groups by 4 column
 // groups: its loads of B touch 64 contiguous bytes and its loads of A 8 rows, so
 // B leaves L2 about 8 times less often than with one row group a warp.
-template <int TM, bool kTransB, class T, class Epi>
+template <int TM, bool kTransB, bool kExactA = false, class T, class Epi>
 __device__ __forceinline__ void block_mm_fma(const float* A, int lda, const T* __restrict__ B,
                                              int ldb, int M, int K, int N, Epi epi) {
   const int groups = (M + TM - 1) / TM, n4 = N >> 2;
@@ -207,7 +217,8 @@ __device__ __forceinline__ void block_mm_fma(const float* A, int lda, const T* _
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        const float4 a = op4<T>(*reinterpret_cast<const float4*>(arow[i] + k));
+        const float4 ai = *reinterpret_cast<const float4*>(arow[i] + k);
+        const float4 a = kExactA ? ai : op4<T>(ai);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const float av = at(a, u);
@@ -424,13 +435,13 @@ __device__ __forceinline__ void block_mm_tn_acc_mma(const float* X, int ldx, con
 // C [M][N] = A [M][K] @ B (or A @ B^T with kTransB), as block_mm_fma describes:
 // on CUDA cores for float B, on the tensor cores for bf16 B unless kTensor is
 // false.
-template <int TM, bool kTransB, bool kTensor = true, class T, class Epi>
+template <int TM, bool kTransB, bool kTensor = true, bool kExactA = false, class T, class Epi>
 __device__ __forceinline__ void block_mm(const float* A, int lda, const T* __restrict__ B,
                                          int ldb, int M, int K, int N, Epi epi) {
   if constexpr (kTensor && std::is_same_v<T, __nv_bfloat16>) {
     block_mm_mma<kTransB>(A, lda, B, ldb, M, K, N, epi);
   } else {
-    block_mm_fma<TM, kTransB>(A, lda, B, ldb, M, K, N, epi);
+    block_mm_fma<TM, kTransB, kExactA>(A, lda, B, ldb, M, K, N, epi);
   }
 }
 
@@ -666,12 +677,13 @@ __device__ __forceinline__ void attention_forward(const AttentionWeights<T>& a, 
   float* Q = sm + s.oQ;
   float* W = sm + s.oW;
   const int n4 = s.A2 >> 2;
-  block_mm<1, false, kTensor>(X + s.D, s.ldx, a.wt, s.A1, s.R, s.D, s.A1, [&](int r, int c, float4 v) {
+  // the history and target rows were staged from type T: exact operands
+  block_mm<1, false, kTensor, true>(X + s.D, s.ldx, a.wt, s.A1, s.R, s.D, s.A1, [&](int r, int c, float4 v) {
     const float4 b = load4(a.b1 + c);
     as4(Tt + r * s.ldt + c) = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
   });
   __syncthreads();
-  block_mm<10, false, kTensor>(H, s.ldh, a.wh, s.A1, s.M, s.D, s.A1, [&](int m, int c, float4 v) {
+  block_mm<10, false, kTensor, true>(H, s.ldh, a.wh, s.A1, s.M, s.D, s.A1, [&](int m, int c, float4 v) {
     const float4 t = as4(Tt + (m / s.L) * s.ldt + c);
     as4(R1 + m * s.ld1 + c) =
         make_float4(relu(v.x + t.x), relu(v.y + t.y), relu(v.z + t.z), relu(v.w + t.w));
@@ -752,11 +764,15 @@ __device__ __forceinline__ void fc_forward(const FcWeights<T>& f, const Layout& 
   __syncthreads();
 }
 
-// The whole DIN head's forward over B rows: logits [B] (type T) into out.
-template <class T>
+// The whole DIN head's forward over B rows: logits [B] (type T) into out, and,
+// given pooled, the pooled rows [B, D] (float32) for the backward's fc head.
+// kKOrder: the attention unit on CUDA cores (each sum in k order, as the bf16
+// backward recomputes it) rather than on the tensor cores.
+template <class T, bool kKOrder = false>
 __global__ void __launch_bounds__(kThreads, 1)
 din_fwd_kernel(const T* __restrict__ hist, const T* __restrict__ tgt, AttentionWeights<T> a,
-               FcWeights<T> f, T* __restrict__ out, long long B, Layout s) {
+               FcWeights<T> f, T* __restrict__ out, float* __restrict__ pooled, long long B,
+               Layout s) {
   extern __shared__ __align__(16) float sm[];
   const long long tiles = (B + s.R - 1) / s.R;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -765,7 +781,14 @@ din_fwd_kernel(const T* __restrict__ hist, const T* __restrict__ tgt, AttentionW
     __syncthreads();  // the previous tile's readers are done
     stage_tile(hist, tgt, nullptr, r0, B, s, sm);
     __syncthreads();
-    attention_forward(a, s, sm);
+    attention_forward<T, !kKOrder>(a, s, sm);
+    if (pooled != nullptr) {
+      const int d4 = s.D >> 2;
+      for (int e = threadIdx.x; e < s.R * d4; e += blockDim.x) {
+        const int r = e / d4, c = (e - r * d4) * 4;
+        if (r0 + r < B) as4(pooled + (r0 + r) * s.D + c) = as4(sm + s.oX + r * s.ldx + c);
+      }
+    }
     fc_forward(f, s, sm);
     const float* F2 = sm + s.oF2;
     for (int r = warp; r < s.R; r += kThreads / 32) {

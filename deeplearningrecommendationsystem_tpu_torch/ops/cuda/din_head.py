@@ -1,29 +1,39 @@
 """Checked launchers of the fused DIN head kernels (``csrc/din_head.cu``).
 
 ``din_head_fused``, the forward: in bfloat16 one launch of ``din_fwd_kernel``
-(its products on the tensor cores, m16n8k16); in float32 two launches on the
-tensor cores in float32 accuracy (3xTF32), the attention stage
+(its products on the tensor cores, m16n8k16), which under
+``din_head_fused_pooled`` also writes the pooled rows [B, D] (float32) that the
+backward's split takes (then, for fc layers wider than the library's
+``kTensorPoolF1`` or ``kTensorPoolF2``, its attention unit sums on CUDA cores
+in k order); in
+float32 two launches
+on the tensor cores in float32 accuracy (3xTF32), the attention stage
 (``din_pool_kernel`` with b3, into a pooled [B, D] buffer) and the fc head
 (``din_head_fc_kernel``), or, at widths whose tiles do not fit those two
 kernels (``fits`` without ``TF32_FWD``), one launch of ``din_fwd_kernel`` on
-CUDA cores (``din_head_fused_pooled`` also returns that pooled buffer).
-``din_head_fused_bwd``, the backward: in float32 five launches, the attention
-stage again for the pooled rows (none when the forward's are given: four), the
-fc head's backward on the tensor cores (``din_head_bwd_fc_head_kernel``:
-[dpooled | dt], its bias gradients and the rows below), the attention unit's
-backward on CUDA cores (``din_head_bwd_att_kernel``: d hist, d target, one
-slot of weight-gradient sums per block), the fc head's two large weight
-gradients from those rows (``din_head_bwd_fc_kernel``) and the sum of the
-slots in block order (``din_head_bwd_reduce_kernel``); in bfloat16, and in
-float32 at widths whose tiles do not fit the first three (``fits`` without
-``TF32_BWD``), three launches: ``din_head_bwd_kernel`` (the whole head's tile
-walk, which writes d hist, d target, the slots and the fc head's rows), then
-the last two. Each keeps a count of its launches (``.launches``), raised by
-one per kernel launch and nowhere else, and the same count by the inputs'
-dtype (``.launches_by_dtype``). Both take float32 or bfloat16, one dtype for
-hist_e, target_e and the 14 weights (the JAX kernel's single compute dtype; a
-mix raises), on the device of ``hist_e``; the widths must be multiples of 4,
-the fc widths at most 2048 and L at most 64. The forward returns logits in the
+CUDA cores (``din_head_fused_pooled`` also returns the pooled buffer).
+``din_head_fused_bwd``, the backward, split where the widths fit
+(``SPLIT_F32`` for float32, ``SPLIT_BF16`` for bfloat16): five launches, the
+pooled rows again (float32: the attention stage; bf16: ``din_fwd_kernel``;
+none when the forward's are given: four), the fc head's backward on the tensor
+cores (float32: ``din_head_bwd_fc_head_kernel``, 3xTF32, or, where its tile
+does not fit, ``din_head_bwd_fc_stream_kernel<float>``; bf16:
+``din_head_bwd_fc_stream_kernel<bf16>``, m16n8k16: [dpooled | dt], its bias
+gradients and the rows below), the attention unit's backward
+(``din_head_bwd_att_kernel``: d hist, d target, one slot of weight-gradient
+sums per block; its recompute on CUDA cores, its products there in float32 and
+on the tensor cores in bf16), the fc head's two large weight gradients from
+those rows (``din_head_bwd_fc_kernel``) and the sum of the slots in block
+order (``din_head_bwd_reduce_kernel``); in float32 at widths without the split
+bit, three launches: ``din_head_bwd_kernel`` (the whole head's tile walk,
+which writes d hist, d target, the slots and the fc head's rows), then the last
+two; bf16 without ``SPLIT_BF16`` raises before any launch. Each
+keeps a count of its launches (``.launches``), raised by one per kernel launch
+and nowhere else, and the same count by the inputs' dtype
+(``.launches_by_dtype``). Both take float32 or bfloat16, one dtype for hist_e,
+target_e and the 14 weights (the JAX kernel's single compute dtype; a mix
+raises), on the device of ``hist_e``; the widths must be multiples of 4, the fc
+widths at most 2048 and L at most 64. The forward returns logits in the
 inputs' dtype; the backward takes a cotangent g of either dtype (widened to
 float32 for the kernel) and returns float32 gradients.
 
@@ -58,9 +68,9 @@ MAX_HISTORY = 64  # kMaxHistory in csrc/din_common.cuh
 MAX_FC = 2048  # the fc widths din_head_bwd_fc_kernel takes: 4 columns a thread of 512
 SMEM_LIMIT = 232_448  # kSmemLimit: shared memory a block may use on Hopper
 # din_head_fits' bits: the tile layouts of the forward (din_fwd_kernel), the
-# backward (din_head_bwd_kernel), the window pool (din_pool.cuh), and the
-# float32 forward and backward on the tensor cores
-FWD, BWD, POOL, TF32_FWD, TF32_BWD = 1, 2, 4, 8, 16
+# backward (din_head_bwd_kernel), the window pool (din_pool.cuh), the float32
+# forward on the tensor cores, and the backward's split in float32 and in bf16
+FWD, BWD, POOL, TF32_FWD, SPLIT_F32, SPLIT_BF16 = 1, 2, 4, 8, 16, 32
 DTYPES = (torch.float32, torch.bfloat16)
 _GRADS = 13  # the slot's blocks: u1p and u1t share one, u1 [2D, F1]
 
@@ -74,7 +84,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of ``din_head.cu``) with its entry points' argument and
     result types set, checked against this launcher."""
     W = ctypes.POINTER(P)
-    lib.din_head_fwd.argtypes = [P, P, W, P, LL, I, I, I, I, I, I, I, P]
+    lib.din_head_fwd.argtypes = [P, P, W, P, P, LL, I, I, I, I, I, I, I, P]
     lib.din_head_fwd.restype = I
     lib.din_head_bwd_blocks.argtypes = [LL, I, I, I, I, I, I, I]
     lib.din_head_bwd_blocks.restype = I
@@ -86,9 +96,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.din_head_bwd_reduce.restype = I
     lib.din_head_fits.argtypes = [I, I, I, I, I, I]
     lib.din_head_fits.restype = I
-    lib.din_head_bwd_fc_head.argtypes = [P, P, W, P, P, P, P, LL, I, I, I, I, I, I, I, P]
+    lib.din_head_bwd_fc_head.argtypes = [P, P, W, P, P, P, P, LL, I, I, I, I, I, I, I, I, P]
     lib.din_head_bwd_fc_head.restype = I
-    lib.din_head_bwd_att.argtypes = [P, P, W, P, P, P, P, LL, I, I, I, I, I, I, I, P]
+    lib.din_head_bwd_att.argtypes = [P, P, W, P, P, P, P, LL, I, I, I, I, I, I, I, I, P]
     lib.din_head_bwd_att.restype = I
     lib.din_head_fwd_pool.argtypes = [P, P, W, P, LL, I, I, I, I, I, I, P]
     lib.din_head_fwd_pool.restype = I
@@ -140,17 +150,19 @@ def _fc_floats(D, F1, F2, R) -> int:
     return R * _stride8(2 * D) + R * _stride8(F1) + _r4(R * -(-F2 // 16))
 
 
-def _fc_bwd_floats(D, F1, F2, R) -> int:
-    """make_fc_bwd_layout's total (floats), the float32 backward's fc head."""
-    return sum(_r4(n) for n in (R * _stride8(max(2 * D, F2)), R * _stride8(F1), R, R, F1, F2, F1,
-                                F2, F2, 1))
+def _fc_stream_floats(D, F1, F2, R, bf16) -> int:
+    """make_fc_stream_layout's total (floats), the streamed fc head's backward."""
+    return sum(_r4(n) for n in (R * (128 + (16 if bf16 else 8)), R * 264, R * (2 * D + 4) * bf16, R,
+                                F1, F2, F2, 1))
 
 
 def fits(L: int, D: int, A1: int, A2: int, F1: int, F2: int) -> int:
     """``din_head_fits`` of the library, from the widths alone: the bits FWD,
-    BWD, POOL, TF32_FWD and TF32_BWD of the tile layouts whose smallest tile
-    (the fewest rows each takes) fits in SMEM_LIMIT bytes; 0 for widths the
-    kernels refuse (L past MAX_HISTORY, widths not multiples of 4)."""
+    BWD, POOL, TF32_FWD, SPLIT_F32 and SPLIT_BF16 of the tile layouts whose
+    smallest tile (the fewest rows each takes) fits in SMEM_LIMIT bytes; 0 for
+    widths the kernels refuse (L past MAX_HISTORY, widths not multiples of 4).
+    The split takes the attention unit's tile, the streamed fc head's and the
+    stage of the pooled rows (float32: TF32_FWD; bf16: FWD)."""
     if not 1 <= L <= MAX_HISTORY or any(n < 4 or n % 4 for n in (D, A1, A2, F1, F2)):
         return 0
 
@@ -160,9 +172,11 @@ def fits(L: int, D: int, A1: int, A2: int, F1: int, F2: int) -> int:
     fwd, bwd = ok(_head_floats(L, D, A1, A2, F1, F2, 1, 0)), ok(_head_floats(L, D, A1, A2, F1, F2, 1, 1))
     pool = ok(_pool_floats(L, D, A1, A2, 1, False))
     tf32_fwd = pool and ok(_fc_floats(D, F1, F2, 16))
-    tf32_bwd = (tf32_fwd and ok(_fc_bwd_floats(D, F1, F2, 16))
-                and ok(_head_floats(L, D, A1, A2, 4, 4, 1, 1)))
-    return FWD * fwd | BWD * bwd | POOL * pool | TF32_FWD * tf32_fwd | TF32_BWD * tf32_bwd
+    att = ok(_head_floats(L, D, A1, A2, 4, 4, 1, 1))
+    split_f32 = tf32_fwd and att and ok(_fc_stream_floats(D, F1, F2, 16, False))
+    split_bf16 = fwd and att and ok(_fc_stream_floats(D, F1, F2, 16, True))
+    return (FWD * fwd | BWD * bwd | POOL * pool | TF32_FWD * tf32_fwd | SPLIT_F32 * split_f32
+            | SPLIT_BF16 * split_bf16)
 
 
 def _check(hist_e, target_e, weights, name: str):
@@ -216,14 +230,15 @@ def din_head_fused(hist_e, target_e, weights):
     ``din_fwd_kernel<bf16>``; f32: ``din_pool_kernel`` (b3 kept) and
     ``din_head_fc_kernel`` on the tensor cores, or ``din_fwd_kernel<float>`` on
     CUDA cores where the widths do not fit the pair (no ``TF32_FWD``)."""
-    return din_head_fused_pooled(hist_e, target_e, weights)[0]
+    return din_head_fused_pooled(hist_e, target_e, weights, keep_pooled=False)[0]
 
 
-def din_head_fused_pooled(hist_e, target_e, weights):
-    """``din_head_fused``, and the pooled rows [B, D] (float32) that its
-    attention stage wrote, or None where the forward has no such stage (bf16,
-    or ``din_fwd_kernel<float>``): ``din_head_fused_bwd`` takes them in place
-    of launching the attention stage again, which would write the same bits."""
+def din_head_fused_pooled(hist_e, target_e, weights, keep_pooled=True):
+    """``din_head_fused``, and the pooled rows [B, D] (float32) that it wrote
+    (bf16: ``din_fwd_kernel``; float32: its attention stage), or None where the
+    float32 forward takes ``din_fwd_kernel<float>`` or, in bf16, where
+    ``keep_pooled`` is False: ``din_head_fused_bwd`` takes them in place of
+    launching that stage again, which would write the same bits."""
     dims = _check(hist_e, target_e, weights, "din_head_fused")
     B, L, D, A1, A2, F1, F2 = dims
     lib = _lib()
@@ -233,11 +248,14 @@ def din_head_fused_pooled(hist_e, target_e, weights):
     with torch.cuda.device(device):
         s = stream(device.index)
         if bf16 or not lib.din_head_fits(L, D, A1, A2, F1, F2) & TF32_FWD:
+            pooled = (torch.empty((B, D), dtype=torch.float32, device=device)
+                      if bf16 and keep_pooled else None)
             code = lib.din_head_fwd(hist_e.data_ptr(), target_e.data_ptr(), _pointers(weights),
-                                    out.data_ptr(), *dims, bf16, s)
+                                    out.data_ptr(), None if pooled is None else pooled.data_ptr(),
+                                    *dims, bf16, s)
             raise_on(lib.din_head_error_string, code, "din_head_fused")
             _counted(din_head_fused, hist_e.dtype)
-            return out, None
+            return out, pooled
         pooled = torch.empty((B, D), dtype=torch.float32, device=device)
         code = lib.din_head_fwd_pool(hist_e.data_ptr(), target_e.data_ptr(), _pointers(weights),
                                      pooled.data_ptr(), *dims, s)
@@ -253,11 +271,12 @@ def din_head_fused_pooled(hist_e, target_e, weights):
 def din_head_fused_bwd(hist_e, target_e, weights, g, pooled=None):
     """Launch the backward: the forward's inputs and the logit cotangent g [B]
     (f32 or bf16) -> (d hist_e, d target_e, the 14 weight gradients in their
-    weights' shapes), all f32. f32 where the widths fit (``TF32_BWD``): the
-    attention stage for the pooled rows (unless ``pooled``, the forward's from
-    ``din_head_fused_pooled``, is given), ``din_head_bwd_fc_head_kernel``,
-    ``din_head_bwd_att_kernel``; else ``din_head_bwd_kernel``; then
-    ``din_head_bwd_fc_kernel`` and ``din_head_bwd_reduce_kernel``."""
+    weights' shapes), all f32. Where the widths fit the split (``SPLIT_F32``,
+    ``SPLIT_BF16``): the stage of the pooled rows (unless ``pooled``, the
+    forward's from ``din_head_fused_pooled``, is given), the fc head's kernel,
+    ``din_head_bwd_att_kernel``; else, in float32, ``din_head_bwd_kernel``;
+    then ``din_head_bwd_fc_kernel`` and ``din_head_bwd_reduce_kernel``. bf16
+    widths without ``SPLIT_BF16`` raise RuntimeError before any launch."""
     dims = _check(hist_e, target_e, weights, "din_head_fused_bwd")
     B, L, D, A1, A2, F1, F2 = dims
     device = hist_e.device
@@ -267,6 +286,10 @@ def din_head_fused_bwd(hist_e, target_e, weights, g, pooled=None):
     g = g.float()  # [B]: the kernel reads a float32 cotangent
     bf16 = _is_bf16(hist_e)
     lib = _lib()
+    split = lib.din_head_fits(L, D, A1, A2, F1, F2) & (SPLIT_BF16 if bf16 else SPLIT_F32)
+    if bf16 and not split:
+        raise RuntimeError(f"din_head_fused_bwd: the bf16 backward's split takes no tile at L={L}, "
+                           f"D={D}, A=({A1}, {A2}), F=({F1}, {F2}) (fits without SPLIT_BF16)")
     offsets = (I * _GRADS)()
     total = lib.din_head_grad_offsets(D, A1, A2, F1, F2, offsets)
     dhist = torch.empty((B, L, D), dtype=torch.float32, device=device)
@@ -280,12 +303,17 @@ def din_head_fused_bwd(hist_e, target_e, weights, g, pooled=None):
         part = torch.empty((blocks, total), dtype=torch.float32, device=device)
         rows = torch.empty((B * (2 * D + 2 * F1 + F2),), dtype=torch.float32, device=device)
         s = stream(device.index)
-        if not bf16 and lib.din_head_fits(L, D, A1, A2, F1, F2) & TF32_BWD:
+        if split:
             if pooled is None:
                 pooled = torch.empty((B, D), dtype=torch.float32, device=device)
-                code = lib.din_head_fwd_pool(hist_e.data_ptr(), target_e.data_ptr(), w,
-                                             pooled.data_ptr(), *dims, s)
-                raise_on(lib.din_head_error_string, code, "din_head_fused_bwd (attention stage)")
+                if bf16:
+                    logits = torch.empty((B,), dtype=hist_e.dtype, device=device)
+                    code = lib.din_head_fwd(hist_e.data_ptr(), target_e.data_ptr(), w,
+                                            logits.data_ptr(), pooled.data_ptr(), *dims, 1, s)
+                else:
+                    code = lib.din_head_fwd_pool(hist_e.data_ptr(), target_e.data_ptr(), w,
+                                                 pooled.data_ptr(), *dims, s)
+                raise_on(lib.din_head_error_string, code, "din_head_fused_bwd (pooled rows)")
                 _counted(din_head_fused_bwd, hist_e.dtype)
             else:
                 check("pooled", pooled, (torch.float32,), 2, device)
@@ -294,12 +322,12 @@ def din_head_fused_bwd(hist_e, target_e, weights, g, pooled=None):
             dpt = torch.empty((B, 2 * D), dtype=torch.float32, device=device)
             code = lib.din_head_bwd_fc_head(pooled.data_ptr(), target_e.data_ptr(), w, g.data_ptr(),
                                             dpt.data_ptr(), rows.data_ptr(), part.data_ptr(), *dims,
-                                            blocks, s)
+                                            blocks, bf16, s)
             raise_on(lib.din_head_error_string, code, "din_head_fused_bwd (fc head)")
             _counted(din_head_fused_bwd, hist_e.dtype)
             code = lib.din_head_bwd_att(hist_e.data_ptr(), target_e.data_ptr(), w, dpt.data_ptr(),
                                         dhist.data_ptr(), dtgt.data_ptr(), part.data_ptr(), *dims,
-                                        blocks, s)
+                                        blocks, bf16, s)
             raise_on(lib.din_head_error_string, code, "din_head_fused_bwd (attention unit)")
             _counted(din_head_fused_bwd, hist_e.dtype)
         else:

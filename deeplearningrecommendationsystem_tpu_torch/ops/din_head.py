@@ -54,7 +54,8 @@ def kernel_route(att: Layers, fc: Layers, L: int, D: int) -> bool:
     in one unit, biases on the attention net's hidden layers, L at most
     ``MAX_HISTORY``, D, A1, A2, F1, F2 multiples of 4 with F at most
     ``MAX_FC``, and widths at which a tile of every launch the route sends (the
-    head's forward and backward, the window pool) fits a block's shared memory
+    head's forward, its backward in both dtypes: float32's tile walk and the
+    bf16 split, the window pool) fits a block's shared memory
     (``ops/cuda/din_head.py::fits``: at L 64 and the preset's nets, D up to
     360). Otherwise DIN takes the composition ``attention_pool`` + ``mlp``,
     the JAX DIN's default route. Decided from shapes alone, before any
@@ -65,7 +66,7 @@ def kernel_route(att: Layers, fc: Layers, L: int, D: int) -> bool:
     F1, F2 = fc[0]["w"].shape[1], fc[1]["w"].shape[1]
     if att[2]["w"].shape[1] != 1 or fc[2]["w"].shape[1] != 1:
         return False
-    every = _cuda.FWD | _cuda.BWD | _cuda.POOL
+    every = _cuda.FWD | _cuda.BWD | _cuda.POOL | _cuda.SPLIT_BF16
     return max(F1, F2) <= _cuda.MAX_FC and _cuda.fits(L, D, A1, A2, F1, F2) & every == every
 
 
@@ -176,8 +177,8 @@ def din_head_fwd(hist_e, target_e, weights):
 def din_head_bwd(hist_e, target_e, weights, g, pooled=None):
     """(d hist_e, d target_e, d wh, ..., d c3) for the logit cotangent g [B],
     float32. On the card, ``pooled`` (the forward's pooled rows, from
-    ``ops/cuda/din_head.py::din_head_fused_pooled``) saves the float32
-    backward a launch; the plain version recomputes everything."""
+    ``ops/cuda/din_head.py::din_head_fused_pooled``) saves the backward a
+    launch in either dtype; the plain version recomputes everything."""
     if _on_cpu(hist_e, target_e, *weights, g):
         return din_head_bwd_plain(hist_e, target_e, weights, g)
     return _cuda.din_head_fused_bwd(hist_e, target_e, weights, g, pooled)
@@ -208,5 +209,11 @@ class DinHead(torch.autograd.Function):
 
 def din_head(att: Layers, fc: Layers, hist_e: torch.Tensor,
              target_e: torch.Tensor) -> torch.Tensor:
-    """Differentiable logits [B]: ``din_head_fused``'s counterpart."""
-    return DinHead.apply(hist_e, target_e, *din_head_weights(att, fc, hist_e.shape[-1]))
+    """Differentiable logits [B]: ``din_head_fused``'s counterpart. Where no
+    backward can follow (grad mode off, or no input needs a gradient), the
+    forward alone, which keeps no pooled rows."""
+    weights = din_head_weights(att, fc, hist_e.shape[-1])
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (hist_e, target_e, *weights))):
+        return din_head_fwd(hist_e.contiguous(), target_e.contiguous(),
+                            tuple(w.contiguous() for w in weights))
+    return DinHead.apply(hist_e, target_e, *weights)

@@ -732,11 +732,12 @@ def _fwd_launches(L, D, A, F) -> int:
 
 
 def _bwd_launches(L, D, A, F, dtype=torch.float32) -> int:
-    """Launches of one backward: 5 in float32 on the tensor cores (attention
-    stage, fc head, attention unit, fc weight gradients, reduce), 3 in bf16 and
-    where the widths take din_head_bwd_kernel<float>."""
-    tf32 = cuda_dh._lib().din_head_fits(L, D, A[0], A[1], F[0], F[1]) & cuda_dh.TF32_BWD
-    return 5 if dtype == torch.float32 and tf32 else 3
+    """Launches of one backward without the forward's pooled rows: 5 where the
+    widths take the split in that dtype (the pooled rows, fc head, attention
+    unit, fc weight gradients, reduce), 3 where they take
+    din_head_bwd_kernel<float> (float32 only: bf16 has the split alone)."""
+    bit = cuda_dh.SPLIT_BF16 if dtype == torch.bfloat16 else cuda_dh.SPLIT_F32
+    return 5 if cuda_dh._lib().din_head_fits(L, D, A[0], A[1], F[0], F[1]) & bit else 3
 
 
 # the backward besides DIN_SHAPES: an embedding whose float32 backward keeps
@@ -744,9 +745,10 @@ def _bwd_launches(L, D, A, F, dtype=torch.float32) -> int:
 # the tensor cores
 DIN_BWD_SHAPES = [(60, 64, 512, (8, 4, 1), (8, 4, 1)),
                   (2_000, 64, 64, (128, 64, 1), (256, 128, 1))]
-# the widest fc the kernels take: its fc tile is too wide for the float32
-# tensor-core kernels (din_head_bwd_kernel<float>), and the fc weight gradients
-# stage a few rows (float32), or a window of columns (bf16), at a time
+# the widest fc the kernels take: din_head_bwd_fc_head_kernel's tile does not fit
+# (the split's fc head streams: din_head_bwd_fc_stream_kernel), and the fc
+# weight gradients stage a few rows (float32), or a window of columns (bf16), at
+# a time
 DIN_WIDE_FC_SHAPE = (300, 10, 64, (128, 64, 1), (2048, 2048, 1))
 
 
@@ -808,8 +810,9 @@ def _kinked_rows(hist, tgt, weights, limit=1e-6):
 
 
 def test_din_head_fused_bwd_at_the_widest_fc(cuda):
-    """F (2048, 2048) in float32: three launches (din_head_bwd_kernel<float>)
-    and the plain version's gradients on the rows none of whose 4,096 fc relu
+    """F (2048, 2048) in float32: the split's five launches (its fc head in
+    din_head_bwd_fc_stream_kernel<float>, not din_head_bwd_kernel<float>) and
+    the plain version's gradients on the rows none of whose 4,096 fc relu
     inputs lies at a kink; two launches repeat bit for bit."""
     B, L, D, A, F = DIN_WIDE_FC_SHAPE
     att, fc, hist, tgt, cot = _din_inputs(cuda, B, L, D, A, F, seed=B + D)
@@ -820,7 +823,7 @@ def test_din_head_fused_bwd_at_the_widest_fc(cuda):
     before = cuda_dh.din_head_fused_bwd.launches
     got = dh.din_head_bwd(*sub)
     torch.cuda.synchronize()
-    assert cuda_dh.din_head_fused_bwd.launches == before + _bwd_launches(L, D, A, F) == before + 3
+    assert cuda_dh.din_head_fused_bwd.launches == before + _bwd_launches(L, D, A, F) == before + 5
     for i, (gt, wt) in enumerate(zip(got, dh.din_head_bwd_plain(*sub))):
         if i == DB3:
             _close_db3(gt, wt, sub[3])
@@ -858,26 +861,68 @@ def test_din_head_autograd_on_the_card(cuda):
         _close(got.grad.cpu(), want.grad, 1e-4)
 
 
-def test_din_head_backward_takes_the_forwards_pooled_rows(cuda):
-    """The float32 forward's pooled rows (``din_head_fused_pooled``) are the bits
-    the backward's own attention stage writes: handed to the backward they save
-    its first launch and change no gradient's bits. bf16, and the CUDA-core
-    forward, keep none."""
-    att, fc, hist, tgt, cot = _din_inputs(cuda, 5_003, 10, 64, (128, 64, 1), (256, 128, 1), seed=1)
-    weights = dh.din_head_weights(att, fc, 64)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [(256, 128, 1), (2048, 2048, 1)])
+def test_din_head_backward_takes_the_forwards_pooled_rows(cuda, dtype, F):
+    """The forward's pooled rows (``din_head_fused_pooled``: the float32
+    attention stage's, or din_fwd_kernel<bf16>'s) are the bits the backward's
+    own launch of that stage writes: handed to the backward they save its first
+    launch and change no gradient's bits. The forward's logits are those of the
+    forward that keeps no pooled rows, bit for bit, but in bf16 past the library's
+    (kTensorPoolF1, kTensorPoolF2) (fc (2048, 2048) here), where the pooled rows'
+    attention unit sums in k order on CUDA cores: there within the bf16
+    forward's tolerance."""
+    att, fc, hist, tgt, cot = _din_inputs(cuda, 5_003 if F[0] < 2048 else 300, 10, 64,
+                                          (128, 64, 1), F, seed=1)
+    weights = [w.to(dtype) for w in dh.din_head_weights(att, fc, 64)]
+    hist, tgt, cot = hist.to(dtype), tgt.to(dtype), cot.to(dtype)
     out, pooled = cuda_dh.din_head_fused_pooled(hist, tgt, weights)
-    assert pooled.shape == (5_003, 64) and pooled.dtype == torch.float32
-    assert torch.equal(out, cuda_dh.din_head_fused(hist, tgt, weights))
+    assert pooled.shape == (hist.shape[0], 64) and pooled.dtype == torch.float32
+    alone = cuda_dh.din_head_fused(hist, tgt, weights)
+    if dtype == torch.bfloat16 and F[0] == 2048:
+        _close(out.float(), alone.float(), DIN_BF16_RTOL["fwd"])
+    else:
+        assert torch.equal(out, alone)
     before = cuda_dh.din_head_fused_bwd.launches
     got = cuda_dh.din_head_fused_bwd(hist, tgt, weights, cot, pooled)
     torch.cuda.synchronize()
     assert cuda_dh.din_head_fused_bwd.launches == before + 4
     want = cuda_dh.din_head_fused_bwd(hist, tgt, weights, cot)
+    assert cuda_dh.din_head_fused_bwd.launches == before + 9
     assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
-    bf16 = _bf16(hist, tgt, *weights)
-    assert cuda_dh.din_head_fused_pooled(bf16[0], bf16[1], bf16[2:])[1] is None
-    att, fc, hist, tgt, _ = _din_inputs(cuda, 20, 64, 512, (8, 4, 1), (8, 4, 1), seed=2)
+
+
+def test_din_head_cuda_core_forward_keeps_no_pooled_rows(cuda):
+    """Where the float32 forward takes din_fwd_kernel<float> (D 512 at L 64) it
+    returns no pooled rows, and its backward keeps din_head_bwd_kernel<float>."""
+    att, fc, hist, tgt, cot = _din_inputs(cuda, 20, 64, 512, (8, 4, 1), (8, 4, 1), seed=2)
     assert cuda_dh.din_head_fused_pooled(hist, tgt, dh.din_head_weights(att, fc, 512))[1] is None
+    assert _bwd_launches(64, 512, (8, 4, 1), (8, 4, 1)) == 3
+
+
+def test_din_head_bf16_backward_takes_only_the_split(cuda):
+    """At widths whose tiles fit the float32 backward's tile walk but not the
+    bf16 split (the fits bits FWD | BWD: a short history at D 1612), the float32
+    backward launches din_head_bwd_kernel<float> and matches its plain version;
+    the bf16 backward raises before any launch, and kernel_route refuses the
+    widths (no window pool tile either)."""
+    B, L, D, A, F = 40, 4, 1612, (12, 8, 1), (20, 12, 1)
+    assert cuda_dh._lib().din_head_fits(L, D, A[0], A[1], F[0], F[1]) == cuda_dh.FWD | cuda_dh.BWD
+    att, fc, hist, tgt, cot = _din_inputs(cuda, B, L, D, A, F, seed=7)
+    assert not dh.kernel_route(att, fc, L, D)
+    weights = dh.din_head_weights(att, fc, D)
+    before = cuda_dh.din_head_fused_bwd.launches
+    got = dh.din_head_bwd(hist, tgt, weights, cot)
+    torch.cuda.synchronize()
+    assert cuda_dh.din_head_fused_bwd.launches == before + 3
+    for i, (gt, wt) in enumerate(zip(got, dh.din_head_bwd_plain(hist, tgt, weights, cot))):
+        if i == DB3:
+            _close_db3(gt, wt, cot)
+        else:
+            _close(gt, wt, 1e-4)
+    with pytest.raises(RuntimeError, match="SPLIT_BF16"):
+        dh.din_head_bwd(*_bf16(hist, tgt), _bf16(*weights), cot.bfloat16())
+    assert cuda_dh.din_head_fused_bwd.launches == before + 3
 
 
 def _bf16(*tensors):
@@ -912,9 +957,11 @@ def test_din_head_fused_bwd_bf16_matches_plain(cuda, B, L, D, A, F):
     before = cuda_dh.din_head_fused_bwd.launches, dict(cuda_dh.din_head_fused_bwd.launches_by_dtype)
     got = dh.din_head_bwd(hist, tgt, weights, cot)
     torch.cuda.synchronize()
-    assert cuda_dh.din_head_fused_bwd.launches == before[0] + 3
+    n = _bwd_launches(L, D, A, F, torch.bfloat16)
+    assert n == 5  # the split at every shape here
+    assert cuda_dh.din_head_fused_bwd.launches == before[0] + n
     assert cuda_dh.din_head_fused_bwd.launches_by_dtype == {
-        "float32": before[1]["float32"], "bfloat16": before[1]["bfloat16"] + 3}
+        "float32": before[1]["float32"], "bfloat16": before[1]["bfloat16"] + n}
     want = dh.din_head_bwd_plain(hist, tgt, weights, cot)
     for i, (gt, wt) in enumerate(zip(got, want)):
         assert gt.shape == wt.shape and gt.dtype == torch.float32
@@ -936,6 +983,9 @@ def test_din_head_fit_mirror_matches_the_library(cuda):
                 for F in ((20, 12), (256, 128), (2048, 128), (2048, 2048)):
                     assert cuda_dh.fits(L, D, *A, *F) == lib.din_head_fits(L, D, *A, *F), (L, D, A, F)
     assert cuda_dh.fits(10, 6, 128, 64, 256, 128) == lib.din_head_fits(10, 6, 128, 64, 256, 128) == 0
+    split = cuda_dh.SPLIT_F32 | cuda_dh.SPLIT_BF16
+    for F in ((256, 128), (2048, 2048)):  # the preset and the widest fc take the split in both dtypes
+        assert lib.din_head_fits(10, 64, 128, 64, *F) & split == split
     assert cuda_dh.fits(65, 64, 128, 64, 256, 128) == lib.din_head_fits(65, 64, 128, 64, 256, 128) == 0
 
 

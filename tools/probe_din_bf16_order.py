@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Why the bf16 DIN head's backward recomputes its forward on CUDA cores.
+"""Why the bf16 DIN head's backward recomputes its attention unit on CUDA cores.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 tools/probe_din_bf16_order.py [--seeds 1 2 3] [--rows 87900]
 
 The bf16 head multiplies on the tensor cores (``csrc/din_common.cuh``,
-``block_mm_mma``), but its backward kernel recomputes the forward, whose relu
-masks decide every gradient, on CUDA cores. This probe builds that kernel as
-shipped and a variant whose recompute runs on the tensor cores too (a copy of
-``din_head.cu`` with ``attention_forward<T, false>`` and ``fc_forward<T, false>``
-made ``true``, built beside the shipped library), and holds each, on
+``block_mm_mma``), but its backward recomputes the attention unit's forward,
+whose relu masks decide every gradient, on CUDA cores: at the train batch the
+backward is the split (``din_head_bwd_fc_stream_kernel``, whose fc head sums on
+the tensor cores and sums again in k order the relu inputs near 0, then
+``din_head_bwd_att_kernel<bf16>``, whose ``attention_forward<T, false>``
+recomputes z1 and z2). This probe builds the library as shipped and a variant
+whose recompute of the attention unit runs on the tensor cores too (a copy of
+``din_head.cu`` with ``attention_forward<T, false>`` made ``true``, built
+beside the shipped library), and holds each, on
 ``chip_smoke.py``'s DIN inputs at the train batch (rows at a float32 relu kink
 set aside, as its bf16 check does), against two references:
 
@@ -45,7 +49,7 @@ from deeplearningrecommendationsystem_tpu_torch.ops import din_head as dh  # noq
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import build  # noqa: E402
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_head as cuda_dh  # noqa: E402
 
-RECOMPUTE = ("din::attention_forward<T, false>(a, s, sm);", "din::fc_forward<T, false>(f, s, sm);")
+RECOMPUTE = ("din::attention_forward<T, false>(a, s, sm);",)
 
 
 def tensor_core_recompute() -> Path:
@@ -101,7 +105,8 @@ def main() -> int:
         hist, tgt, g = hist.bfloat16(), tgt.bfloat16(), g.bfloat16()
         att, fc = ([{k: v.bfloat16() for k, v in layer.items()} for layer in net] for net in (att, fc))
         weights = dh.din_head_weights(att, fc, D)
-        smooth = cs.kink_distance(hist, tgt, weights) > cs.DIN_KINK
+        dist, near = cs.kink_distance(hist, tgt, weights, cs.DIN_BF16_KINK)
+        smooth = dist > cs.DIN_KINK
         sub = (hist[smooth].contiguous(), tgt[smooth].contiguous(), weights, g[smooth].contiguous())
         grads = {"plain": dh.din_head_bwd_plain(*sub)}
         logits = {"plain": dh.din_head_fwd_plain(*sub[:3])}
@@ -111,10 +116,11 @@ def main() -> int:
         finally:
             float64_products(False)
         logits["kernel"] = dh.din_head_fwd(*sub[:3])
-        grads["cuda-core recompute"] = dh.din_head_bwd(*sub)
+        pooled = cuda_dh.din_head_fused_pooled(*sub[:3])[1]  # the same forward in both builds
+        grads["cuda-core recompute"] = dh.din_head_bwd(*sub, pooled=pooled)
         cuda_dh._lib = lambda: variant
         try:
-            grads["tensor-core recompute"] = dh.din_head_bwd(*sub)
+            grads["tensor-core recompute"] = dh.din_head_bwd(*sub, pooled=pooled)
         finally:
             cuda_dh._lib = shipped
         torch.cuda.synchronize()
@@ -125,7 +131,8 @@ def main() -> int:
                          for b in ("plain", "exact") if a != b},
             "logits_off": {f"{a} vs {b}": int((logits[a] != logits[b]).sum())
                            for a, b in (("kernel", "plain"), ("kernel", "exact"), ("plain", "exact"))},
-            "limit_rows_off": cs.DIN_BF16_ROWS_OFF, "limit_logits_off": cs.DIN_BF16_LOGITS_OFF,
+            "limit_rows_off": int(-(-cs.DIN_BF16_OFF_SHARE * int(near[smooth].sum()) // 1)),
+            "limit_logits_off": cs.DIN_BF16_LOGITS_OFF,
         }), flush=True)
     print(cs.card_line(), flush=True)
     return 0

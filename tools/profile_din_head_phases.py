@@ -4,6 +4,7 @@
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 tools/profile_din_head_phases.py [--rows 87900] [--dtype bfloat16 float32]
+        [--fc 256 128]
 
 The head's kernels (``csrc/din_head.cu``, ``csrc/din_common.cuh``) are a chain
 of block-wide phases between ``__syncthreads()`` calls, which a profiler that
@@ -11,10 +12,14 @@ times whole kernels cannot split. This tool builds an instrumented copy of
 the two sources, beside the launcher's library in ``build/kernels/``: after
 every ``__syncthreads()``, thread 0 of each block adds the ``clock64()``
 cycles since the block's previous barrier to a counter of that barrier. It
-then runs the forward and the backward (bf16: three launches; float32: the
-attention stage, unmarked, then the fc head's backward, the attention unit's,
-the fc weight gradients and the slots' sum) once at the DIN train batch (D 64, L 10, attention (128, 64, 1), fc (256, 128, 1), ``chip_smoke.py``'s
-inputs) and prints one JSON line per dtype and direction: each barrier's file
+then runs the forward and the backward once at the DIN train batch (D 64, L
+10, attention (128, 64, 1), fc (256, 128, 1) or the widths of ``--fc``,
+``chip_smoke.py``'s inputs; the
+backward as training runs it, given the forward's pooled rows: the fc head's
+backward (float32:
+``din_head_bwd_fc_head_kernel``; bf16: ``din_head_bwd_fc_stream_kernel``), the
+attention unit's (``din_head_bwd_att_kernel``), the fc weight gradients and
+the slots' sum) and prints one JSON line per dtype and direction: each barrier's file
 and line, the calls and loops written between it and the barrier above it,
 and its cycles per tile and share (the cycles summed over the blocks, over
 the tiles; a barrier's cycles are those of the phase that ends at it, waits
@@ -24,9 +29,12 @@ after the loop's last barrier. Cycles are per 16 rows in every kernel. The
 float32 forward is its attention stage (``din_pool.cuh``, whose group barriers
 this tool does not mark: ``tools/profile_din_pool_phases.py`` times that
 kernel's phases) and ``din_head_fc_kernel``, 64 rows a block, whose phase up to
-its first barrier (the staging of its rows) is not counted. The float32
-backward's fc head kernel (64 rows a tile) is marked the same way; its loop's
-first barrier also closes its set-up (the columns' largest |weight|). Then the card's
+its first barrier (the staging of its rows) is not counted. The
+backward's fc head kernels (up to 64 rows a tile) are marked the same way;
+their loop's first barrier also closes their set-up (the columns' largest
+|weight|). The streamed fc head's four products share ``stream_mm``'s
+barriers (its chunk staging, the chunk's products, the epilogue and the
+panel's post-pass), summed over the four. Then the card's
 name and power limit. The copy is not the shipped library; it needs a card.
 """
 
@@ -91,7 +99,8 @@ def work(lines: list, barrier: int) -> list:
         if "__syncthreads();" in line:
             break
         m = re.match(r"(?:din::)?(block_mm\w*<[^>]*>\(\w+|block_colsum_acc<\w+>\(\w+|store_rows\(\w+|"
-                     r"row_abs\(\w+|"
+                     r"row_abs\w*(?:<\w+>)?\(\w+|stream_mm<\w+>\(\w+|store_panel\(\w+|"
+                     r"warp_chunk_mm|post\(|"
                      r"stage_tile|attention_forward|fc_forward|fc_weight_grad\w*|for \(\w+ \w+ = \w+)", line)
         if m:
             found.append(m.group(1))
@@ -148,6 +157,7 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=87_900)  # the DIN train batch of chip_smoke.py
     ap.add_argument("--dtype", nargs="+", choices=["bfloat16", "float32"],
                     default=["bfloat16", "float32"])
+    ap.add_argument("--fc", type=int, nargs=2, default=list(cs.DIN_FC[:2]))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_din_head_phases: CUDA is not available; this script needs an NVIDIA GPU",
@@ -158,7 +168,7 @@ def main() -> int:
     lib.din_phase_reset.argtypes = []
     shipped, cuda_dh._lib = cuda_dh._lib, (lambda: lib)
     src = [(build.CSRC_DIR / name).read_text().splitlines() for name in FILES]
-    L, D, A, F = 10, 64, cs.DIN_ATTENTION, cs.DIN_FC
+    L, D, A, F = 10, 64, cs.DIN_ATTENTION, (*args.fc, 1)
     hist, tgt, att, fc, g = cs.din_inputs(args.rows, L, D, A, F,
                                           torch.Generator(device="cuda").manual_seed(0))
     counts = (ctypes.c_ulonglong * COUNTERS)()
@@ -168,8 +178,9 @@ def main() -> int:
             h, t, gg = hist.to(dtype), tgt.to(dtype), g.to(dtype)
             w = dh.din_head_weights(*([{k: v.to(dtype) for k, v in layer.items()} for layer in net]
                                       for net in (att, fc)), D)
+            pooled = cuda_dh.din_head_fused_pooled(h, t, w)[1]
             for part, fn in (("forward", lambda: dh.din_head_fwd(h, t, w)),
-                             ("backward", lambda: dh.din_head_bwd(h, t, w, gg))):
+                             ("backward", lambda: dh.din_head_bwd(h, t, w, gg, pooled=pooled))):
                 fn()
                 torch.cuda.synchronize()
                 if lib.din_phase_reset() != 0:
@@ -182,7 +193,7 @@ def main() -> int:
                 phases = [{"at": f"{FILES[i // 10000]}:{i % 10000}", "work": work(src[i // 10000], i % 10000),
                            "kcycles_per_tile": counts[i] / tiles / 1e3,
                            "share": counts[i] / total} for i in range(COUNTERS) if counts[i]]
-                print(json.dumps({"dtype": name, "direction": part, "rows": args.rows,
+                print(json.dumps({"dtype": name, "direction": part, "rows": args.rows, "fc": args.fc,
                                   "kcycles_per_tile": total / tiles / 1e3, "phases": phases}),
                       flush=True)
     finally:
