@@ -21,9 +21,11 @@ no result line.
    (din_bwd_tensor_products) and the AFM backward's z and W dz, three TF32
    products at the tensor cores' rate; the pools' and the float32 head's rows
    also carry the CUDA-core bound as ``cuda_core_bound_ms``). The two pools, the
-   AFM backward and the float32 DIN head, both ways, must repeat bit for bit. The AFM pool is also checked
+   AFM backward, the float32 DIN head, both ways, and the fused trainers must
+   repeat bit for bit. The AFM pool is also checked
    at widths past the preset's (AFM_WIDE), the fused MF trainer at factors of
-   MF_WIDE_DIM. The lookup pair (gather_rows, onehot_grad) is also checked at the
+   MF_WIDE_DIM, the fused MF trainer (both dtypes) and the compact LR trainer
+   also on their batch shuffled and with skewed ids (TRAINER_ROWS). The lookup pair (gather_rows, onehot_grad) is also checked at the
    other main paths' shapes (DIN's history batch and full-history target tile,
    LR's bias tables); its rows and the top-k rows of at most 32 users (a
    served batch, a single-user request) carry ``host_us``, the host's time per
@@ -164,6 +166,12 @@ TRAIN_LOSS_RTOL, TRAIN_AUC_ATOL = 1e-4, 1e-3
 TRAIN_EPOCHS = 20
 EMBEDDING_DIM = 64
 MF_WIDE_DIM = 256  # the fused MF trainer also at factors past 128 (8 columns a lane)
+# The fused trainers also on their train batch with its rows in another order
+# ("shuffled": a random permutation) and with skewed ids ("skewed": a fifth of
+# the rows moved to one user and another fifth to one item, and 1 row in 1,000
+# given an id outside the table), drawn from a generator of their own
+# (TRAINER_ROWS_SEED) so that the other rows keep their inputs
+TRAINER_ROWS, TRAINER_ROWS_SEED = ("shuffled", "skewed"), 3
 SEEN_DENSITY = 100_000 / (943 * 1682)  # ml-100k: every rating is a seen item
 # (users, items, dim, k): all users of the MF preset, one batched request of
 # the slice below, the single-user request of every serve phase, and the JAX
@@ -608,11 +616,32 @@ def mf_epoch_bound(B: int, U: int, I: int, D: int, epochs: int):
     return bound_of(flops, nbytes)
 
 
+def reorder_rows(kind: str, ids: tuple, V: tuple, rest: tuple, gen: torch.Generator):
+    """The trainers' rows as TRAINER_ROWS describes them: (ids, rest) with the
+    rows permuted ("shuffled"), or with skewed and out-of-range ids ("skewed");
+    ids[k] indexes a table of V[k] rows, rest are the other per-row tensors."""
+    B = ids[0].shape[0]
+    if kind == "shuffled":
+        perm = torch.randperm(B, generator=gen, device=DEVICE)
+        return tuple(t[perm].contiguous() for t in ids), tuple(t[perm].contiguous() for t in rest)
+    out = []
+    for t, n in zip(ids, V):
+        t = t.clone()
+        t[torch.rand(B, generator=gen, device=DEVICE) < 0.2] = n // 3
+        bad = torch.rand(B, generator=gen, device=DEVICE) < 1e-3
+        t[bad] = torch.where(torch.rand(B, generator=gen, device=DEVICE) < 0.5, -1, n)[bad].to(t.dtype)
+        out.append(t)
+    return tuple(out), rest
+
+
 def check_mf_epoch(batch, U: int, I: int, dtype: str, gen: torch.Generator,
-                   timed_epochs: int, D: int = EMBEDDING_DIM) -> dict:
+                   timed_epochs: int, D: int = EMBEDDING_DIM, rows: str = "as batched") -> dict:
     """mf_fullbatch_train against its plain version over MF_CHECK_EPOCHS epochs
-    at the MF training shape (factors of width D); times per epoch."""
+    at the MF training shape (factors of width D, the rows as ``rows`` says:
+    TRAINER_ROWS); two calls must give the same bits; times per epoch."""
     (uid, iid), y = batch
+    if rows != "as batched":
+        (uid, iid), (y,) = reorder_rows(rows, (uid, iid), (U, I), (y,), gen)
     pu0 = 0.1 * torch.randn((U, D), generator=gen, device=DEVICE)
     pi0 = 0.1 * torch.randn((I, D), generator=gen, device=DEVICE)
     args = (uid, iid, y, pu0, pi0)
@@ -622,6 +651,9 @@ def check_mf_epoch(batch, U: int, I: int, dtype: str, gen: torch.Generator,
     torch.testing.assert_close(got[2], want[2], rtol=rtol, atol=0)
     for g_t, w_t in zip(got[:2], want[:2]):
         torch.testing.assert_close(g_t, w_t, rtol=0, atol=atol)
+    again = mfe.mf_fullbatch_train(*args, MF_CHECK_EPOCHS, 0.01, 1e-5, dtype)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"mf_fullbatch_train ({dtype}, D {D}, {rows}): two calls differ")
     err = max(float((g_t - w_t).abs().max()) for g_t, w_t in zip(got, want))
     B = uid.shape[0]
     E = timed_epochs
@@ -630,16 +662,20 @@ def check_mf_epoch(batch, U: int, I: int, dtype: str, gen: torch.Generator,
     pi = pi0.clone().requires_grad_(True)
     opt = torch.optim.Adam([pu, pi], lr=0.01, weight_decay=1e-5)
 
+    # an id outside the table matches no row (TRAINER_ROWS' skewed ids)
+    u_ok, i_ok = ((uid >= 0) & (uid < U))[:, None], ((iid >= 0) & (iid < I))[:, None]
+    u_in, i_in = uid.clamp(0, U - 1), iid.clamp(0, I - 1)
+
     def library_epoch():  # one autograd epoch with torch.optim.Adam
         opt.zero_grad(set_to_none=True)
-        z = (pu[uid] * pi[iid]).sum(dim=1)
+        z = (torch.where(u_ok, pu[u_in], 0.0) * torch.where(i_ok, pi[i_in], 0.0)).sum(dim=1)
         F.binary_cross_entropy_with_logits(z, y).backward()
         opt.step()
 
     t_bound, bound_by = mf_epoch_bound(B, U, I, D, E)
     return {
         "shape": {"rows": B, "users": U, "items": I, "dim": D, "compute_dtype": dtype,
-                  "epochs_per_call": E},
+                  "order": rows, "epochs_per_call": E},
         "unit": "per epoch",
         "max_abs_err": err,
         "kernel_ms": time_ms(lambda: mfe.mf_fullbatch_train(*args, E, 0.01, 1e-5, dtype)) / E,
@@ -679,27 +715,41 @@ def lr_bound(mode: str, args, epochs: int):
     return bound_of(epochs * (B * (4 * cols + 20) + 15 * F), nbytes)
 
 
-def check_lr(model, params, x, y, mode: str, learning_rate: float, timed_epochs: int) -> dict:
+def check_lr(model, params, x, y, mode: str, learning_rate: float, timed_epochs: int,
+             rows: str = "as batched", gen: torch.Generator = None) -> dict:
     """A fused LR trainer against its plain version over LR_CHECK_EPOCHS epochs at
-    the LR train batch, as ``fast_fit`` feeds it; times per epoch."""
+    the LR train batch, as ``fast_fit`` feeds it (the compact mode also with
+    its rows as ``rows`` says: TRAINER_ROWS, drawn from ``gen``); two calls
+    must give the same bits; times per epoch."""
     U, I = model.spec.num_users, model.spec.num_items
     args = model.fused_inputs(params, x, y, mode)
     if mode == "compact":
         kernel, plain, extra = lre.lr_fullbatch_train_compact, lre.lr_fullbatch_train_compact_plain, (U, I)
+        if rows != "as batched":
+            ids, rest = reorder_rows(rows, args[:2], (U, I), args[2:4], gen)
+            args = ids + rest + args[4:]
     else:
         kernel, plain, extra = lre.lr_fullbatch_train, lre.lr_fullbatch_train_plain, ()
     got = kernel(*args, LR_CHECK_EPOCHS, learning_rate, *extra)
     want = plain(*args, LR_CHECK_EPOCHS, learning_rate, *extra)
     torch.testing.assert_close(got[1], want[1], rtol=LR_TOL[0], atol=0)
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=LR_TOL[1])
+    again = kernel(*args, LR_CHECK_EPOCHS, learning_rate, *extra)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"lr_fullbatch_train ({mode}, {rows}): two calls differ")
     err = max(float((g_t - w_t).abs().max()) for g_t, w_t in zip(got, want))
 
     w = args[-1].reshape(-1).clone().requires_grad_(True)
     if mode == "compact":
         uid, iid, dense, yy, _ = args
+        # an id outside [0, U) (or [0, I)) matches no weight (TRAINER_ROWS' skewed ids)
+        u_ok, i_ok = (uid >= 0) & (uid < U), (iid >= 0) & (iid < I)
+        u_in, i_in = uid.clamp(0, U - 1), iid.clamp(0, I - 1)
 
         def loss():
-            return F.binary_cross_entropy_with_logits(w[uid] + w[U + iid] + dense @ w[U + I:], yy)
+            return F.binary_cross_entropy_with_logits(
+                torch.where(u_ok, w[u_in], 0.0) + torch.where(i_ok, w[U + i_in], 0.0)
+                + dense @ w[U + I:], yy)
     else:
         x_aug, yy, _ = args
 
@@ -711,7 +761,7 @@ def check_lr(model, params, x, y, mode: str, learning_rate: float, timed_epochs:
     return {
         "shape": {"rows": int(y.shape[0]), "users": U, "items": I,
                   "columns": int(args[0].shape[1]) if mode == "wide" else int(args[2].shape[1]),
-                  "mode": mode, "epochs_per_call": E},
+                  "mode": mode, "order": rows, "epochs_per_call": E},
         "unit": "per epoch",
         "max_abs_err": err,
         "kernel_ms": time_ms(lambda: kernel(*args, E, learning_rate, *extra)) / E,
@@ -1274,7 +1324,8 @@ def run_train(ds: MovieLens100K) -> dict:
 
     E = TRAIN_EPOCHS
     check_counts("train", counts, {"gather_rows": E * 6 + 6,  # 3 splits an epoch; final AUCs
-                                   "onehot_grad": E * 2, "mf_fullbatch_train": E * 2})
+                                   "onehot_grad": E * 2,
+                                   "mf_fullbatch_train": 1})  # fast_fit: one launch a call
     if set(res.history) != HISTORY_KEYS:
         raise AssertionError(f"train: history keys {sorted(res.history)}")
     loss = res.history["train_loss"]
@@ -1455,7 +1506,8 @@ def run_lr(ds: MovieLens100K) -> dict:
 
     # 2 bias lookups a forward: train, valid, test an epoch, the final AUCs, the catalog tiles
     check_counts("lr", counts, {"gather_rows": 2 * (3 * E + 3 + n_tiles(ds)), "onehot_grad": 2 * E,
-                                "lr_fullbatch_train": 2 * E, "lr_fullbatch_train_compact": 2 * E})
+                                "lr_fullbatch_train": 2 * E,  # two launches an epoch
+                                "lr_fullbatch_train_compact": 1})  # one launch a call
     if set(res.history) != HISTORY_KEYS:
         raise AssertionError(f"lr: history keys {sorted(res.history)}")
     loss = res.history["train_loss"]
@@ -1851,10 +1903,16 @@ def main() -> int:
         # the rows of widths past the presets' draw from their own generator, so
         # that the other rows see the same inputs as before them
         wide_gen = torch.Generator(device=DEVICE).manual_seed(1)
-        for dtype, D, draw in (("float32", EMBEDDING_DIM, gen), ("bfloat16", EMBEDDING_DIM, gen),
-                            ("float32", MF_WIDE_DIM, wide_gen)):
+        rows_gen = torch.Generator(device=DEVICE).manual_seed(TRAINER_ROWS_SEED)
+        for dtype, D, draw, order in (
+                ("float32", EMBEDDING_DIM, gen, "as batched"),
+                ("bfloat16", EMBEDDING_DIM, gen, "as batched"),
+                ("float32", MF_WIDE_DIM, wide_gen, "as batched"),
+                *((dt, EMBEDDING_DIM, rows_gen, kind) for kind in TRAINER_ROWS
+                  for dt in ("float32", "bfloat16"))):
             rows["mf_fullbatch_train"].append(
-                check_mf_epoch(batch, ds.num_users, ds.num_items, dtype, draw, TRAIN_EPOCHS, D))
+                check_mf_epoch(batch, ds.num_users, ds.num_items, dtype, draw, TRAIN_EPOCHS, D,
+                               order))
             emit({"phase": "kernel_check", "kernel": "mf_fullbatch_train",
                   **rows["mf_fullbatch_train"][-1]})
         del batch, uid, iid
@@ -1862,9 +1920,12 @@ def main() -> int:
 
         rows["topk_serve_matmul"].append(check_topk("topk_serve_matmul", *LR_SERVING_SHAPE, gen))
         emit({"phase": "kernel_check", "kernel": "topk_serve_matmul", **rows["topk_serve_matmul"][-1]})
-        for mode, name in (("wide", "lr_fullbatch_train"), ("compact", "lr_fullbatch_train_compact")):
+        for mode, name, order in (("wide", "lr_fullbatch_train", "as batched"),
+                                  ("compact", "lr_fullbatch_train_compact", "as batched"),
+                                  *(("compact", "lr_fullbatch_train_compact", kind)
+                                    for kind in TRAINER_ROWS)):
             rows[name].append(check_lr(lr_model, lr_model.params(), x, y, mode,
-                                       lr_cfg.learning_rate, TRAIN_EPOCHS))
+                                       lr_cfg.learning_rate, TRAIN_EPOCHS, order, rows_gen))
             emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
         del x, y, lr_model
         afm_cfg = PRESETS["afm"]

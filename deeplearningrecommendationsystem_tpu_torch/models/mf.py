@@ -67,8 +67,8 @@ class MatrixFactorization(nn.Module):
                  learning_rate: float, weight_decay: float = 0.0,
                  compute_dtype: str = "bfloat16") -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """Full-batch Adam training through the fused kernel: gathers, loss,
-        backward and the torch-Adam update of every epoch, two launches an
-        epoch. The same semantics as ``Trainer.fit`` with this
+        backward and the torch-Adam update of every epoch, one launch for the
+        whole run. The same semantics as ``Trainer.fit`` with this
         ``compute_dtype``; returns (params, losses [epochs]) and leaves the
         module's own tables as they are."""
         users, items = batch

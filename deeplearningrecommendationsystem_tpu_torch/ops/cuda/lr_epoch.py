@@ -1,12 +1,20 @@
 """Checked launchers of the fused LR training kernels (``csrc/lr_epoch.cu``).
 
-``lr_fullbatch_train`` (mode "wide") and ``lr_fullbatch_train_compact``
-(mode "compact") check their inputs, allocate the weights, the Adam moments,
-the per-block partial sums and the loss history, then launch two kernels per
-epoch on the current stream (the epoch's forward and backward, then the
-reduction of its partial sums with the Adam step), with no synchronisation
-between epochs. Each keeps a count of its launches (``.launches``), raised by
-one per kernel launch: two per epoch.
+``lr_fullbatch_train`` (mode "wide") checks its inputs, allocates the
+weights, the Adam moments, the per-block partial sums and the loss history,
+then launches two kernels per epoch on the current stream (the epoch's
+forward and backward, then the reduction of its partial sums with the Adam
+step), with no synchronisation between epochs.
+
+``lr_fullbatch_train_compact`` (mode "compact") checks its inputs, builds
+each id's rows (``ops/segments.py::id_segments``, once a call), allocates the
+weights, the loss history and one workspace, and makes one cooperative launch
+of ``lr_compact_train_kernel`` for the whole run. Its grid is every block the
+card keeps resident at once; a grid that cannot be resident makes the launch
+fail and the launcher raise.
+
+Each keeps a count of its launches (``.launches``), raised by one per kernel
+launch: two an epoch in the wide mode, one a call in the compact mode.
 
 The library is built and loaded at the first launch, never at import.
 """
@@ -30,13 +38,12 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda.launch import (
     require_cuda,
     stream,
 )
+from deeplearningrecommendationsystem_tpu_torch.ops.segments import id_segments
 
 SOURCE = "lr_epoch.cu"
 MAX_TILE_ROWS = 16  # kMaxTileRows in the source
-MAX_DENSE = 128  # 32 lanes x kMaxDenseColsPerLane
+MAX_DENSE = 128  # kMaxDense in the source
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper
-COMPACT_WARPS = 8  # kCompactWarps: warps of a compact-kernel block
-COMPACT_ROWS_PER_WARP = 16  # the compact kernel's grid gives each warp at least this many rows
 ID_DTYPES = (torch.int32, torch.int64)
 
 
@@ -45,14 +52,16 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.lr_wide_epoch.argtypes = [P, P, P, P, P, LL, I, I, I, P]
     lib.lr_wide_epoch.restype = I
-    lib.lr_compact_epoch.argtypes = [P, P, P, P, P, P, P, P, LL, I, I, I, I, I, P]
-    lib.lr_compact_epoch.restype = I
+    lib.lr_compact_train.argtypes = [P] * 12 + [LL, I, I, I, I] + [F] * 8 + [I, I, P]
+    lib.lr_compact_train.restype = I
+    lib.lr_compact_grid.argtypes = [I]
+    lib.lr_compact_grid.restype = I
+    lib.lr_compact_workspace_bytes.argtypes = [LL, I, I, I]
+    lib.lr_compact_workspace_bytes.restype = ctypes.c_size_t
     lib.lr_adam.argtypes = [P, P, P, P, I, P, I, P, I, P, LL] + [F] * 8 + [I, P]
     lib.lr_adam.restype = I
     lib.lr_wide_smem_bytes.argtypes = [I, I]
     lib.lr_wide_smem_bytes.restype = ctypes.c_size_t
-    lib.lr_compact_smem_bytes.argtypes = [I, I, I]
-    lib.lr_compact_smem_bytes.restype = ctypes.c_size_t
     lib.lr_epoch_error_string.argtypes = [I]
     lib.lr_epoch_error_string.restype = ctypes.c_char_p
     for name, want in (("lr_epoch_max_tile_rows", MAX_TILE_ROWS), ("lr_epoch_max_dense", MAX_DENSE)):
@@ -67,12 +76,23 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.cache
+def _compact_grid(index: int, d_pad: int) -> int:
+    """Blocks of one compact launch on device ``index``: all it keeps resident."""
+    with torch.cuda.device(index):
+        blocks = _lib().lr_compact_grid(d_pad)
+    if blocks < 1:
+        raise RuntimeError(f"lr_fullbatch_train_compact: no resident grid for d_pad={d_pad}")
+    return blocks
+
+
 def _hyper(learning_rate, b1, b2, eps):
     return (learning_rate, b1, 1.0 - b1, b2, 1.0 - b2, eps, math.log(b1), math.log(b2))
 
 
-def _adam(lib, w, m, v, dg, n_sparse, part, n_dense, loss_part, losses, e, B, hyper, s, name):
-    code = lib.lr_adam(w.data_ptr(), m.data_ptr(), v.data_ptr(), dg, n_sparse, part.data_ptr(),
+def _adam(lib, w, m, v, part, n_dense, loss_part, losses, e, B, hyper, s, name):
+    """lr_adam_kernel over the dense weights alone (no id gradient section)."""
+    code = lib.lr_adam(w.data_ptr(), m.data_ptr(), v.data_ptr(), None, 0, part.data_ptr(),
                        n_dense, loss_part.data_ptr(), loss_part.shape[0], losses[e:].data_ptr(),
                        B, *hyper, e + 1, s)
     raise_on(lib.lr_epoch_error_string, code, f"{name} (adam)")
@@ -113,7 +133,7 @@ def lr_fullbatch_train(x_aug, y, w0, epochs: int, learning_rate: float,
                                      dw_part.data_ptr(), loss_part.data_ptr(), B, Fw, R, blocks, s)
             raise_on(lib.lr_epoch_error_string, code, "lr_fullbatch_train (epoch)")
             lr_fullbatch_train.launches += 1
-            _adam(lib, w, m, v, None, 0, dw_part, Fw, loss_part, losses, e, B, hyper, s,
+            _adam(lib, w, m, v, dw_part, Fw, loss_part, losses, e, B, hyper, s,
                   "lr_fullbatch_train")
             lr_fullbatch_train.launches += 1
     return w, losses
@@ -122,7 +142,7 @@ def lr_fullbatch_train(x_aug, y, w0, epochs: int, learning_rate: float,
 def lr_fullbatch_train_compact(uid, iid, dense_aug, y, w0, epochs: int, learning_rate: float,
                                u_pad: int, i_pad: int, b1: float = 0.9, b2: float = 0.999,
                                eps: float = 1e-8):
-    """Launch ``epochs`` x (``lr_compact_epoch_kernel``, ``lr_adam_kernel``):
+    """Launch ``lr_compact_train_kernel`` once for ``epochs`` epochs:
     uid, iid [B] int32/int64, dense_aug [B, d_pad] f32, y [B] f32,
     w0 [1, u_pad + i_pad + d_pad] f32 -> (w [1, u_pad + i_pad + d_pad], losses [epochs])."""
     device = dense_aug.device
@@ -143,29 +163,23 @@ def lr_fullbatch_train_compact(uid, iid, dense_aug, y, w0, epochs: int, learning
         raise ValueError(f"need B={B}, u_pad={u_pad}, i_pad={i_pad} >= 1, "
                          f"1 <= d_pad={d_pad} <= {MAX_DENSE}, epochs >= 0")
     lib = _lib()
-    if lib.lr_compact_smem_bytes(u_pad, i_pad, d_pad) > SMEM_LIMIT:
-        raise ValueError(f"u_pad + i_pad = {u_pad + i_pad} bins do not fit in shared memory")
-    blocks = max(1, min(-(-B // (COMPACT_WARPS * COMPACT_ROWS_PER_WARP)), 4 * _sm_count(device)))
-    nbins = u_pad + i_pad
-    w = w0.clone()
-    m, v = torch.zeros_like(w), torch.zeros_like(w)
-    dg = torch.zeros(nbins, dtype=torch.float32, device=device)
-    dense_part = torch.empty((blocks, d_pad), dtype=torch.float32, device=device)
-    loss_part = torch.empty(blocks, dtype=torch.float32, device=device)
-    losses = torch.zeros(epochs, dtype=torch.float32, device=device)
-    hyper = _hyper(learning_rate, b1, b2, eps)
+    n = u_pad + i_pad + d_pad
     with torch.cuda.device(device):
-        s = stream(device.index)
-        for e in range(epochs):
-            code = lib.lr_compact_epoch(uid.data_ptr(), iid.data_ptr(), dense_aug.data_ptr(),
-                                        y.data_ptr(), w.data_ptr(), dg.data_ptr(),
-                                        dense_part.data_ptr(), loss_part.data_ptr(), B, u_pad,
-                                        i_pad, d_pad, blocks, uid.element_size(), s)
-            raise_on(lib.lr_epoch_error_string, code, "lr_fullbatch_train_compact (epoch)")
-            lr_fullbatch_train_compact.launches += 1
-            _adam(lib, w, m, v, dg.data_ptr(), nbins, dense_part, d_pad, loss_part, losses, e, B,
-                  hyper, s, "lr_fullbatch_train_compact")
-            lr_fullbatch_train_compact.launches += 1
+        order_u, off_u = id_segments(uid, u_pad)
+        order_i, off_i = id_segments(iid, i_pad)
+        blocks = _compact_grid(device.index, d_pad)
+        work = torch.empty(lib.lr_compact_workspace_bytes(B, n, d_pad, blocks),
+                           dtype=torch.uint8, device=device)
+        w = torch.empty_like(w0)
+        losses = torch.empty(epochs, dtype=torch.float32, device=device)
+        code = lib.lr_compact_train(
+            uid.data_ptr(), iid.data_ptr(), order_u.data_ptr(), off_u.data_ptr(),
+            order_i.data_ptr(), off_i.data_ptr(), dense_aug.data_ptr(), y.data_ptr(),
+            w0.data_ptr(), w.data_ptr(), losses.data_ptr(), work.data_ptr(), B, u_pad, i_pad,
+            d_pad, epochs, *_hyper(learning_rate, b1, b2, eps), uid.element_size(), blocks,
+            stream(device.index))
+        raise_on(lib.lr_epoch_error_string, code, "lr_fullbatch_train_compact")
+        lr_fullbatch_train_compact.launches += 1
     return w, losses
 
 

@@ -1,10 +1,14 @@
-"""Checked launcher of the fused MF training kernels (``csrc/mf_epoch.cu``).
+"""Checked launcher of the fused MF trainer (``csrc/mf_epoch.cu``).
 
-``mf_fullbatch_train`` checks its inputs, allocates the master tables, the
-Adam moments, the gradient sums and the loss history, then launches two
-kernels per epoch on the current stream (the epoch's forward and backward,
-then the Adam step), with no synchronisation between epochs. Its count
-``mf_fullbatch_train.launches`` rises by one per kernel launch: two per epoch.
+``mf_fullbatch_train`` checks its inputs, builds the rows' user and item
+orders with their segment offsets (``ops/segments.py::id_segments``, once a
+call: the ids do not change across epochs), allocates the output tables, the
+loss history and one workspace, and makes one cooperative launch of
+``mf_train_kernel`` on the current stream for the whole run. Its count
+``mf_fullbatch_train.launches`` rises by one per kernel launch: one a call.
+
+The grid is every block the card keeps resident at once; a grid that cannot
+be resident makes the launch fail and the launcher raise.
 
 The library is built and loaded at the first launch, never at import.
 """
@@ -28,6 +32,7 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda.launch import (
     require_cuda,
     stream,
 )
+from deeplearningrecommendationsystem_tpu_torch.ops.segments import id_segments
 
 SOURCE = "mf_epoch.cu"
 MAX_DIM = 512  # 32 lanes x kMaxColsPerLane in the source
@@ -37,10 +42,12 @@ ID_DTYPES = (torch.int32, torch.int64)
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
-    lib.mf_epoch_forward_backward.argtypes = [P, P, P, P, P, P, P, P, LL, I, I, I, I, I, P]
-    lib.mf_epoch_forward_backward.restype = I
-    lib.mf_epoch_adam.argtypes = [P, P, P, P, LL, P, P, P, P, LL] + [F] * 9 + [I, P]
-    lib.mf_epoch_adam.restype = I
+    lib.mf_train.argtypes = [P] * 13 + [LL, I, I, I, I] + [F] * 9 + [I, I, I, P]
+    lib.mf_train.restype = I
+    lib.mf_train_grid.argtypes = [I, I]
+    lib.mf_train_grid.restype = I
+    lib.mf_train_workspace_bytes.argtypes = [LL, I, I, I, I]
+    lib.mf_train_workspace_bytes.restype = ctypes.c_size_t
     lib.mf_epoch_error_string.argtypes = [I]
     lib.mf_epoch_error_string.restype = ctypes.c_char_p
     lib.mf_epoch_max_dim.argtypes = []
@@ -50,11 +57,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _grid(index: int, D: int, bf16: int) -> int:
+    """Blocks of one launch on device ``index``: all it keeps resident."""
+    with torch.cuda.device(index):
+        blocks = _lib().mf_train_grid(D, bf16)
+    if blocks < 1:
+        raise RuntimeError(f"mf_fullbatch_train: no resident grid for D={D}")
+    return blocks
+
+
 def mf_fullbatch_train(uid, iid, y, pu0, pi0, epochs: int, learning_rate: float,
                        weight_decay: float = 0.0, compute_dtype: str = "bfloat16",
                        b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-    """Launch ``epochs`` x (``mf_epoch_kernel``, ``mf_adam_kernel``): uid, iid
-    [B] int32/int64, y [B] f32, pu0 [U, D], pi0 [I, D] f32 -> (pu, pi, losses
+    """Launch ``mf_train_kernel`` once for ``epochs`` epochs: uid, iid [B]
+    int32/int64, y [B] f32, pu0 [U, D], pi0 [I, D] f32 -> (pu, pi, losses
     [epochs]), all f32 on the device."""
     device = pu0.device
     require_cuda("mf_fullbatch_train", device)
@@ -72,28 +89,23 @@ def mf_fullbatch_train(uid, iid, y, pu0, pi0, epochs: int, learning_rate: float,
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {compute_dtype!r}: 'float32' or 'bfloat16'")
     lib = _lib()
-    pu, pi = pu0.clone(), pi0.clone()
-    mu, vu, du = (torch.zeros_like(pu) for _ in range(3))
-    mi, vi, di = (torch.zeros_like(pi) for _ in range(3))
-    losses = torch.zeros(epochs, dtype=torch.float32, device=device)
-    hyper = (learning_rate, weight_decay, b1, 1.0 - b1, b2, 1.0 - b2, eps,
-             math.log(b1), math.log(b2))
     bf16 = int(compute_dtype == "bfloat16")
     with torch.cuda.device(device):
-        s = stream(device.index)
-        for e in range(epochs):
-            code = lib.mf_epoch_forward_backward(
-                uid.data_ptr(), iid.data_ptr(), y.data_ptr(), pu.data_ptr(), pi.data_ptr(),
-                du.data_ptr(), di.data_ptr(), losses[e:].data_ptr(), B, U, I_, D, bf16,
-                uid.element_size(), s)
-            raise_on(lib.mf_epoch_error_string, code, "mf_fullbatch_train (epoch)")
-            mf_fullbatch_train.launches += 1
-            code = lib.mf_epoch_adam(
-                pu.data_ptr(), mu.data_ptr(), vu.data_ptr(), du.data_ptr(), U * D,
-                pi.data_ptr(), mi.data_ptr(), vi.data_ptr(), di.data_ptr(), I_ * D,
-                *hyper, e + 1, s)
-            raise_on(lib.mf_epoch_error_string, code, "mf_fullbatch_train (adam)")
-            mf_fullbatch_train.launches += 1
+        order_u, off_u = id_segments(uid, U)
+        order_i, off_i = id_segments(iid, I_)
+        blocks = _grid(device.index, D, bf16)
+        work = torch.empty(lib.mf_train_workspace_bytes(B, U, I_, D, blocks), dtype=torch.uint8,
+                           device=device)
+        pu, pi = torch.empty_like(pu0), torch.empty_like(pi0)
+        losses = torch.empty(epochs, dtype=torch.float32, device=device)
+        code = lib.mf_train(
+            uid.data_ptr(), iid.data_ptr(), y.data_ptr(), pu0.data_ptr(), pi0.data_ptr(),
+            order_u.data_ptr(), off_u.data_ptr(), order_i.data_ptr(), off_i.data_ptr(),
+            pu.data_ptr(), pi.data_ptr(), losses.data_ptr(), work.data_ptr(), B, U, I_, D, epochs,
+            learning_rate, weight_decay, b1, 1.0 - b1, b2, 1.0 - b2, eps, math.log(b1),
+            math.log(b2), bf16, uid.element_size(), blocks, stream(device.index))
+        raise_on(lib.mf_epoch_error_string, code, "mf_fullbatch_train")
+        mf_fullbatch_train.launches += 1
     return pu, pi, losses
 
 

@@ -20,7 +20,8 @@ Pallas kernels compute them. Both return ``(w, losses [epochs])`` in float32,
 w in the shape of w0.
 
 Dispatch is by device only: CPU tensors take the plain version, CUDA tensors
-launch the kernels (``ops/cuda/lr_epoch.py``: two launches per epoch) or raise.
+launch the kernels (``ops/cuda/lr_epoch.py``: the wide mode two launches an
+epoch, the compact mode one launch a call) or raise.
 """
 
 from __future__ import annotations

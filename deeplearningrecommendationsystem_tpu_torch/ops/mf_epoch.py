@@ -15,8 +15,7 @@ matches no row (zero embedding, no gradient), as the Pallas one-hot mask
 matches none.
 
 Dispatch is by device only: CPU tensors take the plain version, CUDA tensors
-launch the kernels (``ops/cuda/mf_epoch.py``: two launches per epoch) or
-raise.
+launch the kernel (``ops/cuda/mf_epoch.py``: one launch a call) or raise.
 """
 
 from __future__ import annotations

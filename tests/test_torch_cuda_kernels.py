@@ -431,14 +431,31 @@ def test_onehot_grad_of_an_empty_batch_is_zeros(cuda):
 
 # ---- the fused MF trainer (csrc/mf_epoch.cu)
 
-def _mf_inputs(cuda, U, I, D, B, seed):
+def _reorder(rows, ids, V, g):
+    """Ids [B] of tables of V rows as ``rows`` says: "grouped" (as given),
+    "shuffled" (a random permutation of the rows), "skewed" (a third of the
+    rows on one id) or "out_of_range" (some ids below 0 or V and more)."""
+    B = ids.shape[0]
+    if rows == "shuffled":
+        return ids[torch.randperm(B, generator=g, device=ids.device)].contiguous()
+    ids = ids.clone()
+    if rows == "skewed":
+        ids[torch.rand(B, generator=g, device=ids.device) < 0.33] = V // 2
+    elif rows == "out_of_range":
+        bad = torch.randint(0, B, (max(1, B // 10),), generator=g, device=ids.device)
+        ids[bad] = torch.tensor([-1, V, V + 5], device=ids.device, dtype=ids.dtype)[
+            torch.arange(bad.shape[0], device=ids.device) % 3]
+    return ids
+
+
+def _mf_inputs(cuda, U, I, D, B, seed, rows="grouped"):
     g = torch.Generator(device=cuda).manual_seed(seed)
     uid = torch.sort(torch.randint(0, U, (B,), generator=g, device=cuda)).values.to(torch.int32)
     iid = torch.randint(0, I, (B,), generator=g, device=cuda).to(torch.int32)
     y = (torch.rand((B,), generator=g, device=cuda) < 0.3).float()
     pu = 0.1 * torch.randn((U, D), generator=g, device=cuda)
     pi = 0.1 * torch.randn((I, D), generator=g, device=cuda)
-    return uid, iid, y, pu, pi
+    return _reorder(rows, uid, U, g), _reorder(rows, iid, I, g), y, pu, pi
 
 
 # float32: sums in another order, carried through Adam's normalised steps;
@@ -446,22 +463,56 @@ def _mf_inputs(cuda, U, I, D, B, seed):
 MF_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-3, 2e-3)}  # (loss rtol, table atol)
 
 
-# D 192 and 256 take the kernel's 8 columns a lane, D 512 its 16
-@pytest.mark.parametrize("U,I,D,B", [(50, 81, 16, 300), (943, 1682, 64, 20_000), (7, 9, 100, 33),
-                                     (50, 81, 192, 300), (60, 90, 256, 2_000), (30, 40, 512, 500)])
+# D 192 and 256 take the kernel's 8 columns a lane, D 512 its 16, odd D one column
+# a load; the rows grouped by user, shuffled, with skewed ids (segments across
+# many chunks) or with ids out of range
+@pytest.mark.parametrize("U,I,D,B,rows", [
+    (50, 81, 16, 300, "grouped"), (943, 1682, 64, 20_000, "grouped"), (7, 9, 100, 33, "grouped"),
+    (50, 81, 192, 300, "grouped"), (60, 90, 256, 2_000, "grouped"), (30, 40, 512, 500, "grouped"),
+    (943, 1682, 64, 20_000, "shuffled"), (943, 1682, 64, 20_000, "skewed"),
+    (50, 81, 16, 3_000, "out_of_range"), (60, 90, 256, 2_000, "skewed"),
+    (7, 9, 100, 33, "out_of_range"), (20, 30, 33, 700, "shuffled")])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_mf_fullbatch_train_matches_plain(cuda, U, I, D, B, compute_dtype):
-    args = _mf_inputs(cuda, U, I, D, B, seed=U + B)
+def test_mf_fullbatch_train_matches_plain(cuda, U, I, D, B, rows, compute_dtype):
+    args = _mf_inputs(cuda, U, I, D, B, seed=U + B, rows=rows)
     before = cuda_mfe.mf_fullbatch_train.launches
     pu, pi, losses = mfe.mf_fullbatch_train(*args, 6, 0.01, 1e-5, compute_dtype)
     torch.cuda.synchronize()
-    assert cuda_mfe.mf_fullbatch_train.launches == before + 12  # two launches an epoch
+    assert cuda_mfe.mf_fullbatch_train.launches == before + 1  # one launch a call
     want_pu, want_pi, want_losses = mfe.mf_fullbatch_train_plain(*args, 6, 0.01, 1e-5,
                                                                  compute_dtype)
     rtol, atol = MF_TOL[compute_dtype]
     torch.testing.assert_close(losses, want_losses, rtol=rtol, atol=0)
     torch.testing.assert_close(pu, want_pu, rtol=0, atol=atol)
     torch.testing.assert_close(pi, want_pi, rtol=0, atol=atol)
+    # the same bits every call: no atomics, every sum in a fixed order
+    again = mfe.mf_fullbatch_train(*args, 6, 0.01, 1e-5, compute_dtype)
+    assert all(torch.equal(a, b) for a, b in zip((pu, pi, losses), again))
+
+
+def test_mf_fullbatch_train_int64_ids_and_no_epochs(cuda):
+    uid, iid, y, pu0, pi0 = _mf_inputs(cuda, 50, 81, 64, 3_000, seed=4, rows="shuffled")
+    got = mfe.mf_fullbatch_train(uid.long(), iid.long(), y, pu0, pi0, 3, 0.01, 1e-5, "float32")
+    want = mfe.mf_fullbatch_train(uid, iid, y, pu0, pi0, 3, 0.01, 1e-5, "float32")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    pu, pi, losses = mfe.mf_fullbatch_train(uid, iid, y, pu0, pi0, 0, 0.01)
+    assert torch.equal(pu, pu0) and torch.equal(pi, pi0) and losses.shape == (0,)
+
+
+def test_mf_grid_too_large_raises(cuda, monkeypatch):
+    """A grid that cannot be resident is refused by the cooperative launch: the
+    launcher raises and launches nothing else."""
+    args = _mf_inputs(cuda, 50, 81, 64, 3_000, seed=5)
+    most = cuda_mfe._lib().mf_train_grid(64, 0)  # every block the card keeps resident
+    monkeypatch.setattr(cuda_mfe, "_grid", lambda *a: most + 1)
+    before = cuda_mfe.mf_fullbatch_train.launches
+    with pytest.raises(RuntimeError, match="mf_fullbatch_train launch failed"):
+        mfe.mf_fullbatch_train(*args, 2, 0.01, 1e-5, "float32")
+    assert cuda_mfe.mf_fullbatch_train.launches == before
+    monkeypatch.setattr(cuda_mfe, "_grid", lambda *a: most)  # the largest resident grid runs
+    got = mfe.mf_fullbatch_train(*args, 2, 0.01, 1e-5, "float32")
+    want = mfe.mf_fullbatch_train_plain(*args, 2, 0.01, 1e-5, "float32")
+    torch.testing.assert_close(got[2], want[2], rtol=MF_TOL["float32"][0], atol=0)
 
 
 def test_mf_launcher_checks_its_inputs(cuda):
@@ -484,7 +535,7 @@ def test_mf_launcher_checks_its_inputs(cuda):
 # ---- the fused LR trainers (csrc/lr_epoch.cu)
 
 # losses rtol, weights atol: float32 sums in another order (per-block partials,
-# shared atomics) carried through Adam's normalised steps at lr 0.05
+# segment sums) carried through Adam's normalised steps at lr 0.05
 LR_TOL = (1e-5, 1e-4)
 
 
@@ -525,8 +576,11 @@ def test_lr_fullbatch_train_matches_plain(cuda, B, U, I):
 
 @pytest.mark.parametrize("B,U,I", LR_SHAPES)
 @pytest.mark.parametrize("padded", [False, True])
-def test_lr_fullbatch_train_compact_matches_plain(cuda, B, U, I, padded):
+@pytest.mark.parametrize("rows", ["grouped", "shuffled", "skewed"])
+def test_lr_fullbatch_train_compact_matches_plain(cuda, B, U, I, padded, rows):
     uid, iid, dense, y = _lr_inputs(cuda, B, U, I, 43, seed=B + 1)
+    g_rows = torch.Generator(device=cuda).manual_seed(B + 7)
+    uid, iid = _reorder(rows, uid, U, g_rows), _reorder(rows, iid, I, g_rows)
     # the JAX layout pads each segment to 128 lanes; the port's fast_fit pads none
     u_pad, i_pad, d_pad = ((-(-U // 128) * 128, -(-I // 128) * 128, 128) if padded
                            else (U, I, 44))
@@ -545,12 +599,27 @@ def test_lr_fullbatch_train_compact_matches_plain(cuda, B, U, I, padded):
         before = cuda_lre.lr_fullbatch_train_compact.launches
         w, losses = lre.lr_fullbatch_train_compact(*args)
         torch.cuda.synchronize()
-        assert cuda_lre.lr_fullbatch_train_compact.launches == before + 10
+        assert cuda_lre.lr_fullbatch_train_compact.launches == before + 1  # one launch a call
         want_w, want_losses = lre.lr_fullbatch_train_compact_plain(*args)
         torch.testing.assert_close(losses, want_losses, rtol=LR_TOL[0], atol=0)
         torch.testing.assert_close(w, want_w, rtol=0, atol=LR_TOL[1])
+        # the same bits every call: segment sums and block partials in a fixed order
+        again = lre.lr_fullbatch_train_compact(*args)
+        assert torch.equal(again[0], w) and torch.equal(again[1], losses)
         if padded:  # lanes no id matches keep their value
             assert not bool(w[0, U:u_pad].any()) and not bool(w[0, u_pad + i_pad + 44:].any())
+
+
+def test_lr_compact_grid_too_large_raises(cuda, monkeypatch):
+    """As for MF: a grid that cannot be resident raises, and nothing falls back."""
+    uid, iid, dense, y = _lr_inputs(cuda, 500, 20, 30, 4, seed=3)
+    w0 = torch.zeros((1, 20 + 30 + 4), device=cuda)
+    most = cuda_lre._lib().lr_compact_grid(4)
+    monkeypatch.setattr(cuda_lre, "_compact_grid", lambda *a: most + 1)
+    before = cuda_lre.lr_fullbatch_train_compact.launches
+    with pytest.raises(RuntimeError, match="lr_fullbatch_train_compact launch failed"):
+        lre.lr_fullbatch_train_compact(uid, iid, dense, y, w0, 2, 0.05, 20, 30)
+    assert cuda_lre.lr_fullbatch_train_compact.launches == before
 
 
 def test_lr_launchers_check_their_inputs(cuda):

@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with the CUDA toolkit:
     python3 tools/kernel_sass.py [--against OTHER_CSRC_DIR]
 
 It builds ``csrc/din_head.cu``, ``din_attention.cu``, ``afm_attention.cu``,
-``serving_topk.cu`` and ``mf_epoch.cu`` (as the launchers do, into ``build/kernels/``),
+``serving_topk.cu``, ``mf_epoch.cu`` and ``lr_epoch.cu`` (as the launchers do,
+into ``build/kernels/``),
 disassembles them with ``cuobjdump -sass`` and prints one JSON line per
 kernel: its source, its name (demangled) and how many ``HMMA`` (warp-level
 tensor-core multiply) instructions its SASS holds. With ``--against`` it also
@@ -16,14 +17,17 @@ commit's) with the same flags and says, for each kernel, whether the two SASS
 listings are the same instruction for instruction, and whether they are so
 but for the numbers of their registers (``same_but_registers``: a kernel
 whose source file gained other kernels may be allocated other registers); it
-exits 1 if a kernel of ``din_head.cu``, ``serving_topk.cu`` or ``mf_epoch.cu``
-that the other tree has differs beyond its register numbers, but for the
+exits 1 if a kernel of ``din_head.cu``, ``serving_topk.cu`` or ``lr_epoch.cu``
+(the wide LR trainer's two kernels) that the other tree has differs beyond its
+register numbers, but for the
 kernels of ``MAY_CHANGE``: ``din_head_bwd_fc_kernel<bf16>`` takes its
 operands' bf16 rounding two values at a time (``op4``, the same round to
 nearest even); it runs in every bf16 backward, which ``chip_smoke.py`` holds
 against its plain version on the card. A kernel the other tree has and this
 one does not (``din_head_bwd_kernel<bf16>``: bf16 takes the split at every
-width) is not compared. Branch labels
+width; the two-launch MF and compact LR epoch kernels, which became
+``mf_train_kernel`` and ``lr_compact_train_kernel``, one cooperative launch a
+run) is not compared. Branch labels
 are renumbered within each kernel, since the disassembler numbers them across
 the file. ``din_head_bwd_att_kernel`` became a template on the storage type:
 the other tree's float32 kernel is matched to ``din_head_bwd_att_kernel<float>``
@@ -32,9 +36,7 @@ the other tree's float32 kernel is matched to ``din_head_bwd_att_kernel<float>``
 against another tree's by ``tools/din_bwd_digest.py --part fwd``). The DIN
 head's forward kernel was ``din_fwd_kernel<true, T>`` before
 its pool branch went; its old name is matched to ``din_fwd_kernel<T>``
-(``renamed``); so is ``mf_epoch_kernel<kBf16, Id>`` to
-``mf_epoch_kernel<kBf16, Id, 4>``, its 4-column instantiation (D <= 128) since
-it took wider D. ``din_head_bwd_fc_kernel`` takes a staging plan (``FcStage``:
+(``renamed``). ``din_head_bwd_fc_kernel`` takes a staging plan (``FcStage``:
 fewer rows, or windows of columns, where a chunk's rows do not fit) that
 earlier trees' did not, so it counts as new: ``tools/din_bwd_digest.py`` holds
 its results against another tree's bit for bit. Needs ``nvcc``, ``cuobjdump``
@@ -55,16 +57,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import build  # noqa: E402
 
-SOURCES = ("din_head.cu", "din_attention.cu", "afm_attention.cu", "serving_topk.cu", "mf_epoch.cu")
-UNCHANGED = ("din_head.cu", "serving_topk.cu", "mf_epoch.cu")
+SOURCES = ("din_head.cu", "din_attention.cu", "afm_attention.cu", "serving_topk.cu", "mf_epoch.cu",
+           "lr_epoch.cu")
+UNCHANGED = ("din_head.cu", "serving_topk.cu", "lr_epoch.cu")
 MAY_CHANGE = ("din_head_bwd_fc_kernel<__nv_bfloat16>",)
 
 
 def renamed(name: str) -> str:
     """An earlier tree's kernel name as this tree calls it: din_fwd_kernel<(bool)1,
     T> became din_fwd_kernel<T>, so its parameters' T2 (the second template
-    parameter) became T1; mf_epoch_kernel<kBf16, Id> became its 4-column
-    instantiation mf_epoch_kernel<kBf16, Id, 4>; the DIN pool's
+    parameter) became T1; the DIN pool's
     din_pool_kernel<kOnChip> moved to din_pool.cuh's namespace
     and took kB3 (false: the window pool) and a last parameter, b3 (unread
     without kB3)."""
@@ -78,7 +80,7 @@ def renamed(name: str) -> str:
     if m:
         args = m.group(2).replace("<unnamed>::", "dinpool::")
         return f"void dinpool::din_pool_kernel<(bool){m.group(1)}, (bool)0>({args}, const float *)"
-    return re.sub(r"mf_epoch_kernel<(\(bool\)\d, (?:int|long long))>", r"mf_epoch_kernel<\1, (int)4>", name)
+    return name
 
 
 def registers_renamed(code: list) -> list:
@@ -135,7 +137,7 @@ def main() -> int:
                 row["same_sass_as_against"] = other == code
                 row["same_but_registers"] = registers_renamed(other) == registers_renamed(code)
                 row["hmma_against"] = sum("HMMA" in i for i in other)
-                row["new"] = name not in theirs  # no counterpart there (mf_epoch_kernel's 8 and 16 columns)
+                row["new"] = name not in theirs  # no counterpart there (mf_train_kernel, say)
                 if (source in UNCHANGED and not row["new"] and not row["same_but_registers"]
                         and not any(m in name for m in MAY_CHANGE)):
                     changed.append(name)
