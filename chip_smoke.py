@@ -67,7 +67,10 @@ no result line.
    64 users under the same trained weights;
 9. serve_lr, serve_afm -- ``cli/serve.py::build_server`` trains each and
    serves it over HTTP: LR through its rank-2 factors (``topk_serve_matmul``
-   at D = 2), AFM through its masked catalog scores and the plain top-k;
+   at D = 2), AFM through its masked catalog scores and the plain top-k,
+   then a second ``Recommender`` with ``use_pallas="fused"`` over the same
+   model and mask, whose ``topk_scores`` lists must be the plain stable
+   top-k's (``run_serve_feature``, as for every non-factored model);
 10. din     -- ``run_experiment(PRESETS["din"])`` at full width (embedding 64,
    attention (128, 64, 1), fc (256, 128, 1), history 10) for DIN_EPOCHS epochs
    with window serving: training and evaluation through the fused DIN head
@@ -86,9 +89,21 @@ no result line.
    ``ops/din_head.py::kernel_route`` refuses: ``run_experiment`` for
    DIN_DEPTH_EPOCHS epochs with window serving through the composition
    (``attention_pool`` + ``mlp``), with no DIN kernel launch, against the
-   CPU's history.
+   CPU's history;
+14. deepfm  -- ``run_experiment(PRESETS["deepfm"])`` at full width (embedding
+   128, tower (512, 256, 128, 1)) for DEEPFM_EPOCHS epochs, every id and bias
+   lookup through the gather kernel pair (four a forward), held as afm is;
+15. serve_deepfm -- ``cli/serve.py::build_server --model deepfm``, served and
+   held as serve_afm is;
+16. feature_zoo -- WideDeep, NFM, PNN, DCN (the deepcross preset),
+   DeepCrossing and FFM, each through ``run_experiment`` at its preset's
+   full width for ZOO_EPOCHS epochs, held as afm is, with each model's
+   lookups a forward (LOOKUPS) counted exactly.
 
-Phases 4-13 are the main paths: each sets the launch counts to 0 just before
+The lookup pair's rows also cover the feature presets' widths: DeepFM's
+train-batch ids into user and item tables of D 128 and D 256 (PNN's).
+
+Phases 4-16 are the main paths: each sets the launch counts to 0 just before
 it and reads them just after. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the line before that the ``kernels`` line.
@@ -195,6 +210,21 @@ AFM_EPOCHS = 3  # the CPU reference's plain path is slow at full width
 # past one patch of the backward's dW rows
 AFM_WIDE, AFM_WIDE_ROWS = ((128, 128), (256, 64), (64, 256), (256, 256)), 8_192
 CATALOG_TILE = 64  # users per tile of catalog_scores_from_features
+# DeepFM and the other feature models at their presets' full widths: epochs of
+# each run (the CPU reference's plain path is slow at full width: about 0.3
+# TFLOP an epoch for DeepFM, 0.9 for DCN, whose three 641 x 641 crosses make
+# it the widest), and the id lookups a forward: the two id tables and the two
+# bias tables of a linear part (PNN, DCN and DeepCrossing have none; FFM looks
+# up both domains of each id table)
+DEEPFM_EPOCHS, ZOO_EPOCHS = 3, 2
+ZOO = ("widedeep", "nfm", "pnn", "deepcross", "deepcrossing", "ffm")
+LOOKUPS = {"afm": 4, "deepfm": 4, "widedeep": 4, "nfm": 4, "pnn": 2, "deepcross": 2,
+           "deepcrossing": 2, "ffm": 6}
+# the card's catalog tile against the CPU's under the same weights: largest
+# error within this share of the largest |logit| (float32 products summed in
+# another order, cuBLAS against the CPU's)
+FEATURE_TILE_RTOL = 1e-5
+FEATURE_ROWS_SEED = 4  # the lookup pair's rows at the feature presets' widths draw from their own generator
 # the DIN head and pool kernels against their plain versions: largest error
 # within this share of the tensor's largest |value| (float32 sums over D, the
 # widths, the L positions and, for the weight gradients, all rows, in another
@@ -1531,6 +1561,51 @@ def run_lr(ds: MovieLens100K) -> dict:
             "launches": counts}
 
 
+def check_feature_run(name: str, cfg, ds: MovieLens100K, res, tile_rtol: float) -> dict:
+    """The checks of a feature preset's ``run_experiment`` on the card: the
+    history keys are the full set; the train loss falls; the history matches a
+    CPU ``Trainer.fit`` over the same batches from the same initial weights
+    (plain versions, without the full-catalog ranking); and the catalog scores
+    of one tile of CATALOG_TILE users under the card's trained weights match
+    the CPU's."""
+    if set(res.history) != HISTORY_KEYS:
+        raise AssertionError(f"{name}: history keys {sorted(res.history)}")
+    loss = res.history["train_loss"]
+    if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+        raise AssertionError(f"{name}: the train loss did not fall: {loss.tolist()}")
+    batches = split_batches(cfg, ds, "cpu")
+    cpu = Trainer(build_model(cfg, ds),
+                  TrainConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                              epochs=cfg.epochs, track_metrics=True,
+                              compute_dtype=cfg.compute_dtype),
+                  device="cpu").fit(batches["train"], valid=batches["valid"], test=batches["test"])
+    worst = compare_histories(name, res.history, {k: v.numpy() for k, v in cpu.history.items()},
+                              res.extras, cpu.extras)
+    model = build_model(cfg, ds)
+    model.load_state_dict({k: v.cpu() for k, v in res.params.items()})
+    tile = ServingContext(torch.from_numpy(ds.user_features[:CATALOG_TILE]),
+                          torch.from_numpy(ds.item_features))
+    with torch.no_grad():
+        want = model.score_catalog(tile)
+        got = model.to(DEVICE).score_catalog(tile.to(DEVICE)).cpu()
+    catalog_err = normwise_err(f"{name} catalog tile", got, want, tile_rtol)
+    return {"rows": res.train_examples, "epochs": cfg.epochs,
+            "train_loss": [float(loss[0]), float(loss[-1])],
+            "ranking_test@10": res.ranking["test@10"], "extras": res.extras,
+            "train_time_s": res.train_time_s, "max_rel_loss_diff_vs_cpu": worst,
+            "catalog_tile_max_abs_err_vs_cpu": catalog_err,
+            "catalog_tile_max_abs_logit": float(want.abs().max())}
+
+
+def feature_counts(name: str, ds: MovieLens100K, epochs: int) -> dict:
+    """The lookup pair's launches of a feature preset's ``run_experiment``:
+    LOOKUPS[name] a forward, the forwards being train, valid and test an epoch,
+    the final AUCs and the catalog tiles, and as many ``onehot_grad`` a
+    training step."""
+    forwards = 3 * epochs + 3 + n_tiles(ds)
+    return {"gather_rows": LOOKUPS[name] * forwards, "onehot_grad": LOOKUPS[name] * epochs}
+
+
 def run_afm(ds: MovieLens100K) -> dict:
     cfg = PRESETS["afm"].replace(epochs=AFM_EPOCHS)
     E = AFM_EPOCHS
@@ -1543,38 +1618,56 @@ def run_afm(ds: MovieLens100K) -> dict:
 
     forwards = 3 * E + 3 + n_tiles(ds)  # train, valid, test an epoch; final AUCs; catalog tiles
     check_counts("afm", counts, {"afm_attention_pool": forwards, "afm_attention_pool_bwd": 2 * E,
-                                 "gather_rows": 4 * forwards, "onehot_grad": 4 * E})
-    if set(res.history) != HISTORY_KEYS:
-        raise AssertionError(f"afm: history keys {sorted(res.history)}")
-    loss = res.history["train_loss"]
-    if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
-        raise AssertionError(f"afm: the train loss did not fall: {loss.tolist()}")
-
-    # the CPU reference: Trainer.fit over the same batches from the same initial
-    # weights (plain versions), without the full-catalog ranking
-    batches = split_batches(cfg, ds, "cpu")
-    cpu = Trainer(build_model(cfg, ds),
-                  TrainConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
-                              epochs=E, track_metrics=True, compute_dtype=cfg.compute_dtype),
-                  device="cpu").fit(batches["train"], valid=batches["valid"], test=batches["test"])
-    worst = compare_histories("afm", res.history, {k: v.numpy() for k, v in cpu.history.items()},
-                              res.extras, cpu.extras)
-    # the catalog scores of one tile of users under the card's trained weights
-    model = build_model(cfg, ds)
-    model.load_state_dict({k: v.cpu() for k, v in res.params.items()})
-    tile = ServingContext(torch.from_numpy(ds.user_features[:CATALOG_TILE]),
-                          torch.from_numpy(ds.item_features))
-    with torch.no_grad():
-        want = model.score_catalog(tile)
-        got = model.to(DEVICE).score_catalog(tile.to(DEVICE)).cpu()
-    catalog_err = normwise_err("afm catalog tile", got, want, AFM_FWD_RTOL)
+                                 **feature_counts("afm", ds, E)})
+    out = check_feature_run("afm", cfg, ds, res, AFM_FWD_RTOL)
     return {"phase": "afm", "config": f"afm preset (embedding 128, attention 64), {E} epochs",
-            "rows": res.train_examples, "epochs": E,
-            "train_loss": [float(loss[0]), float(loss[-1])],
-            "ranking_test@10": res.ranking["test@10"], "extras": res.extras,
-            "wall_s": wall_s, "train_time_s": res.train_time_s,
-            "max_rel_loss_diff_vs_cpu": worst,
-            "catalog_tile_max_abs_err_vs_cpu": catalog_err, "launches": counts}
+            **out, "wall_s": wall_s, "launches": counts}
+
+
+def run_deepfm(ds: MovieLens100K) -> dict:
+    """DeepFM, the headline model: ``run_experiment(PRESETS["deepfm"])`` at the
+    preset's full width (embedding 128, tower (512, 256, 128, 1)) for
+    DEEPFM_EPOCHS epochs, every lookup through the gather kernel pair."""
+    cfg = PRESETS["deepfm"].replace(epochs=DEEPFM_EPOCHS)
+    E = DEEPFM_EPOCHS
+    reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, data=ds, device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launches()  # ... and ends here
+    check_counts("deepfm", counts, feature_counts("deepfm", ds, E))
+    out = check_feature_run("deepfm", cfg, ds, res, FEATURE_TILE_RTOL)
+    return {"phase": "deepfm",
+            "config": f"deepfm preset (embedding 128, hidden (512, 256, 128, 1)), {E} epochs",
+            **out, "wall_s": wall_s, "examples_per_s": res.examples_per_sec, "launches": counts}
+
+
+def run_feature_zoo(ds: MovieLens100K) -> dict:
+    """WideDeep, NFM, PNN, DCN (the ``deepcross`` preset), DeepCrossing and
+    FFM, each through ``run_experiment`` at its preset's full width for
+    ZOO_EPOCHS epochs, held as ``check_feature_run`` holds DeepFM, with each
+    model's exact lookup counts."""
+    reset_launches()  # the main path's run starts here
+    runs = {}
+    for name in ZOO:
+        cfg = PRESETS[name].replace(epochs=ZOO_EPOCHS)
+        before = launches()
+        t0 = time.perf_counter()
+        res = run_experiment(cfg, data=ds, device=DEVICE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        after = launches()
+        check_counts(name, {k: after[k] - before[k] for k in after},
+                     feature_counts(name, ds, ZOO_EPOCHS))
+        runs[name] = {"model_kwargs": {k: list(v) if isinstance(v, tuple) else v
+                                       for k, v in cfg.model_kwargs.items()},
+                      "wall_s": wall_s, "examples_per_s": res.examples_per_sec, "result": res}
+    counts = launches()  # ... and ends here
+    for name, run in runs.items():  # the CPU references, after the counted runs
+        cfg = PRESETS[name].replace(epochs=ZOO_EPOCHS)
+        run.update(check_feature_run(name, cfg, ds, run.pop("result"), FEATURE_TILE_RTOL))
+    return {"phase": "feature_zoo", "epochs": ZOO_EPOCHS, "runs": runs, "launches": counts}
 
 
 def recommend_scores(port, rec, users, k, single=False) -> dict:
@@ -1598,9 +1691,17 @@ def recommend_scores(port, rec, users, k, single=False) -> dict:
 
 def run_serve_feature(ds: MovieLens100K, data_dir: str, name: str, epochs: int,
                       seed: int = 0) -> dict:
+    """``cli/serve.py::build_server --model name`` trains the model and serves
+    it over HTTP, each answer held against the plain top-k. LR serves through
+    its rank-2 factors (``topk_serve_matmul``); a non-factored model serves
+    its masked catalog scores (the plain stable top-k), and then a second
+    ``Recommender`` over the same model, context and seen mask with
+    ``use_pallas="fused"`` takes the ``topk_scores`` kernel, whose lists must
+    be the plain stable top-k's exactly."""
     args = serve_cli.parser().parse_args(["--model", name, "--data", data_dir, "--epochs",
                                           str(epochs), "--port", "0", "--seed", str(seed)])
     reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
     server = serve_cli.build_server(args).serve_background()
     try:
         rec = server.recommender
@@ -1609,6 +1710,7 @@ def run_serve_feature(ds: MovieLens100K, data_dir: str, name: str, epochs: int,
             raise AssertionError(f"/healthz: {health}")
         rng = np.random.default_rng(seed)
         batch = sorted(rng.choice(ds.num_users, 32, replace=False).tolist())
+        fused = None
         if name == "lr":
             P, Q = (t.detach() for t in rec.model.serving_factors(rec.ctx))
             if P.shape[1] != 2:
@@ -1620,25 +1722,46 @@ def run_serve_feature(ds: MovieLens100K, data_dir: str, name: str, epochs: int,
         else:
             requests = [recommend_scores(server.port, rec, [12], 10, single=True),
                         recommend_scores(server.port, rec, batch, 50)]
+            fused = Recommender(rec.model, rec.ctx, seen=rec.seen, use_pallas="fused",
+                                device=DEVICE)
+            for users, k in (([12], 10), (batch, 50)):
+                before = launches()["topk_scores"]
+                got = fused.top_k(k, users)
+                if launches()["topk_scores"] != before + 1:
+                    raise AssertionError(f"serve_{name}: the fused recommender did not launch "
+                                         "topk_scores")
+                _, want = topk.stable_top_k(rec.scores[torch.tensor(users, device=DEVICE)], k)
+                if not np.array_equal(got, want.cpu().numpy()):
+                    raise AssertionError(f"serve_{name}: topk_scores' lists for {len(users)} "
+                                         "users are not the plain stable top-k")
+            requests.append({"request": "Recommender(use_pallas='fused').top_k",
+                             "users": [1, 32], "k": [10, 50]})
         counts = launches()  # ... and ends here
+        wall_s = time.perf_counter() - t0
         stats = http(server.port, "GET", "/v1/stats")
         with torch.no_grad():  # the served scores are the trained model's, masked
             if not torch.equal(rec.scores, torch.where(rec.seen, NEG_INF,
                                                        rec.model.score_catalog(rec.ctx))):
                 raise AssertionError(f"serve_{name}: the served scores are not the model's")
+        if fused is not None and not torch.equal(fused.scores, rec.scores):
+            raise AssertionError(f"serve_{name}: the fused recommender scored another catalog")
     finally:
         server.shutdown()
     tiles = n_tiles(ds)
     if name == "lr":  # training forwards, the ranking eval's and the server's catalog scoring
         want = {"gather_rows": 2 * (epochs + 2 * tiles), "onehot_grad": 2 * epochs,
                 "topk_serve_matmul": 3}
-    else:
-        want = {"afm_attention_pool": epochs + 2 * tiles, "afm_attention_pool_bwd": 2 * epochs,
-                "gather_rows": 4 * (epochs + 2 * tiles), "onehot_grad": 4 * epochs}
+    else:  # ... and the fused recommender's catalog scoring
+        n = LOOKUPS[name]
+        want = {"gather_rows": n * (epochs + 3 * tiles), "onehot_grad": n * epochs,
+                "topk_scores": 2}
+        if name == "afm":
+            want.update(afm_attention_pool=epochs + 3 * tiles,
+                        afm_attention_pool_bwd=2 * epochs)
     check_counts(f"serve_{name}", counts, want)
     return {"phase": f"serve_{name}",
             "entry_point": f"cli/serve.py::build_server --model {name} --epochs {epochs}",
-            "requests": requests, "launches": counts, "stats": stats}
+            "wall_s": wall_s, "requests": requests, "launches": counts, "stats": stats}
 
 
 # ---------------------------------------------------------------- phases 10-11
@@ -1899,7 +2022,22 @@ def main() -> int:
             emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
             rows["onehot_grad"].append(check_grad(tname, ids, V, D, torch.float32, gen))
             emit({"phase": "kernel_check", "kernel": "onehot_grad", **rows["onehot_grad"][-1]})
-        del lookups, table, din_hist, din_y, lr_user, lr_item
+        # the lookup pair at the feature presets' widths, float32, on DeepFM's
+        # train-batch ids: D 128 (DeepFM, WideDeep, NFM, DCN) and D 256 (PNN),
+        # from a generator of their own so that the other rows keep their inputs
+        feature_gen = torch.Generator(device=DEVICE).manual_seed(FEATURE_ROWS_SEED)
+        fm_x, _ = split_batches(PRESETS["deepfm"], ds, DEVICE)["train"]
+        fm_user, fm_item = ds.spec.ids(fm_x)
+        for model_name, D in (("deepfm", PRESETS["deepfm"].model_kwargs["embedding_dim"]),
+                              ("pnn", PRESETS["pnn"].model_kwargs["embedding_dim"])):
+            for field, V, ids in (("user", ds.num_users, fm_user), ("item", ds.num_items, fm_item)):
+                tname = f"{model_name} {field}"
+                table = torch.randn((V, D), generator=feature_gen, device=DEVICE)
+                rows["gather_rows"].append(check_gather(tname, table, ids))
+                emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
+                rows["onehot_grad"].append(check_grad(tname, ids, V, D, torch.float32, feature_gen))
+                emit({"phase": "kernel_check", "kernel": "onehot_grad", **rows["onehot_grad"][-1]})
+        del lookups, table, din_hist, din_y, lr_user, lr_item, fm_x, fm_user, fm_item
         # the rows of widths past the presets' draw from their own generator, so
         # that the other rows see the same inputs as before them
         wide_gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -1986,7 +2124,8 @@ def main() -> int:
         phases = [run_train(ds), run_serve(ds, tmp), run_slice(ds), run_lr(ds), run_afm(ds),
                   run_serve_feature(ds, tmp, "lr", TRAIN_EPOCHS),
                   run_serve_feature(ds, tmp, "afm", AFM_EPOCHS), run_din(ds), run_din_bf16(ds),
-                  run_serve_din(ds, tmp, DIN_EPOCHS), run_din_depth(ds)]
+                  run_serve_din(ds, tmp, DIN_EPOCHS), run_din_depth(ds), run_deepfm(ds),
+                  run_serve_feature(ds, tmp, "deepfm", DEEPFM_EPOCHS), run_feature_zoo(ds)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for p in phases:

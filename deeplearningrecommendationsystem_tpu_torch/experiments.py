@@ -6,8 +6,9 @@ train N epochs with per-epoch train/valid/test metrics -> score the full
 catalog -> ranking@k on valid and test with seen items excluded.
 
 Ported, full-batch: the 'pair' family for MF (the pattern of scripts/mf.py),
-the 'feature' family for LR and AFM (the pattern of scripts/lr.py: each
-split's [N, 45] feature matrix) and the 'seq' family for DIN (the pattern of
+the 'feature' family for LR, AFM, DeepFM, WideDeep, NFM, PNN, DCN (the
+``deepcross`` preset), DeepCrossing and FFM (the pattern of scripts/lr.py:
+each split's [N, 45] feature matrix) and the 'seq' family for DIN (the pattern of
 scripts/din.py: each split's (history window [N, L], target [N]), the window
 taken from that split's own positives). The other presets, families and
 training modes raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
@@ -34,21 +35,30 @@ from deeplearningrecommendationsystem_tpu_torch.eval.ranking import ranking_metr
 from deeplearningrecommendationsystem_tpu_torch.eval.recommend import score_ranking, seen_to_tail
 from deeplearningrecommendationsystem_tpu_torch.models import (
     AFM,
+    DCN,
     DIN,
+    FFM,
+    NFM,
+    PNN,
+    DeepCrossing,
+    DeepFM,
     LogisticRegression,
     MatrixFactorization,
     ServingContext,
+    WideDeep,
 )
 from deeplearningrecommendationsystem_tpu_torch.sampling import NegativeSampler
 from deeplearningrecommendationsystem_tpu_torch.train import TrainConfig, Trainer
 
 # ROADMAP.md §1 items that bring the presets not ported yet
 _NOT_PORTED = {
-    "deepfm": "item 6", "ffm": "item 8", "widedeep": "item 8", "nfm": "item 8",
-    "pnn": "item 8", "deepcross": "item 8", "deepcrossing": "item 8",
     "neuralcf": "item 9", "autorec": "item 9", "i-autorec": "item 9",
     "dien": "item 10",
 }
+# the feature family's models over the spec, by preset name
+_FEATURE_MODELS = {"lr": LogisticRegression, "afm": AFM, "deepfm": DeepFM, "widedeep": WideDeep,
+                   "nfm": NFM, "pnn": PNN, "deepcross": DCN, "deepcrossing": DeepCrossing,
+                   "ffm": FFM}
 FAMILIES = ("pair", "feature", "seq")
 
 
@@ -56,7 +66,7 @@ def build_model(cfg: ExperimentConfig, data: MovieLens100K,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
     """The preset's model on the CPU, its weights drawn from ``generator``
     (a CPU generator; seeded from ``cfg.seed`` when None)."""
-    if cfg.model not in ("mf", "lr", "afm", "din"):
+    if cfg.model not in ("mf", "din") and cfg.model not in _FEATURE_MODELS:
         where = _NOT_PORTED.get(cfg.model, "§1")
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet; see ROADMAP.md §1 {where}")
     if generator is None:
@@ -64,11 +74,9 @@ def build_model(cfg: ExperimentConfig, data: MovieLens100K,
     kw = dict(cfg.model_kwargs, generator=generator, device="cpu")
     if cfg.model == "mf":
         return MatrixFactorization(data.num_users, data.num_items, **kw)
-    if cfg.model == "lr":
-        return LogisticRegression(data.spec, **kw)
     if cfg.model == "din":
         return DIN(data.num_items, **kw)
-    return AFM(data.spec, **kw)
+    return _FEATURE_MODELS[cfg.model](data.spec, **kw)
 
 
 @dataclasses.dataclass

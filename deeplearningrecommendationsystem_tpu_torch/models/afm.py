@@ -21,18 +21,15 @@ effect here.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Mapping, Optional
 
 import torch
 from torch import nn
 
 from deeplearningrecommendationsystem_tpu_torch.features import ML100K_SPEC, FeatureSpec
-from deeplearningrecommendationsystem_tpu_torch.models.base import (
-    ServingContext,
-    catalog_scores_from_features,
-    init_generator,
-)
+from deeplearningrecommendationsystem_tpu_torch.models.base import init_generator
 from deeplearningrecommendationsystem_tpu_torch.models.common import (
+    FeatureModel,
     linear_part,
     linear_part_init,
     nest,
@@ -43,7 +40,7 @@ from deeplearningrecommendationsystem_tpu_torch.ops.embedding import embed_field
 from deeplearningrecommendationsystem_tpu_torch.ops.linear import linear, linear_init
 
 
-class AFM(nn.Module):
+class AFM(FeatureModel):
     onehot_serving = True  # the JAX class attribute; a TPU gather policy, no effect here
 
     def __init__(
@@ -76,9 +73,6 @@ class AFM(nn.Module):
         self.att_out = params_module(linear_init(generator, D, 1))
         self.wide = params_module(linear_part_init(generator, spec))
 
-    def params(self) -> Dict[str, torch.Tensor]:
-        return dict(self.named_parameters())
-
     def apply_params(self, params: Mapping[str, Any], x: torch.Tensor) -> torch.Tensor:
         """Logits [B] of a [B, 45] batch."""
         p = nest(params)
@@ -89,9 +83,3 @@ class AFM(nn.Module):
              e["occupation"], e["genre"]], dim=1)
         pooled = AfmAttentionPool.apply(fields, p["att_w"], p["att_b"], p["att_h"])
         return (linear_part(p["wide"], x, self.spec) + linear(p["att_out"], pooled))[:, 0]
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.apply_params(self.params(), x)
-
-    def score_catalog(self, ctx: ServingContext) -> torch.Tensor:
-        return catalog_scores_from_features(self.apply_params, self.params(), ctx)

@@ -52,17 +52,12 @@ from deeplearningrecommendationsystem_tpu_torch.models.base import (
     catalog_scores_full_history,
     init_generator,
 )
-from deeplearningrecommendationsystem_tpu_torch.models.common import nest, params_module
+from deeplearningrecommendationsystem_tpu_torch.models.common import layer_list, nest, params_module
 from deeplearningrecommendationsystem_tpu_torch.ops.attention import attention_pool
 from deeplearningrecommendationsystem_tpu_torch.ops.din_attention import din_attention_pool
 from deeplearningrecommendationsystem_tpu_torch.ops.din_head import din_head, kernel_route
 from deeplearningrecommendationsystem_tpu_torch.ops.embedding import gather_rows
 from deeplearningrecommendationsystem_tpu_torch.ops.linear import embedding_init, mlp, mlp_init
-
-
-def _layers(tree: Mapping[str, Any]) -> list:
-    """{"0": layer, "1": layer, ...} -> [layer, layer, ...]."""
-    return [tree[str(i)] for i in range(len(tree))]
 
 
 class DIN(nn.Module):
@@ -96,10 +91,8 @@ class DIN(nn.Module):
         self.indirect_hist = indirect_hist
         D = embed_size
         self.item = nn.Parameter(embedding_init(generator, num_items, D))
-        self.att = nn.ModuleList(
-            params_module(p) for p in mlp_init(generator, (3 * D,) + tuple(attention_units)))
-        self.fc = nn.ModuleList(
-            params_module(p) for p in mlp_init(generator, (2 * D,) + tuple(fc_units)))
+        self.att = params_module(mlp_init(generator, (3 * D,) + tuple(attention_units)))
+        self.fc = params_module(mlp_init(generator, (2 * D,) + tuple(fc_units)))
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.named_parameters())
@@ -118,7 +111,7 @@ class DIN(nn.Module):
         return hist, gather_rows(item, hist), gather_rows(item, target)
 
     def _head(self, p, hist, hist_e, target_e, window: bool) -> torch.Tensor:
-        att, fc = _layers(p["att"]), _layers(p["fc"])
+        att, fc = layer_list(p["att"]), layer_list(p["fc"])
         if self.mask_padding:
             # valid = positions after the leading zero-pad run; item 0 can
             # appear inside a history, so only the pad prefix is masked
@@ -160,8 +153,8 @@ class DIN(nn.Module):
         p = nest(params)
         target_e = gather_rows(p["item"], target)
         mask = torch.arange(hist_e.shape[1], device=hist_e.device)[None, :] < length[:, None]
-        pooled = attention_pool(_layers(p["att"]), hist_e, target_e, mask)
-        return mlp(_layers(p["fc"]), torch.cat([pooled, target_e], dim=-1))[:, 0]
+        pooled = attention_pool(layer_list(p["att"]), hist_e, target_e, mask)
+        return mlp(layer_list(p["fc"]), torch.cat([pooled, target_e], dim=-1))[:, 0]
 
     def score_catalog(self, ctx: ServingContext) -> torch.Tensor:
         params = self.params()

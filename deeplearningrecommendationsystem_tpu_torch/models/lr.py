@@ -24,7 +24,6 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
-from torch import nn
 
 from deeplearningrecommendationsystem_tpu_torch.features import ML100K_SPEC, FeatureSpec
 from deeplearningrecommendationsystem_tpu_torch.models.base import (
@@ -33,6 +32,7 @@ from deeplearningrecommendationsystem_tpu_torch.models.base import (
     init_generator,
 )
 from deeplearningrecommendationsystem_tpu_torch.models.common import (
+    FeatureModel,
     linear_part,
     linear_part_init,
     nest,
@@ -45,7 +45,7 @@ from deeplearningrecommendationsystem_tpu_torch.ops.lr_epoch import (
 )
 
 
-class LogisticRegression(nn.Module):
+class LogisticRegression(FeatureModel):
     def __init__(
         self,
         spec: FeatureSpec = ML100K_SPEC,
@@ -63,9 +63,6 @@ class LogisticRegression(nn.Module):
         part = params_module(linear_part_init(generator, spec))
         self.user_bias, self.item_bias, self.wide = part.user_bias, part.item_bias, part.wide
 
-    def params(self) -> Dict[str, torch.Tensor]:
-        return dict(self.named_parameters())
-
     def widen(self, x: torch.Tensor) -> torch.Tensor:
         """[B, 45] -> [B, U + I + 43]: the id one-hots and the dense block,
         built on the device with one scatter."""
@@ -81,12 +78,10 @@ class LogisticRegression(nn.Module):
         p = nest(params)
         if self.wide_input:
             U, I = self.spec.num_users, self.spec.num_items
+            x = x.to(p["wide"]["w"].dtype)  # one-hots and dense columns in the weights' dtype
             return (x[:, :U] @ p["user_bias"] + x[:, U:U + I] @ p["item_bias"]
                     + linear(p["wide"], x[:, U + I:]))[:, 0]
         return linear_part(p, x, self.spec)[:, 0]
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.apply_params(self.params(), x)
 
     @torch.no_grad()
     def fused_inputs(self, params: Mapping[str, Any], x: torch.Tensor, y: torch.Tensor,

@@ -84,7 +84,9 @@ def embed_fields(tables: Mapping[str, torch.Tensor], x: torch.Tensor,
     """Embed each field of a [B, 45] feature matrix -> dict of [B, D] tensors.
 
     Only fields present in ``tables`` are embedded; 'age' (vocab-1 table)
-    projects the scalar age through its single row.
+    projects the scalar age through its single row. The feature matrix stays
+    float32 (its id columns); a dense block is cast to its table's dtype where
+    they meet, as the JAX trainer's cast of the whole matrix leaves it.
     """
     user, item, age, gender, occupation, genre = spec.split(x)
     blocks = {"age": age, "gender": gender, "occupation": occupation, "genre": genre}
@@ -95,7 +97,7 @@ def embed_fields(tables: Mapping[str, torch.Tensor], x: torch.Tensor,
         if name in ("user", "item"):
             out[name] = gather_rows(tables[name], user if name == "user" else item)
         else:
-            out[name] = blocks[name] @ tables[name]
+            out[name] = blocks[name].to(tables[name].dtype) @ tables[name]
     return out
 
 

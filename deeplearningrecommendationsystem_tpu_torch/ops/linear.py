@@ -8,8 +8,8 @@ linear layers with weight and bias drawn from U(-1/sqrt(fan_in),
 
 The draws differ from ``jax.random``'s for the same seed; tests that need
 both packages to hold the same weights copy them across (``weights.py``).
-``mlp_init`` and ``mlp`` are DIN's two-hidden-layer nets; ``relu_stack`` comes
-with DeepFM.
+``mlp_init`` and ``mlp`` are DIN's two-hidden-layer nets; ``relu_stack`` is the
+tower of DeepFM, WideDeep, NFM, PNN and DCN.
 """
 
 from __future__ import annotations
@@ -68,3 +68,11 @@ def mlp(layers: Sequence[Mapping[str, torch.Tensor]], x: torch.Tensor,
         x = torch.relu(linear(p, x))
     x = linear(layers[-1], x)
     return torch.relu(x) if final_activation else x
+
+
+def relu_stack(layers: Sequence[Mapping[str, torch.Tensor]], x: torch.Tensor) -> torch.Tensor:
+    """Linear -> ReLU for EVERY layer, the last included: the reference's tower
+    (model/widedeep.py:51-57, model/deepcross.py:21-31)."""
+    for p in layers:
+        x = torch.relu(linear(p, x))
+    return x

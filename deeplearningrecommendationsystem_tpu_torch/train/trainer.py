@@ -14,7 +14,10 @@ Semantics kept from the JAX trainer:
 * the loss is BCE-with-logits; with a weight mask it is
   ``sum(l * w) / max(sum(w), 1)`` (the reference's ``train_loop2``);
 * ``compute_dtype``: float params are cast to it for the forward and
-  backward, the master weights stay float32 and the loss is float32;
+  backward, the master weights stay float32 and the loss is float32; the
+  batch stays as given (the JAX trainer casts it as well, which rounds a
+  [B, 45] feature matrix's ids above 256), and a model casts each float
+  block of its batch to the dtype of the weight it meets;
 * ``extras[f"{split}_auc_raw"]`` is the true AUC on the final params;
 * ``history["_param_checksum"]`` ([1]) sums every final param and Adam
   moment (not Adam's step count).
@@ -124,8 +127,7 @@ class Trainer:
         """(loss, logits): both float32, under the ``compute_dtype`` policy."""
         dt = self.config.compute_dtype
         if dt:
-            dtype = getattr(torch, dt)
-            params, batch = _cast_floats(params, dtype), _cast_floats(batch, dtype)
+            params = _cast_floats(params, getattr(torch, dt))
         logits = self.model.apply_params(params, batch).float()
         return _bce_with_logits(logits, labels, weights), logits
 

@@ -26,9 +26,16 @@ from torch import nn
 
 from deeplearningrecommendationsystem_tpu_torch.models import (
     AFM,
+    DCN,
     DIN,
+    FFM,
+    NFM,
+    PNN,
+    DeepCrossing,
+    DeepFM,
     LogisticRegression,
     MatrixFactorization,
+    WideDeep,
 )
 
 
@@ -48,8 +55,15 @@ def _flat(params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 # MF: user [U, D], item [I, D]. LR: user_bias, item_bias, wide.{w, b}. AFM:
 # tables.{user, item, gender, occupation, genre}, att_{w, b, h}, att_out.{w, b},
 # wide.{user_bias, item_bias, wide.{w, b}}. DIN: item, att.{0,1,2}.{w, b},
-# fc.{0,1,2}.{w, b}.
-_PORTED = (MatrixFactorization, LogisticRegression, AFM, DIN)
+# fc.{0,1,2}.{w, b}. DeepFM, WideDeep, NFM: tables.*, deep_in.{w, b},
+# deep.{i}.{w, b}, fm_linear.* (DeepFM) or wide.* (the linear part), out.{w, b}.
+# PNN: tables.*, lz, lp, dnn.{i}, out. DCN: tables.*, cross.{i}.{w, b}, deep.{i},
+# out. DeepCrossing: tables.*, blocks.{i}.{up, down}.{w, b}, out. FFM: the JAX
+# table keys hold a dot ("user_id.user"), so the leaf "tables.user_id.user" is
+# the parameter "user" of the submodule "user_id" of "tables": the dotted name
+# maps as it stands; and lr.{user_bias, item_bias, wide.{w, b}}.
+_PORTED = (MatrixFactorization, LogisticRegression, AFM, DIN, DeepFM, WideDeep, NFM, PNN, DCN,
+           DeepCrossing, FFM)
 
 
 def _to_state(model: nn.Module, tree: Mapping) -> Dict[str, np.ndarray]:

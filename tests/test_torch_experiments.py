@@ -1,6 +1,6 @@
-"""The MF, LR and AFM slices end to end: ``run_experiment`` in both packages on
-small synthetic ml-100k-format datasets, and the port's ``cli/serve.py`` on the
-CPU.
+"""MF and the feature family end to end: ``run_experiment`` in both packages
+on small synthetic ml-100k-format datasets, and the port's ``cli/serve.py`` on
+the CPU.
 
 Both runs are made to start from the same numbers: the port's
 ``NegativeSampler`` and ``build_model`` are replaced by ones that hand it the
@@ -14,8 +14,10 @@ error; the checksum (a sum of 40k params and moments) atol 2e-4 (measured:
 4.7e-5); the thresholded
 metrics, the ranking metrics and the top-k lists exactly, since no two
 scores of a user that decide a list lie closer than the packages' float32
-differences on this data. LR and a narrow AFM (embedding 32, attention 16)
-run on a dataset with 300 items, since on 150 the sampler can emit item id I,
+differences on this data. The feature presets (LR, and AFM, DeepFM,
+WideDeep, NFM, PNN, DCN, DeepCrossing and FFM narrowed through
+``model_kwargs``: embeddings 8-32, towers of two or three layers) run on a
+dataset with 300 items, since on 150 the sampler can emit item id I,
 which the 45-column feature matrix cannot look up in either package
 (``ROADMAP.md`` §3); held to the same tolerances, except AFM's checksum
 (rtol 1e-5: its standard-normal attention weights make it a sum of values
@@ -35,8 +37,7 @@ from deeplearningrecommendationsystem_tpu import experiments as jax_experiments
 from deeplearningrecommendationsystem_tpu.configs import PRESETS as JAX_PRESETS
 from deeplearningrecommendationsystem_tpu.data import MovieLens100K as JaxMovieLens
 from deeplearningrecommendationsystem_tpu.features import FeatureSpec as JaxSpec
-from deeplearningrecommendationsystem_tpu.models import AFM as JaxAFM
-from deeplearningrecommendationsystem_tpu.models import LogisticRegression as JaxLR
+from deeplearningrecommendationsystem_tpu import models as jax_models
 from deeplearningrecommendationsystem_tpu.models import MatrixFactorization as JaxMF
 from deeplearningrecommendationsystem_tpu.sampling import NegativeSampler as JaxSampler
 from deeplearningrecommendationsystem_tpu.serving import Recommender as JaxRecommender
@@ -134,10 +135,25 @@ def test_served_top_k_matches_jax(runs):
         np.testing.assert_array_equal(rec.top_k(k), jax_rec.top_k(k))
 
 
-# ---- the feature family: LR and a narrow AFM
+# ---- the feature family: LR, and narrow AFM, DeepFM, WideDeep, NFM, PNN, DCN,
+# DeepCrossing and FFM
 
 FEATURE_I = 300
-FEATURE_CONFIGS = {"lr": {}, "afm": {"model_kwargs": {"embedding_dim": 32, "attention_dim": 16}}}
+_TOWER = {"hidden_units": (32, 16, 1), "embedding_dim": 16}
+FEATURE_CONFIGS = {
+    "lr": {}, "afm": {"model_kwargs": {"embedding_dim": 32, "attention_dim": 16}},
+    "deepfm": {"model_kwargs": _TOWER}, "widedeep": {"model_kwargs": _TOWER},
+    "nfm": {"model_kwargs": _TOWER},
+    "pnn": {"model_kwargs": {"embedding_dim": 16, "hidden_units": (32, 16, 8)}},
+    "deepcross": {"model_kwargs": {"cross_layers": 3, "deep_hidden_units": (32, 16, 1),
+                                   "embedding_dim": 8}},
+    "deepcrossing": {"model_kwargs": {"embedding_dim": 8, "hidden_units": (32, 16)}},
+    "ffm": {"model_kwargs": {"num_vector": 8}},
+}
+# the JAX class of each feature preset (the JAX package's experiments.py::build_model)
+JAX_FEATURE_MODELS = {"lr": "LogisticRegression", "afm": "AFM", "deepfm": "DeepFM",
+                      "widedeep": "WideDeep", "nfm": "NFM", "pnn": "PNN", "deepcross": "DCN",
+                      "deepcrossing": "DeepCrossing", "ffm": "FFM"}
 _build_model = experiments.build_model
 
 
@@ -150,12 +166,14 @@ def feature_dir(tmp_path_factory):
 def _flat(tree, prefix=""):
     out = {}
     for k, v in tree.items():
+        if isinstance(v, (list, tuple)):
+            v = {str(i): layer for i, layer in enumerate(v)}
         out.update(_flat(v, f"{prefix}{k}.") if isinstance(v, dict) else {f"{prefix}{k}": v})
     return out
 
 
 def _jax_init_feature_model(cfg, data, generator=None):
-    jax_model = {"lr": JaxLR, "afm": JaxAFM}[cfg.model](
+    jax_model = getattr(jax_models, JAX_FEATURE_MODELS[cfg.model])(
         JaxSpec(**dataclasses.asdict(data.spec)), **cfg.model_kwargs)
     params = jax.tree.map(np.asarray, jax_model.init(jax.random.PRNGKey(cfg.seed)))
     return params_from_jax(_build_model(cfg, data), params)
@@ -209,7 +227,7 @@ def test_feature_ranking_matches_jax(feature_runs):
 
 def test_other_presets_name_their_roadmap_item(dataset_dir):
     pt = MovieLens100K(dataset_dir, seed=0)
-    for name in ("deepfm", "neuralcf", "dien", "autorec", "nfm"):
+    for name in ("neuralcf", "dien", "autorec", "i-autorec"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             experiments.run_experiment(PRESETS[name].replace(epochs=1), data=pt, device="cpu")
     for over in ({"train_mode": "minibatch"}, {"mesh_shape": (1, 2)}):
@@ -249,11 +267,11 @@ def test_build_server_unported_flags_exit(dataset_dir, flag):
         serve.build_server(_args(dataset_dir, **{flag: "x"}))
 
 
-@pytest.mark.parametrize("name", list(FEATURE_CONFIGS))
+@pytest.mark.parametrize("name", ["lr", "afm", "deepfm"])
 def test_build_server_serves_feature_models(feature_dir, name):
-    """LR serves through its rank-2 factors (the fused top-k at D = 2), AFM
-    through its masked catalog scores; both answers equal the stable top-k of
-    the trained model's masked scores."""
+    """LR serves through its rank-2 factors (the fused top-k at D = 2), AFM and
+    DeepFM (the presets' full widths) through their masked catalog scores; every
+    answer equals the stable top-k of the trained model's masked scores."""
     args = _args(feature_dir, model=name, epochs=2)
     server = serve.build_server(args)
     try:

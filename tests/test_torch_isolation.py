@@ -8,6 +8,8 @@
   fused MF and LR trainers, the AFM attention pool and its backward, the
   fused DIN head and its backward, the DIN attention pool) goes to its kernel
   launcher and never to the plain version; there is no fallback.
+* Every id lookup of the feature models (DeepFM, WideDeep, NFM, PNN, DCN,
+  DeepCrossing, FFM) goes through the gather and onehot_grad wrappers.
 * DIN's routes: training and evaluation go through the DIN head wrappers,
   the window catalog scorer through the DIN attention pool, the masked
   routes through neither.
@@ -32,10 +34,17 @@ from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
 from deeplearningrecommendationsystem_tpu_torch.features import FeatureSpec
 from deeplearningrecommendationsystem_tpu_torch.models import (
     AFM,
+    DCN,
     DIN,
+    FFM,
+    NFM,
+    PNN,
+    DeepCrossing,
+    DeepFM,
     LogisticRegression,
     MatrixFactorization,
     ServingContext,
+    WideDeep,
 )
 from deeplearningrecommendationsystem_tpu_torch.ops import afm_attention, gather, lr_epoch, mf_epoch
 from deeplearningrecommendationsystem_tpu_torch.ops import din_attention, din_head
@@ -86,6 +95,8 @@ def test_port_files_are_found():
             "deeplearningrecommendationsystem_tpu_torch/models/lr.py",
             "deeplearningrecommendationsystem_tpu_torch/models/afm.py",
             "deeplearningrecommendationsystem_tpu_torch/models/din.py",
+            "deeplearningrecommendationsystem_tpu_torch/models/deepfm.py",
+            "deeplearningrecommendationsystem_tpu_torch/models/ffm.py",
             "deeplearningrecommendationsystem_tpu_torch/ops/din_head.py",
             "deeplearningrecommendationsystem_tpu_torch/ops/din_attention.py",
             "deeplearningrecommendationsystem_tpu_torch/ops/cuda/din_head.py",
@@ -125,6 +136,13 @@ ENTRY_POINTS = {
     "MatrixFactorization": lambda: MatrixFactorization(4, 6, 8),
     "LogisticRegression": lambda: LogisticRegression(),
     "AFM": lambda: AFM(),
+    "DeepFM": lambda: DeepFM(),
+    "WideDeep": lambda: WideDeep(),
+    "NFM": lambda: NFM(),
+    "PNN": lambda: PNN(),
+    "DCN": lambda: DCN(),
+    "DeepCrossing": lambda: DeepCrossing(),
+    "FFM": lambda: FFM(),
     "DIN": lambda: DIN(10),
     "Recommender": lambda: Recommender(MatrixFactorization(4, 6, 8, device="cpu"), _ctx()),
     "Trainer": lambda: Trainer(MatrixFactorization(4, 6, 8, device="cpu"), TrainConfig()),
@@ -382,6 +400,43 @@ def test_afm_pool_goes_through_the_kernel_pair(monkeypatch):
     model(x).sum().backward()
     assert seen == ["fwd", "bwd"]
     assert model.att_w.grad is not None and model.tables.user.grad is not None
+
+
+# the feature models ported with DeepFM, narrow, and their lookups a forward:
+# the two id tables, and the two bias tables of a linear part; FFM's two
+# domains of each id table
+FEATURE_MODELS = {
+    "DeepFM": (lambda spec: DeepFM(spec, (8, 4, 1), 8, device="cpu"), 4),
+    "WideDeep": (lambda spec: WideDeep(spec, (8, 4, 1), 8, device="cpu"), 4),
+    "NFM": (lambda spec: NFM(spec, (8, 4, 1), 8, device="cpu"), 4),
+    "PNN": (lambda spec: PNN(spec, 8, (8, 4), device="cpu"), 2),
+    "DCN": (lambda spec: DCN(spec, 2, (8, 4, 1), 8, device="cpu"), 2),
+    "DeepCrossing": (lambda spec: DeepCrossing(spec, 8, (8, 4), device="cpu"), 2),
+    "FFM": (lambda spec: FFM(spec, 8, device="cpu"), 6),
+}
+
+
+@pytest.mark.parametrize("name", list(FEATURE_MODELS))
+def test_feature_model_lookups_go_through_the_kernel_pair(monkeypatch, name):
+    """Every id lookup of the model's forward takes the gather wrapper, and its
+    backward the onehot_grad wrapper, whose CUDA route is the launcher (above);
+    the lookups a forward are the count chip_smoke.py holds."""
+    from deeplearningrecommendationsystem_tpu_torch.ops import embedding
+
+    seen = []
+    monkeypatch.setattr(embedding, "gather_rows_kernel",
+                        lambda t, i: seen.append("fwd") or gather.gather_rows_kernel_plain(t, i))
+    monkeypatch.setattr(embedding, "onehot_grad",
+                        lambda i, g, v: seen.append("bwd") or gather.onehot_grad_plain(i, g, v))
+    make, lookups = FEATURE_MODELS[name]
+    model = make(FeatureSpec(num_users=4, num_items=5))
+    x = torch.zeros((3, 45))
+    x[:, 0], x[:, 1], x[:, 2] = torch.tensor([0.0, 1, 3]), torch.tensor([4.0, 2, 0]), 0.5
+    model(x).sum().backward()
+    assert seen == ["fwd"] * lookups + ["bwd"] * lookups
+    with torch.no_grad():
+        scores = model.score_catalog(ServingContext(torch.zeros((4, 24)), torch.zeros((5, 19))))
+    assert scores.shape == (4, 5) and seen.count("fwd") == 2 * lookups
 
 
 @pytest.mark.parametrize("mode", ["compact", "wide"])
