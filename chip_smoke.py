@@ -70,7 +70,7 @@ no result line.
    at D = 2), AFM through its masked catalog scores and the plain top-k,
    then a second ``Recommender`` with ``use_pallas="fused"`` over the same
    model and mask, whose ``topk_scores`` lists must be the plain stable
-   top-k's (``run_serve_feature``, as for every non-factored model);
+   top-k's (``run_serve_model``, as for every non-factored model);
 10. din     -- ``run_experiment(PRESETS["din"])`` at full width (embedding 64,
    attention (128, 64, 1), fc (256, 128, 1), history 10) for DIN_EPOCHS epochs
    with window serving: training and evaluation through the fused DIN head
@@ -98,12 +98,35 @@ no result line.
 16. feature_zoo -- WideDeep, NFM, PNN, DCN (the deepcross preset),
    DeepCrossing and FFM, each through ``run_experiment`` at its preset's
    full width for ZOO_EPOCHS epochs, held as afm is, with each model's
-   lookups a forward (LOOKUPS) counted exactly.
+   lookups a forward (LOOKUPS) counted exactly;
+17. dien    -- ``run_experiment(PRESETS["dien"])`` at the preset's width
+   (embedding 16, attention (64, 32, 1), fc (128, 64, 1)) for DIEN_EPOCHS
+   epochs with window serving, then the full-history catalog of every user
+   on the card: every lookup through the gather pair, no DIN head or pool
+   launch (DIEN's attention, GRU and MLPs are plain torch). Held against a
+   CPU ``Trainer.fit``, the window catalog against the CPU's tile by tile,
+   the full-history catalog against the CPU's on one user of each length
+   bucket and the longest history;
+18. dien_bf16_aux -- DIEN in bf16 with ``indirect_hist``, then with AUGRU and
+   the auxiliary loss in float32, DIEN_SECOND_EPOCHS epochs each, against the
+   CPU;
+19. neuralcf -- ``run_experiment(PRESETS["neuralcf"])`` at full width (mf_dim
+   256, layers (512, 256, 128, 64, 32)) in float32, then in bf16, four
+   lookups a forward, against the CPU, and one catalog tile;
+20. autorec, i_autorec -- U- and I-AutoRec (hidden 256, 150 global
+   negatives): the masked loss and the whole catalog against the CPU's, no
+   kernel launch;
+21. serve_pair_matrix -- ``build_server --model neuralcf`` and ``--model
+   autorec``, served and held as serve_afm is (``run_serve_model``);
+22. cli_run -- ``cli/run.py --model dien --epochs CLI_EPOCHS --json`` on the
+   card, its JSON line parsed, its lookups counted.
 
-The lookup pair's rows also cover the feature presets' widths: DeepFM's
-train-batch ids into user and item tables of D 128 and D 256 (PNN's).
+The lookup pair's rows also cover the feature presets' widths (DeepFM's
+train-batch ids into user and item tables of D 128 and D 256, PNN's), DIEN's
+history and indirect rows (D 16, float32 and bf16) and NeuralCF's tables
+(D 256).
 
-Phases 4-16 are the main paths: each sets the launch counts to 0 just before
+Phases 4-22 are the main paths: each sets the launch counts to 0 just before
 it and reads them just after. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the line before that the ``kernels`` line.
@@ -111,6 +134,8 @@ power limit, and the line before that the ``kernels`` line.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import shutil
 import statistics
@@ -134,6 +159,7 @@ from deeplearningrecommendationsystem_tpu_torch.experiments import (
     split_batches,
 )
 from deeplearningrecommendationsystem_tpu_torch.models import MatrixFactorization, ServingContext
+from deeplearningrecommendationsystem_tpu_torch.models.base import catalog_scores_from_pairs
 from deeplearningrecommendationsystem_tpu_torch.ops import afm_attention as afm
 from deeplearningrecommendationsystem_tpu_torch.ops import din_attention as dinatt
 from deeplearningrecommendationsystem_tpu_torch.ops import din_head as dh
@@ -218,13 +244,16 @@ CATALOG_TILE = 64  # users per tile of catalog_scores_from_features
 # up both domains of each id table)
 DEEPFM_EPOCHS, ZOO_EPOCHS = 3, 2
 ZOO = ("widedeep", "nfm", "pnn", "deepcross", "deepcrossing", "ffm")
+# NeuralCF looks up its four tables a forward (GMF and MLP, user and item);
+# AutoRec looks nothing up
 LOOKUPS = {"afm": 4, "deepfm": 4, "widedeep": 4, "nfm": 4, "pnn": 2, "deepcross": 2,
-           "deepcrossing": 2, "ffm": 6}
+           "deepcrossing": 2, "ffm": 6, "neuralcf": 4, "autorec": 0}
 # the card's catalog tile against the CPU's under the same weights: largest
 # error within this share of the largest |logit| (float32 products summed in
 # another order, cuBLAS against the CPU's)
 FEATURE_TILE_RTOL = 1e-5
 FEATURE_ROWS_SEED = 4  # the lookup pair's rows at the feature presets' widths draw from their own generator
+PAIR_SEQ_ROWS_SEED = 5  # ... and at DIEN's and NeuralCF's
 # the DIN head and pool kernels against their plain versions: largest error
 # within this share of the tensor's largest |value| (float32 sums over D, the
 # widths, the L positions and, for the weight gradients, all rows, in another
@@ -307,6 +336,23 @@ DIN_ATTENTION, DIN_FC = (128, 64, 1), (256, 128, 1)  # models/din.py's defaults,
 LOOKUP_INTERLEAVE_MS, LOOKUP_RUNS, LOOKUP_BUDGET_MS = 0.1, 5, 20.0
 HOST_CALLS = 1_000
 DIN_TARGET_TILE = 512  # serve_din's smallest target tile: 2 users x 256 catalog items
+# DIEN (embedding 16, attention (64, 32, 1), fc (128, 64, 1)), NeuralCF (mf_dim
+# 256, layers (512, 256, 128, 64, 32)) and AutoRec (hidden 256) at their
+# presets' widths: epochs of each run (the CPU references' plain paths, and
+# DIEN's GRU, a Python loop of about 12 launches a step, set them)
+DIEN_EPOCHS, DIEN_SECOND_EPOCHS, NEURALCF_EPOCHS, NEURALCF_BF16_EPOCHS = 3, 2, 3, 2
+AUTOREC_EPOCHS, CLI_EPOCHS = 3, 2
+DIEN_WINDOW_TILE = 8  # users per tile of DIEN's window scorer (models/dien.py)
+DIEN_AUX_WEIGHT = 0.5
+# catalog_scores_full_history's buckets, item chunk and activation budget
+# (models/base.py), from which its launches are counted
+FULL_HISTORY_BUCKETS, FULL_HISTORY_CHUNK, FULL_HISTORY_BUDGET = (
+    (32, 64, 128, 256, 512, 1024), 256, 32 * 1024 * 1024)
+# The bf16 runs (DIEN with indirect_hist, NeuralCF) are held to the float32
+# limits (TRAIN_LOSS_RTOL, TRAIN_AUC_ATOL): cuBLAS and the CPU both sum a bf16
+# product in float32 and round it once, and on an H100 the two runs' losses
+# came out within 1.2e-7 (DIEN) and 2.4e-7 (NeuralCF) of each other, their
+# AUCs within 1.2e-6 (PERF.md §6, DIEN and NeuralCF).
 CSRC = "deeplearningrecommendationsystem_tpu_torch/csrc"
 PALLAS = "deeplearningrecommendationsystem_tpu/ops/pallas"
 KERNELS = {
@@ -1673,7 +1719,7 @@ def run_feature_zoo(ds: MovieLens100K) -> dict:
 def recommend_scores(port, rec, users, k, single=False) -> dict:
     """One /v1/recommend request to a non-factored model, held against the
     stable top-k of the server's masked catalog scores (``rec.scores``, which
-    ``run_serve_feature`` holds against the model's own scores)."""
+    ``run_serve_model`` holds against the model's own scores)."""
     if single:
         out = http(port, "GET", f"/v1/recommend?user={users[0]}&k={k}")
         items, scores = [out["items"]], [out["scores"]]
@@ -1689,15 +1735,18 @@ def recommend_scores(port, rec, users, k, single=False) -> dict:
     return {"request": f"{'GET' if single else 'POST'} /v1/recommend", "users": len(users), "k": k}
 
 
-def run_serve_feature(ds: MovieLens100K, data_dir: str, name: str, epochs: int,
-                      seed: int = 0) -> dict:
+def run_serve_model(ds: MovieLens100K, data_dir: str, name: str, epochs: int,
+                    seed: int = 0) -> dict:
     """``cli/serve.py::build_server --model name`` trains the model and serves
     it over HTTP, each answer held against the plain top-k. LR serves through
-    its rank-2 factors (``topk_serve_matmul``); a non-factored model serves
-    its masked catalog scores (the plain stable top-k), and then a second
-    ``Recommender`` over the same model, context and seen mask with
-    ``use_pallas="fused"`` takes the ``topk_scores`` kernel, whose lists must
-    be the plain stable top-k's exactly."""
+    its rank-2 factors (``topk_serve_matmul``); a non-factored model (AFM,
+    DeepFM, NeuralCF, AutoRec) serves its masked catalog scores (the plain
+    stable top-k), and then a second ``Recommender`` over the same model,
+    context and seen mask with ``use_pallas="fused"`` takes the
+    ``topk_scores`` kernel, whose lists must be the plain stable top-k's
+    exactly. The lookups: LOOKUPS[name] a forward, one forward an epoch
+    (no metrics), and three catalogs of CATALOG_TILE-user tiles (the ranking
+    eval's, the server's and the fused recommender's)."""
     args = serve_cli.parser().parse_args(["--model", name, "--data", data_dir, "--epochs",
                                           str(epochs), "--port", "0", "--seed", str(seed)])
     reset_launches()  # the main path's run starts here
@@ -1751,7 +1800,8 @@ def run_serve_feature(ds: MovieLens100K, data_dir: str, name: str, epochs: int,
     if name == "lr":  # training forwards, the ranking eval's and the server's catalog scoring
         want = {"gather_rows": 2 * (epochs + 2 * tiles), "onehot_grad": 2 * epochs,
                 "topk_serve_matmul": 3}
-    else:  # ... and the fused recommender's catalog scoring
+    else:  # ... and the fused recommender's catalog scoring (NeuralCF's pair
+        # scorer takes tiles of CATALOG_TILE users too; AutoRec looks nothing up)
         n = LOOKUPS[name]
         want = {"gather_rows": n * (epochs + 3 * tiles), "onehot_grad": n * epochs,
                 "topk_scores": 2}
@@ -1958,6 +2008,327 @@ def run_serve_din(ds: MovieLens100K, data_dir: str, epochs: int, seed: int = 0) 
             "requests": requests, "launches": counts, "stats": stats}
 
 
+# ---------------------------------------------------------------- phases 17-22
+
+def full_history_buckets(histories) -> list:
+    """[(bucket length, its users)] as ``catalog_scores_full_history`` groups
+    ``histories``, each with the user tile its activation budget allows."""
+    lengths = np.array([max(len(h), 1) for h in histories])
+    maxlen = int(lengths.max())
+    bucket_list = [b for b in FULL_HISTORY_BUCKETS if b < maxlen]
+    bucket_list.append(next((b for b in FULL_HISTORY_BUCKETS if b >= maxlen), maxlen))
+    out, lo = [], 0
+    for Lb in bucket_list:
+        users = np.where((lengths > lo) & (lengths <= Lb))[0]
+        lo = Lb
+        tile = max(1, min(64, FULL_HISTORY_BUDGET // (FULL_HISTORY_CHUNK * Lb * 64)))
+        out.append((Lb, users, tile))
+    return out
+
+
+def full_history_work(histories, num_items: int) -> tuple:
+    """(user tiles, item chunks, GRU steps) of ``catalog_scores_full_history``
+    over ``histories``: one history lookup a user tile (embedded once), one
+    target lookup and a bucket's length of GRU steps an item chunk."""
+    chunks_per_tile = -(-num_items // FULL_HISTORY_CHUNK)
+    tiles = steps = 0
+    for Lb, users, tile in full_history_buckets(histories):
+        n = -(-users.size // tile)
+        tiles += n
+        steps += n * chunks_per_tile * Lb
+    return tiles, tiles * chunks_per_tile, steps
+
+
+def bucket_users(histories) -> list:
+    """The first user of each length bucket that holds any, and the longest
+    history's."""
+    first = [int(users[0]) for _, users, _ in full_history_buckets(histories) if users.size]
+    longest = int(np.argmax([len(h) for h in histories]))
+    return sorted(set(first + [longest]))
+
+
+def cpu_fit(cfg, ds: MovieLens100K):
+    """The CPU reference of a run: ``Trainer.fit`` over the same batches from
+    the same initial weights (plain versions), without the ranking eval."""
+    batches = split_batches(cfg, ds, "cpu")
+    return Trainer(build_model(cfg, ds),
+                   TrainConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                               epochs=cfg.epochs, track_metrics=True,
+                               compute_dtype=cfg.compute_dtype),
+                   device="cpu", aux_loss_fn="model" if cfg.aux_weight > 0 else None,
+                   aux_weight=cfg.aux_weight).fit(batches["train"], valid=batches["valid"],
+                                                  test=batches["test"])
+
+
+def hold_run(phase: str, cfg, ds: MovieLens100K, res) -> dict:
+    """The history keys, a falling finite train loss, and the history against
+    ``cpu_fit`` (losses within TRAIN_LOSS_RTOL, AUCs within TRAIN_AUC_ATOL)."""
+    if set(res.history) != HISTORY_KEYS:
+        raise AssertionError(f"{phase}: history keys {sorted(res.history)}")
+    loss = res.history["train_loss"]
+    if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+        raise AssertionError(f"{phase}: the train loss did not fall: {loss.tolist()}")
+    cpu = cpu_fit(cfg, ds)
+    worst = compare_histories(phase, res.history, {k: v.numpy() for k, v in cpu.history.items()},
+                              res.extras, cpu.extras)
+    return {"rows": res.train_examples, "epochs": cfg.epochs,
+            "train_loss": [float(loss[0]), float(loss[-1])],
+            "ranking_test@10": res.ranking["test@10"], "extras": res.extras,
+            "train_time_s": res.train_time_s, "max_rel_loss_diff_vs_cpu": worst,
+            "max_auc_diff_vs_cpu": max((abs(v - cpu.extras[k]) for k, v in res.extras.items()),
+                                       default=0.0)}
+
+
+def timed_run(cfg, ds: MovieLens100K) -> tuple:
+    """(result, wall s) of ``run_experiment(cfg)`` on the card."""
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, data=ds, device=DEVICE)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def window_tiles(ds: MovieLens100K) -> int:
+    return -(-ds.num_users // DIEN_WINDOW_TILE)
+
+
+def trained(cfg, ds: MovieLens100K, res, device) -> nn.Module:
+    model = build_model(cfg, ds)
+    model.load_state_dict({k: v.cpu() for k, v in res.params.items()})
+    return model.to(device)
+
+
+def run_dien(ds: MovieLens100K) -> dict:
+    """``run_experiment(PRESETS["dien"])`` at the preset's width (embedding 16,
+    attention (64, 32, 1), fc (128, 64, 1), 30 train negatives) for DIEN_EPOCHS
+    epochs, float32, window serving, then the full-history catalog of every
+    user on the card, both counted. Every lookup takes the gather kernel pair;
+    the attention, the GRU and the MLPs are plain torch, so no DIN head or pool
+    kernel launches. Held against a CPU ``Trainer.fit``; the window catalog
+    against the CPU's tile by tile; the full-history catalog against the
+    CPU's on one user of each length bucket and the longest history."""
+    cfg = PRESETS["dien"].replace(epochs=DIEN_EPOCHS, full_history_serving=False)
+    E = DIEN_EPOCHS
+    full = [row[row >= 0] for row in ds.itemid_matrix(ds.data)]
+    ctx_full = ServingContext(torch.from_numpy(ds.user_features), torch.from_numpy(ds.item_features),
+                              full_histories=full).to(DEVICE)
+    reset_launches()  # the main path's run starts here
+    res, wall_s = timed_run(cfg, ds)
+    model = trained(cfg, ds, res, DEVICE)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        scores_full = model.score_catalog(ctx_full)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    counts = launches()  # ... and ends here
+
+    tiles, chunks, steps = full_history_work(full, ds.num_items)
+    forwards = 3 * E + 3  # train, valid, test an epoch; the final AUCs
+    check_counts("dien", counts, {**din_head_counts({}, {}), "din_attention_pool": 0,
+                                  "gather_rows": 2 * (forwards + window_tiles(ds)) + tiles + chunks,
+                                  "onehot_grad": 2 * E})
+    out = hold_run("dien", cfg, ds, res)
+    if tuple(scores_full.shape) != (ds.num_users, ds.num_items) or not bool(
+            torch.isfinite(scores_full).all()):
+        raise AssertionError("dien: the full-history catalog is not finite [U, I]")
+    # the window catalog, tile by tile, under the card's trained weights
+    cpu_model = trained(cfg, ds, res, "cpu")
+    ctx = ServingContext(torch.from_numpy(ds.user_features), torch.from_numpy(ds.item_features),
+                         history=res.ctx.history.cpu())
+    with torch.no_grad():
+        got, want = model.score_catalog(ctx.to(DEVICE)).cpu(), cpu_model.score_catalog(ctx)
+    worst_tile = 0.0
+    for u0 in range(0, ds.num_users, DIEN_WINDOW_TILE):
+        sl = slice(u0, u0 + DIEN_WINDOW_TILE)
+        err = normwise_err(f"dien window tile {u0 // DIEN_WINDOW_TILE}", got[sl], want[sl],
+                           FEATURE_TILE_RTOL)
+        worst_tile = max(worst_tile, err / float(want[sl].abs().max()))
+    # the full-history catalog of one user of each length bucket, the longest
+    users = bucket_users(full)
+    sub = ServingContext(torch.from_numpy(ds.user_features[users]),
+                         torch.from_numpy(ds.item_features), full_histories=[full[u] for u in users])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want_full = cpu_model.score_catalog(sub)
+    cpu_subset_s = time.perf_counter() - t0
+    full_err = normwise_err("dien full-history users", scores_full[users].cpu(), want_full,
+                            FEATURE_TILE_RTOL)
+    return {"phase": "dien",
+            "config": f"dien preset (embedding 16, attention (64, 32, 1), fc (128, 64, 1)), "
+                      f"float32, window serving, {E} epochs; then the full-history catalog",
+            **out, "wall_s": wall_s, "examples_per_s": res.examples_per_sec,
+            "window_worst_tile_rel_err_vs_cpu": worst_tile,
+            "full_history": {"wall_s": full_s, "user_tiles": tiles, "item_chunks": chunks,
+                             "gru_steps": steps,
+                             "users_checked": {int(u): int(len(full[u])) for u in users},
+                             "max_abs_err_vs_cpu": full_err,
+                             "max_abs_logit": float(want_full.abs().max()),
+                             "cpu_subset_s": cpu_subset_s},
+            "launches": counts}
+
+
+def run_dien_bf16_aux(ds: MovieLens100K) -> dict:
+    """DIEN as ``bench.py`` trains it, ``compute_dtype="bfloat16"`` with
+    ``indirect_hist=True`` (``run_experiment`` builds the standard batches,
+    which the flag leaves on the standard route), then ``use_augru=True`` with
+    ``aux_weight`` DIEN_AUX_WEIGHT in float32 (the train forward also looks up
+    each example's per-step negatives), DIEN_SECOND_EPOCHS epochs each, window
+    serving; each against the same run on the CPU."""
+    base = PRESETS["dien"]
+    E = DIEN_SECOND_EPOCHS
+    runs = {
+        "bf16_indirect": base.replace(epochs=E, full_history_serving=False,
+                                      compute_dtype="bfloat16",
+                                      model_kwargs=dict(base.model_kwargs, indirect_hist=True)),
+        "augru_aux": base.replace(epochs=E, full_history_serving=False,
+                                  aux_weight=DIEN_AUX_WEIGHT,
+                                  model_kwargs=dict(base.model_kwargs, use_augru=True)),
+    }
+    reset_launches()  # the main path's run starts here
+    results = {}
+    for name, cfg in runs.items():
+        before = launches()
+        res, wall_s = timed_run(cfg, ds)
+        after = launches()
+        aux = cfg.aux_weight > 0
+        # the train forward looks up the negatives too; the final AUCs' train
+        # forward ignores them
+        want = {**din_head_counts({}, {}), "din_attention_pool": 0,
+                "gather_rows": (3 if aux else 2) * E + 2 * (2 * E + 3 + window_tiles(ds)),
+                "onehot_grad": (3 if aux else 2) * E}
+        check_counts(f"dien_bf16_aux {name}", {k: after[k] - before[k] for k in after}, want)
+        results[name] = (cfg, res, wall_s)
+    counts = launches()  # ... and ends here
+    out = {name: {**hold_run(f"dien_bf16_aux {name}", cfg, ds, res), "wall_s": wall_s}
+           for name, (cfg, res, wall_s) in results.items()}
+    return {"phase": "dien_bf16_aux",
+            "config": f"dien preset in bf16 with indirect_hist, then AUGRU with aux_weight "
+                      f"{DIEN_AUX_WEIGHT} in float32, {E} epochs each, window serving",
+            "runs": out, "launches": counts}
+
+
+def run_neuralcf(ds: MovieLens100K) -> dict:
+    """``run_experiment(PRESETS["neuralcf"])`` at the preset's width (mf_dim
+    256, layers (512, 256, 128, 64, 32), 60 train negatives) for
+    NEURALCF_EPOCHS epochs in float32, then NEURALCF_BF16_EPOCHS in bf16
+    (``bench.py:56``); four lookups a forward through the gather pair, the
+    catalog through ``catalog_scores_from_pairs`` (CATALOG_TILE-user tiles).
+    Each held against the CPU's ``Trainer.fit``, the float32 catalog's first
+    tile against the CPU's under the card's trained weights."""
+    base = PRESETS["neuralcf"]
+    runs = {"float32": base.replace(epochs=NEURALCF_EPOCHS),
+            "bfloat16": base.replace(epochs=NEURALCF_BF16_EPOCHS, compute_dtype="bfloat16")}
+    reset_launches()  # the main path's run starts here
+    results = {}
+    for dtype, cfg in runs.items():
+        before = launches()
+        res, wall_s = timed_run(cfg, ds)
+        after = launches()
+        E = cfg.epochs
+        check_counts(f"neuralcf {dtype}", {k: after[k] - before[k] for k in after},
+                     {"gather_rows": 4 * (3 * E + 3 + n_tiles(ds)), "onehot_grad": 4 * E})
+        results[dtype] = (cfg, res, wall_s)
+    counts = launches()  # ... and ends here
+    out = {dtype: {**hold_run(f"neuralcf {dtype}", cfg, ds, res), "wall_s": wall_s,
+                   "examples_per_s": res.examples_per_sec}
+           for dtype, (cfg, res, wall_s) in results.items()}
+    cfg, res, _ = results["float32"]
+    tile = {}
+    for device in (DEVICE, "cpu"):
+        model = trained(cfg, ds, res, device)
+        with torch.no_grad():
+            tile[str(device)] = catalog_scores_from_pairs(
+                model.apply_params, model.params(), CATALOG_TILE, ds.num_items, device).cpu()
+    err = normwise_err("neuralcf catalog tile", tile[str(DEVICE)], tile["cpu"], FEATURE_TILE_RTOL)
+    out["float32"].update(catalog_tile_max_abs_err_vs_cpu=err,
+                          catalog_tile_max_abs_logit=float(tile["cpu"].abs().max()))
+    return {"phase": "neuralcf",
+            "config": "neuralcf preset (mf_dim 256, layers (512, 256, 128, 64, 32)), "
+                      f"{NEURALCF_EPOCHS} epochs float32, {NEURALCF_BF16_EPOCHS} bf16",
+            "runs": out, "launches": counts}
+
+
+def run_autorec(ds: MovieLens100K, name: str) -> dict:
+    """``run_experiment(PRESETS[name])`` for AutoRec (user rows) or I-AutoRec
+    (item rows) at hidden 256 with 150 global negatives, AUTOREC_EPOCHS
+    epochs: the masked loss and its metrics against the same run on the CPU,
+    and the whole [U, I] catalog (I-AutoRec's transposed) against the CPU's
+    under the card's trained weights. No kernel on this path until a fused
+    recommender serves the catalog (``serve_pair_matrix``)."""
+    cfg = PRESETS[name].replace(epochs=AUTOREC_EPOCHS)
+    reset_launches()  # the main path's run starts here
+    res, wall_s = timed_run(cfg, ds)
+    counts = launches()  # ... and ends here
+    check_counts(name, counts, {k: 0 for k in KERNELS})
+    if set(res.history) != HISTORY_KEYS:
+        raise AssertionError(f"{name}: history keys {sorted(res.history)}")
+    loss = res.history["train_loss"]
+    if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+        raise AssertionError(f"{name}: the train loss did not fall: {loss.tolist()}")
+    cpu = run_experiment(cfg, data=ds, device="cpu")
+    worst = compare_histories(name, res.history, cpu.history, res.extras, cpu.extras)
+    if cpu.train_examples != res.train_examples:
+        raise AssertionError(f"{name}: {res.train_examples} rated entries, CPU {cpu.train_examples}")
+    catalogs = {}
+    for device, ctx in ((DEVICE, res.ctx), ("cpu", cpu.ctx)):
+        with torch.no_grad():
+            catalogs[str(device)] = trained(cfg, ds, res, device).score_catalog(ctx).cpu()
+    got, want = catalogs[str(DEVICE)], catalogs["cpu"]
+    if tuple(got.shape) != (ds.num_users, ds.num_items):
+        raise AssertionError(f"{name}: catalog of shape {tuple(got.shape)}")
+    err = normwise_err(f"{name} catalog", got, want, FEATURE_TILE_RTOL)
+    return {"phase": name.replace("-", "_"),
+            "config": f"{name} preset (hidden 256, 150 global negatives), {AUTOREC_EPOCHS} epochs",
+            "rating_matrix": list(res.ctx.rating_matrix.shape), "rows": res.train_examples,
+            "epochs": AUTOREC_EPOCHS, "train_loss": [float(loss[0]), float(loss[-1])],
+            "ranking_test@10": res.ranking["test@10"], "extras": res.extras,
+            "wall_s": wall_s, "train_time_s": res.train_time_s,
+            "max_rel_loss_diff_vs_cpu": worst, "catalog_max_abs_err_vs_cpu": err,
+            "catalog_max_abs_logit": float(want.abs().max()), "launches": counts}
+
+
+def run_serve_pair_matrix(ds: MovieLens100K, data_dir: str) -> dict:
+    """``cli/serve.py::build_server`` with NeuralCF and with AutoRec, each over
+    HTTP and through a fused recommender (``run_serve_model``); each run's
+    counts from 0."""
+    runs = [run_serve_model(ds, data_dir, "neuralcf", NEURALCF_BF16_EPOCHS),
+            run_serve_model(ds, data_dir, "autorec", AUTOREC_EPOCHS)]
+    return {"phase": "serve_pair_matrix", "runs": runs,
+            "launches": {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}}
+
+
+def run_cli(ds: MovieLens100K, data_dir: str) -> dict:
+    """``cli/run.py --model dien --epochs CLI_EPOCHS --json`` on the card (its
+    default device), the preset's full-history serving: its JSON line must
+    parse and name DIEN, with finite metrics; the lookups are counted."""
+    from deeplearningrecommendationsystem_tpu_torch.cli import run as run_cli_module
+
+    buf = io.StringIO()
+    reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = run_cli_module.main(["--model", "dien", "--epochs", str(CLI_EPOCHS), "--json",
+                                    "--data", data_dir])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launches()  # ... and ends here
+    payload = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if code != 0 or payload["model"] != "dien":
+        raise AssertionError(f"cli_run: exit {code}, payload {payload}")
+    if not all(np.isfinite(v) for v in payload["final"].values()):
+        raise AssertionError(f"cli_run: non-finite metrics {payload['final']}")
+    full = [row[row >= 0] for row in ds.itemid_matrix(ds.data)]
+    tiles, chunks, _ = full_history_work(full, ds.num_items)
+    E = CLI_EPOCHS
+    check_counts("cli_run", counts, {**din_head_counts({}, {}), "din_attention_pool": 0,
+                                     "gather_rows": 2 * (3 * E + 3) + tiles + chunks,
+                                     "onehot_grad": 2 * E})
+    return {"phase": "cli_run",
+            "command": f"cli/run.py --model dien --epochs {E} --json (device cuda)",
+            "wall_s": wall_s, "train_time_s": payload["train_time_s"],
+            "examples_per_sec": payload["examples_per_sec"],
+            "ranking_test@10": payload["ranking"]["test@10"], "launches": counts}
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -2037,7 +2408,34 @@ def main() -> int:
                 emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
                 rows["onehot_grad"].append(check_grad(tname, ids, V, D, torch.float32, feature_gen))
                 emit({"phase": "kernel_check", "kernel": "onehot_grad", **rows["onehot_grad"][-1]})
+        # the lookup pair at DIEN's and NeuralCF's shapes, from a generator of
+        # their own: DIEN's train-batch history ids [B * 10] and targets into
+        # 1682 x 16, float32 and bf16; the indirect batch's rows of a [U, 10 * 16]
+        # table by user (bf16, as dien_bf16_aux trains it); NeuralCF's train ids
+        # into its four tables of D 256
+        pair_seq_gen = torch.Generator(device=DEVICE).manual_seed(PAIR_SEQ_ROWS_SEED)
+        dien_cfg, ncf_cfg = PRESETS["dien"], PRESETS["neuralcf"]
+        (dien_hist, dien_tgt), _ = split_batches(dien_cfg, ds, DEVICE)["train"]
+        dien_D = dien_cfg.model_kwargs["embed_size"]
+        dien_users = torch.from_numpy(np.concatenate([  # the sampler's users are user-major
+            ds.train["user"], np.repeat(np.arange(ds.num_users), dien_cfg.negatives[0])])).to(DEVICE)
+        (ncf_user, ncf_item), _ = split_batches(ncf_cfg, ds, DEVICE)["train"]
+        ncf_D = ncf_cfg.model_kwargs["mf_dim"]
+        pair_seq = [("dien history", ds.num_items, dien_D, dien_hist.reshape(-1), torch.float32),
+                    ("dien history", ds.num_items, dien_D, dien_hist.reshape(-1), torch.bfloat16),
+                    ("dien target", ds.num_items, dien_D, dien_tgt, torch.float32),
+                    ("dien indirect user rows", ds.num_users, dien_cfg.hist_len * dien_D,
+                     dien_users, torch.bfloat16),
+                    ("neuralcf user", ds.num_users, ncf_D, ncf_user, torch.float32),
+                    ("neuralcf item", ds.num_items, ncf_D, ncf_item, torch.float32)]
+        for tname, V, D, ids, dtype in pair_seq:
+            table = torch.randn((V, D), generator=pair_seq_gen, device=DEVICE).to(dtype)
+            rows["gather_rows"].append(check_gather(tname, table, ids))
+            emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
+            rows["onehot_grad"].append(check_grad(tname, ids, V, D, dtype, pair_seq_gen))
+            emit({"phase": "kernel_check", "kernel": "onehot_grad", **rows["onehot_grad"][-1]})
         del lookups, table, din_hist, din_y, lr_user, lr_item, fm_x, fm_user, fm_item
+        del pair_seq, dien_hist, dien_tgt, dien_users, ncf_user, ncf_item
         # the rows of widths past the presets' draw from their own generator, so
         # that the other rows see the same inputs as before them
         wide_gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -2122,10 +2520,13 @@ def main() -> int:
         emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0})
 
         phases = [run_train(ds), run_serve(ds, tmp), run_slice(ds), run_lr(ds), run_afm(ds),
-                  run_serve_feature(ds, tmp, "lr", TRAIN_EPOCHS),
-                  run_serve_feature(ds, tmp, "afm", AFM_EPOCHS), run_din(ds), run_din_bf16(ds),
+                  run_serve_model(ds, tmp, "lr", TRAIN_EPOCHS),
+                  run_serve_model(ds, tmp, "afm", AFM_EPOCHS), run_din(ds), run_din_bf16(ds),
                   run_serve_din(ds, tmp, DIN_EPOCHS), run_din_depth(ds), run_deepfm(ds),
-                  run_serve_feature(ds, tmp, "deepfm", DEEPFM_EPOCHS), run_feature_zoo(ds)]
+                  run_serve_model(ds, tmp, "deepfm", DEEPFM_EPOCHS), run_feature_zoo(ds),
+                  run_dien(ds), run_dien_bf16_aux(ds), run_neuralcf(ds),
+                  run_autorec(ds, "autorec"), run_autorec(ds, "i-autorec"),
+                  run_serve_pair_matrix(ds, tmp), run_cli(ds, tmp)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for p in phases:

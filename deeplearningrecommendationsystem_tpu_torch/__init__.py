@@ -10,12 +10,13 @@ Device rule: entry points default to ``device="cuda"`` and raise when CUDA is
 absent, unless the caller passes ``device="cpu"``. Nothing falls back to the
 CPU on its own.
 
-Ported so far, for the MF, LR, AFM and DIN presets: serving (data loader,
-models, ``Recommender``, ``RecommenderServer``, the two serving top-k kernels)
-and training (the negative sampler, ``Trainer``, the pointwise and ranking
-metrics, ``experiments.run_experiment``, ``cli/serve.py``, the embedding
-gather and its backward, the fused MF and LR trainers, AFM's attention pool
-and DIN's fused head and attention pool).
+Ported, for all 15 presets: serving (data loader, models, ``Recommender``,
+``RecommenderServer``, the two serving top-k kernels) and full-batch training
+(the negative sampler, ``Trainer`` with its auxiliary-loss hook, the pointwise
+and ranking metrics, ``experiments.run_experiment``, ``cli/run.py``,
+``cli/serve.py``, the embedding gather and its backward, the fused MF and LR
+trainers, AFM's attention pool, DIN's fused head and attention pool, and
+DIEN's GRU in plain torch).
 """
 
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device

@@ -1,26 +1,32 @@
 """End-to-end experiment runner: one function per reference entry script.
 
-The JAX package's ``experiments.py`` on PyTorch, for the presets ported so
-far: load ml-100k -> sample per-split negatives -> build full-batch tensors ->
-train N epochs with per-epoch train/valid/test metrics -> score the full
-catalog -> ranking@k on valid and test with seen items excluded.
+The JAX package's ``experiments.py`` on PyTorch, for every preset: load
+ml-100k -> sample negatives -> build full-batch tensors -> train N epochs with
+per-epoch train/valid/test metrics -> score the full catalog -> ranking@k on
+valid and test.
 
-Ported, full-batch: the 'pair' family for MF (the pattern of scripts/mf.py),
-the 'feature' family for LR, AFM, DeepFM, WideDeep, NFM, PNN, DCN (the
-``deepcross`` preset), DeepCrossing and FFM (the pattern of scripts/lr.py:
-each split's [N, 45] feature matrix) and the 'seq' family for DIN (the pattern of
+Families, full-batch: 'pair' (MF, NeuralCF; the pattern of scripts/mf.py:
+(users, items)); 'feature' (LR, AFM, DeepFM, WideDeep, NFM, PNN, DCN as the
+``deepcross`` preset, DeepCrossing, FFM; the pattern of scripts/lr.py: each
+split's [N, 45] feature matrix); 'seq' (DIN, DIEN; the pattern of
 scripts/din.py: each split's (history window [N, L], target [N]), the window
-taken from that split's own positives). The other presets, families and
-training modes raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+taken from that split's own positives; DIEN's ``aux_weight`` appends each
+example's per-step negatives [N, L]); 'matrix' (AutoRec, I-AutoRec; the
+pattern of scripts/autorec.py: global negatives drawn before a 60/20/20 split
+of the rating matrix's rows, the loss over rated entries only, and a ranking
+eval with no seen items filtered). The other training modes and the mesh
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 The initial weights and the negatives are drawn from CPU generators seeded
 from ``cfg.seed`` and then moved to ``device``, so a run on a card and the
-same run on the CPU start from the same numbers.
+same run on the CPU start from the same numbers; the row split and DIEN's
+auxiliary negatives are the JAX package's NumPy draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -32,51 +38,63 @@ from deeplearningrecommendationsystem_tpu_torch.configs.presets import Experimen
 from deeplearningrecommendationsystem_tpu_torch.data.movielens import MovieLens100K, Split
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
 from deeplearningrecommendationsystem_tpu_torch.eval.ranking import ranking_metrics
-from deeplearningrecommendationsystem_tpu_torch.eval.recommend import score_ranking, seen_to_tail
+from deeplearningrecommendationsystem_tpu_torch.eval.recommend import (
+    full_ranking,
+    score_ranking,
+    seen_to_tail,
+)
 from deeplearningrecommendationsystem_tpu_torch.models import (
     AFM,
     DCN,
+    DIEN,
     DIN,
     FFM,
     NFM,
     PNN,
+    AutoRec,
     DeepCrossing,
     DeepFM,
     LogisticRegression,
     MatrixFactorization,
+    NeuralCF,
     ServingContext,
     WideDeep,
 )
 from deeplearningrecommendationsystem_tpu_torch.sampling import NegativeSampler
 from deeplearningrecommendationsystem_tpu_torch.train import TrainConfig, Trainer
 
-# ROADMAP.md §1 items that bring the presets not ported yet
-_NOT_PORTED = {
-    "neuralcf": "item 9", "autorec": "item 9", "i-autorec": "item 9",
-    "dien": "item 10",
-}
+# ml-100k in the reference checkout's layout, or the directory ML100K_PATH names
+DEFAULT_DATA = os.environ.get("ML100K_PATH", "dataset_example/ml-100k")
+# ROADMAP.md §1 items that bring the presets not ported yet: none is left
+_NOT_PORTED: Dict[str, str] = {}
 # the feature family's models over the spec, by preset name
 _FEATURE_MODELS = {"lr": LogisticRegression, "afm": AFM, "deepfm": DeepFM, "widedeep": WideDeep,
                    "nfm": NFM, "pnn": PNN, "deepcross": DCN, "deepcrossing": DeepCrossing,
                    "ffm": FFM}
-FAMILIES = ("pair", "feature", "seq")
+FAMILIES = ("pair", "feature", "seq", "matrix")
 
 
 def build_model(cfg: ExperimentConfig, data: MovieLens100K,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
     """The preset's model on the CPU, its weights drawn from ``generator``
     (a CPU generator; seeded from ``cfg.seed`` when None)."""
-    if cfg.model not in ("mf", "din") and cfg.model not in _FEATURE_MODELS:
-        where = _NOT_PORTED.get(cfg.model, "§1")
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet; see ROADMAP.md §1 {where}")
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     kw = dict(cfg.model_kwargs, generator=generator, device="cpu")
-    if cfg.model == "mf":
-        return MatrixFactorization(data.num_users, data.num_items, **kw)
-    if cfg.model == "din":
-        return DIN(data.num_items, **kw)
-    return _FEATURE_MODELS[cfg.model](data.spec, **kw)
+    U, I = data.num_users, data.num_items
+    if cfg.model in _FEATURE_MODELS:
+        return _FEATURE_MODELS[cfg.model](data.spec, **kw)
+    registry = {
+        "mf": lambda: MatrixFactorization(U, I, **kw),
+        "neuralcf": lambda: NeuralCF(U, I, **kw),
+        "autorec": lambda: AutoRec(num_input=I, **kw),
+        "i-autorec": lambda: AutoRec(num_input=U, **kw),
+        "din": lambda: DIN(I, **kw),
+        "dien": lambda: DIEN(I, **kw),
+    }
+    if cfg.model not in registry:
+        raise ValueError(f"unknown model {cfg.model!r}")
+    return registry[cfg.model]()
 
 
 @dataclasses.dataclass
@@ -103,15 +121,14 @@ class ExperimentResult:
 
 def _check_supported(cfg: ExperimentConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; see ROADMAP.md §1 items 9-10")
+        raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.train_mode != "fullbatch":
         raise NotImplementedError(
             f"train_mode {cfg.train_mode!r} is not ported yet; see ROADMAP.md §1 item 11")
     if cfg.mesh_shape is not None:
         raise NotImplementedError("mesh_shape (DP/EP) is not ported yet; see ROADMAP.md §1 item 13")
-    if cfg.aux_weight > 0:
-        raise NotImplementedError("aux_weight is DIEN's; see ROADMAP.md §1 item 10")
+    if cfg.aux_weight > 0 and cfg.model != "dien":
+        raise ValueError("aux_weight is the DIEN auxiliary-loss hook")
 
 
 def split_batches(cfg: ExperimentConfig, data: MovieLens100K,
@@ -122,10 +139,12 @@ def split_batches(cfg: ExperimentConfig, data: MovieLens100K,
     items) for the pair family, the [N, 45] feature matrix for the feature
     family and (history [N, hist_len], items) for the seq family, each row's
     history the user's window over that split's positives
-    (``history_matrix``)."""
+    (``history_matrix``). Under ``cfg.aux_weight`` the seq family's train
+    batch also carries ``aux_negatives``. The matrix family takes
+    ``matrix_batches``."""
     dev = resolve_device(device)
-    sampler = NegativeSampler(data.seen_mask(data.train, data.valid, data.test),
-                              seed=cfg.seed, device=dev)
+    excluded = data.seen_mask(data.train, data.valid, data.test)
+    sampler = NegativeSampler(excluded, seed=cfg.seed, device=dev)
     batches = {}
     for name, split, n_neg in (
         ("train", data.train, cfg.negatives[0]),
@@ -138,11 +157,63 @@ def split_batches(cfg: ExperimentConfig, data: MovieLens100K,
         elif cfg.family == "seq":
             hist = data.history_matrix(split, cfg.hist_len)[combined["user"]]
             batch = (torch.from_numpy(hist).to(dev), torch.from_numpy(combined["item"]).to(dev))
+            if name == "train" and cfg.aux_weight > 0:
+                neg = aux_negatives(cfg, data, combined["user"], excluded)
+                batch = batch + (torch.from_numpy(neg).to(dev),)
         else:
             batch = (torch.from_numpy(combined["user"]).to(dev),
                      torch.from_numpy(combined["item"]).to(dev))
         batches[name] = (batch, torch.from_numpy(combined["rating"]).to(dev))
     return batches
+
+
+def aux_negatives(cfg: ExperimentConfig, data: MovieLens100K, users: np.ndarray,
+                  excluded: np.ndarray) -> np.ndarray:
+    """DIEN's auxiliary-loss negatives [N, hist_len] int64: per example,
+    items drawn uniformly from ``default_rng(cfg.seed + 17)`` and drawn again,
+    up to four rounds, where they collide with the user's ``excluded`` items
+    (the JAX package's draws, number for number)."""
+    users = np.asarray(users)
+    rng = np.random.default_rng(cfg.seed + 17)
+    neg = rng.integers(0, data.num_items, (len(users), cfg.hist_len))
+    for _ in range(4):
+        bad = excluded[users[:, None], neg]
+        if not bad.any():
+            break
+        neg = np.where(bad, rng.integers(0, data.num_items, neg.shape), neg)
+    return neg
+
+
+def split_rows_60_20_20(n: int, seed: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(train, valid, test) row indices, the reference's two-stage split
+    (scripts/autorec.py:34-35): 20% test, then a quarter of the rest valid,
+    from ``np.random.default_rng(seed).permutation(n)``."""
+    perm = np.random.default_rng(seed).permutation(n)
+    n_test = int(n * 0.2)
+    test, rest = perm[:n_test], perm[n_test:]
+    n_valid = int(len(rest) * 0.25)
+    return rest[n_valid:], rest[:n_valid], test
+
+
+def matrix_batches(cfg: ExperimentConfig, data: MovieLens100K,
+                   device: str | torch.device = "cuda"):
+    """The matrix family's splits: ``cfg.global_negatives`` negatives a user
+    drawn before any split (scripts/autorec.py:24-27) into the rating matrix
+    (1 rated, 0 a negative, 0.5 neither; [I, U] under ``cfg.item_major``),
+    whose rows are split 60/20/20. Returns ({split: (rows, rows)}, {split:
+    weights, 1 where an entry is not 0.5}, the matrix, (train, valid, test)
+    row indices), on ``device``."""
+    dev = resolve_device(device)
+    sampler = NegativeSampler(data.seen_mask(data.data), seed=cfg.seed, device=dev)
+    matrix = data.rating_matrix(sampler.sample(cfg.global_negatives), item_major=cfg.item_major)
+    rows = split_rows_60_20_20(matrix.shape[0], cfg.seed)
+    m = torch.from_numpy(matrix).to(dev)
+    batches, weights = {}, {}
+    for name, idx in zip(("train", "valid", "test"), rows):
+        x = m[torch.from_numpy(idx).to(dev)]
+        batches[name] = (x, x)
+        weights[name] = (x != 0.5).float()
+    return batches, weights, m, rows
 
 
 def _sync(device: torch.device) -> None:
@@ -153,16 +224,16 @@ def _sync(device: torch.device) -> None:
 def run_experiment(
     cfg: ExperimentConfig,
     data: Optional[MovieLens100K] = None,
-    data_path: Optional[str] = None,
+    data_path: str = DEFAULT_DATA,
     device: str | torch.device = "cuda",
+    verbose: bool = False,
 ) -> ExperimentResult:
     """Train and evaluate ``cfg`` on ``data`` (or the ml-100k files under
-    ``data_path``) on ``device``."""
+    ``data_path``) on ``device``; ``verbose`` prints the reference-format
+    report (``runtime/logging.py::print_report``)."""
     dev = resolve_device(device)
     _check_supported(cfg)
     if data is None:
-        if data_path is None:
-            raise ValueError("pass data or data_path (a directory in ml-100k format)")
         data = MovieLens100K(data_path, seed=cfg.seed)
     model = build_model(cfg, data).to(dev)
     trainer = Trainer(
@@ -173,8 +244,13 @@ def run_experiment(
             epochs=cfg.epochs,
             track_metrics=cfg.track_metrics,
             compute_dtype=cfg.compute_dtype,
+            matmul_gather_bwd=cfg.matmul_gather_bwd,
+            onehot_gather=cfg.onehot_gather,
         ),
         device=dev,
+        # the fused path: logits and the auxiliary loss in one forward
+        aux_loss_fn="model" if cfg.aux_weight > 0 else None,
+        aux_weight=cfg.aux_weight,
     )
     ctx = ServingContext(
         user_features=torch.from_numpy(data.user_features).to(dev),
@@ -187,19 +263,74 @@ def run_experiment(
             # (scripts/din.py:99-100 -> model/din.py:55-66)
             ctx.full_histories = [row[row >= 0] for row in data.itemid_matrix(data.data)]
 
-    batches = split_batches(cfg, data, dev)
-    train_examples = len(batches["train"][1])
+    weights = None
+    if cfg.family == "matrix":
+        batches, weights, ctx.rating_matrix, rows = matrix_batches(cfg, data, dev)
+        train_examples = int(weights["train"].sum())
+    else:
+        batches = split_batches(cfg, data, dev)
+        train_examples = len(batches["train"][1])
 
     # ---- train (full batch, one Adam step per epoch) ----
     _sync(dev)
     t0 = time.perf_counter()
-    result = trainer.fit(batches["train"], valid=batches["valid"], test=batches["test"])
+    result = trainer.fit(batches["train"], valid=batches["valid"], test=batches["test"],
+                         weights=weights)
     _sync(dev)
     train_time = time.perf_counter() - t0
 
     # ---- serving + ranking eval ----
     with torch.no_grad():
         scores = model.score_catalog(ctx)
+    if cfg.family == "matrix":
+        ranking = _matrix_ranking(cfg, data, scores, rows)
+    else:
+        ranking = _split_ranking(cfg, data, scores)
+
+    out = ExperimentResult(
+        model=cfg.model,
+        params=result.params,
+        history={k: v.cpu().numpy() for k, v in result.history.items()},
+        ranking=ranking,
+        train_examples=train_examples,
+        epochs=cfg.epochs,
+        train_time_s=train_time,
+        extras=result.extras,
+        ctx=ctx,
+    )
+    if verbose:
+        from deeplearningrecommendationsystem_tpu_torch.runtime.logging import print_report
+
+        print_report(out, k=cfg.k)
+    return out
+
+
+def _matrix_ranking(cfg: ExperimentConfig, data: MovieLens100K, scores: torch.Tensor,
+                    rows) -> Dict[str, Dict[str, float]]:
+    """Ranking@k on the valid and test rows with no seen item filtered, the
+    actual lists every interaction of the user (scripts/autorec.py:64-78).
+    I-AutoRec trains on item rows but is ranked by user: the 943 user rows are
+    split again with the same seed (scripts/i-autorec.py:61-70)."""
+    dev = scores.device
+    actual_all = data.itemid_matrix(data.data)
+    rec = full_ranking(scores, torch.zeros(scores.shape, dtype=torch.bool, device=dev))
+    if cfg.item_major:
+        _, va, te = split_rows_60_20_20(data.num_users, cfg.seed)
+    else:
+        _, va, te = rows
+    ranking: Dict[str, Dict[str, float]] = {}
+    for name, idx in (("valid", va), ("test", te)):
+        actual = torch.from_numpy(actual_all[idx]).to(dev)
+        for k_cut, suffix in ((cfg.k, ""), (10, "@10")):
+            m = ranking_metrics(actual, rec[torch.from_numpy(idx).to(dev)], k_cut)
+            ranking[name + suffix] = {k_: float(v) for k_, v in m.items()}
+    return ranking
+
+
+def _split_ranking(cfg: ExperimentConfig, data: MovieLens100K,
+                   scores: torch.Tensor) -> Dict[str, Dict[str, float]]:
+    """Ranking@k on valid and test with the other splits' items excluded."""
+    dev = scores.device
     reals = {name: data.itemid_matrix(getattr(data, name)) for name in ("train", "valid", "test")}
     counts = {name: (reals[name] >= 0).sum(1) for name in reals}
     # one float sort of the catalog scores; per-split lists are stable
@@ -214,15 +345,4 @@ def run_experiment(
         for k_cut, suffix in ((cfg.k, ""), (10, "@10")):
             m = ranking_metrics(actual, rec, k_cut, n_seen=n_seen)
             ranking[name + suffix] = {k_: float(v) for k_, v in m.items()}
-
-    return ExperimentResult(
-        model=cfg.model,
-        params=result.params,
-        history={k: v.cpu().numpy() for k, v in result.history.items()},
-        ranking=ranking,
-        train_examples=train_examples,
-        epochs=cfg.epochs,
-        train_time_s=train_time,
-        extras=result.extras,
-        ctx=ctx,
-    )
+    return ranking

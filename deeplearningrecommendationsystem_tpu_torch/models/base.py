@@ -10,7 +10,8 @@ and, for factored models, ``serving_factors(ctx) -> (P, Q)`` with
 top-k into one kernel without materialising [U, I].
 
 ``catalog_scores_from_features`` scores the full catalog for a
-feature-vector model, one tile of users at a time;
+feature-vector model, one tile of users at a time,
+``catalog_scores_from_pairs`` for an id-pair model;
 ``catalog_scores_from_history`` does so for a behaviour-sequence model from
 each user's fixed-length history window, and ``catalog_scores_full_history``
 from each user's complete variable-length history.
@@ -45,9 +46,10 @@ class ServingContext:
 
     user_features: torch.Tensor  # [U, 24] = [age, gender(2), occupation(21)]
     item_features: torch.Tensor  # [I, 19] genre flags
-    history: Optional[torch.Tensor] = None  # [U, L] behaviour histories (DIN)
+    history: Optional[torch.Tensor] = None  # [U, L] behaviour histories (DIN, DIEN)
+    rating_matrix: Optional[torch.Tensor] = None  # [U, I], or [I, U] item-major (AutoRec)
     # per-user COMPLETE variable-length histories (host-side ragged id arrays);
-    # when set, DIN serves with the reference's full-history semantics
+    # when set, DIN and DIEN serve with the reference's full-history semantics
     # (model/din.py:55-66) through catalog_scores_full_history
     full_histories: Optional[Sequence[np.ndarray]] = None
 
@@ -65,6 +67,8 @@ class ServingContext:
             user_features=torch.as_tensor(self.user_features, device=device),
             item_features=torch.as_tensor(self.item_features, device=device),
             history=None if self.history is None else torch.as_tensor(self.history, device=device),
+            rating_matrix=(None if self.rating_matrix is None
+                           else torch.as_tensor(self.rating_matrix, device=device)),
         )
 
 
@@ -95,6 +99,29 @@ def catalog_scores_from_features(apply_fn: Callable, params: Any, ctx: ServingCo
         x = torch.cat([u_col, i_blk[..., :1], u_feat, i_blk[..., 1:]], dim=-1)
         scores[u0:u0 + T] = apply_fn(params, x.reshape(T * I, -1)).reshape(T, I)
     return scores
+
+
+def catalog_scores_from_pairs(apply_fn: Callable, params: Any, num_users: int, num_items: int,
+                              device: str | torch.device, tile: int = 64) -> torch.Tensor:
+    """[U, I] logits on ``device`` of an id-pair model, ``apply_fn(params,
+    (users [B], items [B])) -> [B]`` (NeuralCF).
+
+    The JAX package's ``lax.map`` over tiles of ``tile`` users is a Python loop
+    here: each tile is one (tile * I)-row batch of every (user, item) pair. As
+    in the JAX scorer, the user ids are padded to whole tiles by ``% U`` (the
+    pad rows score users 0, 1, ... again and are dropped), so every tile is one
+    shape.
+    """
+    dev = torch.device(device)
+    U_pad = -(-num_users // tile) * tile
+    user_ids = torch.arange(U_pad, device=dev) % num_users
+    items = torch.arange(num_items, device=dev)
+    scores = torch.empty((U_pad, num_items), dtype=torch.float32, device=dev)
+    for u0 in range(0, U_pad, tile):
+        ids = user_ids[u0:u0 + tile]
+        batch = (ids.repeat_interleave(num_items), items.repeat(tile))
+        scores[u0:u0 + tile] = apply_fn(params, batch).reshape(tile, num_items)
+    return scores[:num_users]
 
 
 def catalog_scores_from_history(apply_fn: Callable, params: Any, history: torch.Tensor,

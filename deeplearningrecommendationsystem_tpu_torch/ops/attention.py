@@ -56,7 +56,19 @@ def din_attention_weights(att_mlp: Sequence[Mapping[str, torch.Tensor]],
     scores = mlp(att_mlp[1:], torch.relu(x1))[..., 0]  # [B, L]
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, -1e9))
-    return torch.softmax(scores, dim=-1)
+    return softmax(scores)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis. Under bf16 it is ``jax.nn.softmax``'s own
+    lowering: ``exp(x - max)`` rounded to bf16, its sum in float32 rounded to
+    bf16, then the quotient (``torch.softmax`` rounds once, and so lands about
+    a third of the weights an ulp from the JAX package's); in float32,
+    ``torch.softmax``."""
+    if x.dtype != torch.bfloat16:
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.float().sum(dim=-1, keepdim=True).to(x.dtype)
 
 
 def attention_pool(att_mlp: Sequence[Mapping[str, torch.Tensor]], hist_embed: torch.Tensor,

@@ -29,7 +29,8 @@ def embedding_init(generator: torch.Generator, num: int, dim: int,
     )
 
 
-def _uniform(generator: torch.Generator, shape, bound: float, dtype) -> torch.Tensor:
+def uniform(generator: torch.Generator, shape, bound: float, dtype) -> torch.Tensor:
+    """U(-bound, bound) of ``shape``, drawn from ``generator`` on its device."""
     u = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
     return (2.0 * u - 1.0) * bound
 
@@ -39,9 +40,9 @@ def linear_init(generator: torch.Generator, d_in: int, d_out: int, bias: bool = 
     """``{"w": [d_in, d_out]}`` and, with ``bias``, ``"b": [d_out]``, each
     U(-1/sqrt(d_in), 1/sqrt(d_in))."""
     bound = 1.0 / (d_in ** 0.5)
-    p = {"w": _uniform(generator, (d_in, d_out), bound, dtype)}
+    p = {"w": uniform(generator, (d_in, d_out), bound, dtype)}
     if bias:
-        p["b"] = _uniform(generator, (d_out,), bound, dtype)
+        p["b"] = uniform(generator, (d_out,), bound, dtype)
     return p
 
 

@@ -20,7 +20,14 @@ Semantics kept from the JAX trainer:
   block of its batch to the dtype of the weight it meets;
 * ``extras[f"{split}_auc_raw"]`` is the true AUC on the final params;
 * ``history["_param_checksum"]`` ([1]) sums every final param and Adam
-  moment (not Adam's step count).
+  moment (not Adam's step count);
+* ``aux_loss_fn`` adds an auxiliary term, ``loss = bce + aux_weight * aux``
+  with ``aux`` in float32 (the JAX trainer's composite-loss hook, DIEN's
+  auxiliary loss): ``"model"`` takes the model's ``apply_with_aux(params,
+  batch) -> (logits, aux)``, one forward for both; a callable
+  ``aux_loss_fn(params, batch) -> scalar`` is evaluated beside the forward
+  on the uncast params. The train metrics keep the logits of the loss; valid
+  and test take ``apply_params``.
 
 The model holds its parameters (an ``nn.Module`` with ``apply_params``); ``fit``
 trains them in place. The JAX ``rng`` argument is gone: the model draws its
@@ -109,7 +116,8 @@ def _to_device(tree, device):
 class Trainer:
     """Drives a model's full-batch training on ``device``."""
 
-    def __init__(self, model: nn.Module, config: TrainConfig, device: str | torch.device = "cuda"):
+    def __init__(self, model: nn.Module, config: TrainConfig, device: str | torch.device = "cuda",
+                 aux_loss_fn=None, aux_weight: float = 1.0):
         if config.mesh is not None:
             raise NotImplementedError(
                 "row-sharded (EP) training is not ported yet; see ROADMAP.md §1 item 13")
@@ -118,6 +126,11 @@ class Trainer:
         self.config = config
         self.optimizer = torch_adam(self.model.parameters(), config.learning_rate,
                                     config.weight_decay)
+        self.fused_aux = isinstance(aux_loss_fn, str)
+        if self.fused_aux and aux_loss_fn != "model":
+            raise ValueError(f"aux_loss_fn {aux_loss_fn!r}: 'model', a callable or None")
+        self.aux_loss_fn = None if self.fused_aux else aux_loss_fn
+        self.aux_weight = aux_weight
 
     def _params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -126,10 +139,19 @@ class Trainer:
     def loss_fn(self, params: Dict[str, torch.Tensor], batch: Batch, labels, weights=None):
         """(loss, logits): both float32, under the ``compute_dtype`` policy."""
         dt = self.config.compute_dtype
-        if dt:
-            params = _cast_floats(params, getattr(torch, dt))
-        logits = self.model.apply_params(params, batch).float()
-        return _bce_with_logits(logits, labels, weights), logits
+        p = _cast_floats(params, getattr(torch, dt)) if dt else params
+        aux = None
+        if self.fused_aux:
+            logits, aux = self.model.apply_with_aux(p, batch)
+        else:
+            logits = self.model.apply_params(p, batch)
+        logits = logits.float()
+        loss = _bce_with_logits(logits, labels, weights)
+        if aux is not None:
+            loss = loss + self.aux_weight * aux.float()
+        if self.aux_loss_fn is not None:
+            loss = loss + self.aux_weight * self.aux_loss_fn(params, batch)
+        return loss, logits
 
     def train_step(self, batch: Batch, labels, weights=None):
         """One Adam step on the model's parameters; returns the pre-update

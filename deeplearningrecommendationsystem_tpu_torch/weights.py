@@ -27,6 +27,7 @@ from torch import nn
 from deeplearningrecommendationsystem_tpu_torch.models import (
     AFM,
     DCN,
+    DIEN,
     DIN,
     FFM,
     NFM,
@@ -34,7 +35,9 @@ from deeplearningrecommendationsystem_tpu_torch.models import (
     DeepCrossing,
     DeepFM,
     LogisticRegression,
+    AutoRec,
     MatrixFactorization,
+    NeuralCF,
     WideDeep,
 )
 
@@ -61,9 +64,12 @@ def _flat(params: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 # out. DeepCrossing: tables.*, blocks.{i}.{up, down}.{w, b}, out. FFM: the JAX
 # table keys hold a dot ("user_id.user"), so the leaf "tables.user_id.user" is
 # the parameter "user" of the submodule "user_id" of "tables": the dotted name
-# maps as it stands; and lr.{user_bias, item_bias, wide.{w, b}}.
+# maps as it stands; and lr.{user_bias, item_bias, wide.{w, b}}. DIEN: item,
+# att.{i}.{w, b}, gru.{w_ih, w_hh, b_ih, b_hh}, fc.{i}.{w, b} and, with AUGRU,
+# gru_ev.*. NeuralCF: gmf_user, gmf_item, mlp_user, mlp_item, mlp.{i}.{w, b},
+# proj.{w, b}, out.{w, b}. AutoRec: encoder.{w, b}, decoder.{w, b}.
 _PORTED = (MatrixFactorization, LogisticRegression, AFM, DIN, DeepFM, WideDeep, NFM, PNN, DCN,
-           DeepCrossing, FFM)
+           DeepCrossing, FFM, DIEN, NeuralCF, AutoRec)
 
 
 def _to_state(model: nn.Module, tree: Mapping) -> Dict[str, np.ndarray]:

@@ -13,6 +13,9 @@
 * DIN's routes: training and evaluation go through the DIN head wrappers,
   the window catalog scorer through the DIN attention pool, the masked
   routes through neither.
+* DIEN and NeuralCF look every id up through the gather and onehot_grad
+  wrappers, and DIEN takes no DIN head or pool wrapper; AutoRec looks
+  nothing up.
 
 This file imports neither JAX nor the JAX package, so its CUDA test also runs
 on a machine that has only the port (``-m cuda --noconftest``).
@@ -28,6 +31,7 @@ import pytest
 import torch
 
 from deeplearningrecommendationsystem_tpu_torch import experiments
+from deeplearningrecommendationsystem_tpu_torch.cli import run as run_cli
 from deeplearningrecommendationsystem_tpu_torch.cli import serve
 from deeplearningrecommendationsystem_tpu_torch.configs import PRESETS
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
@@ -35,14 +39,17 @@ from deeplearningrecommendationsystem_tpu_torch.features import FeatureSpec
 from deeplearningrecommendationsystem_tpu_torch.models import (
     AFM,
     DCN,
+    DIEN,
     DIN,
     FFM,
     NFM,
     PNN,
     DeepCrossing,
     DeepFM,
+    AutoRec,
     LogisticRegression,
     MatrixFactorization,
+    NeuralCF,
     ServingContext,
     WideDeep,
 )
@@ -103,7 +110,15 @@ def test_port_files_are_found():
             "deeplearningrecommendationsystem_tpu_torch/ops/cuda/din_attention.py",
             "deeplearningrecommendationsystem_tpu_torch/train/trainer.py",
             "deeplearningrecommendationsystem_tpu_torch/experiments.py",
-            "deeplearningrecommendationsystem_tpu_torch/cli/serve.py"} <= names
+            "deeplearningrecommendationsystem_tpu_torch/cli/serve.py",
+            "deeplearningrecommendationsystem_tpu_torch/cli/run.py",
+            "deeplearningrecommendationsystem_tpu_torch/ops/gru.py",
+            "deeplearningrecommendationsystem_tpu_torch/models/dien.py",
+            "deeplearningrecommendationsystem_tpu_torch/models/neuralcf.py",
+            "deeplearningrecommendationsystem_tpu_torch/models/autorec.py",
+            "deeplearningrecommendationsystem_tpu_torch/runtime/logging.py",
+            "deeplearningrecommendationsystem_tpu_torch/runtime/plotting.py",
+            "deeplearningrecommendationsystem_tpu_torch/runtime/profiler.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -144,12 +159,16 @@ ENTRY_POINTS = {
     "DeepCrossing": lambda: DeepCrossing(),
     "FFM": lambda: FFM(),
     "DIN": lambda: DIN(10),
+    "DIEN": lambda: DIEN(10),
+    "NeuralCF": lambda: NeuralCF(4, 6, 8, (8, 4)),
+    "AutoRec": lambda: AutoRec(6, 4),
     "Recommender": lambda: Recommender(MatrixFactorization(4, 6, 8, device="cpu"), _ctx()),
     "Trainer": lambda: Trainer(MatrixFactorization(4, 6, 8, device="cpu"), TrainConfig()),
     "NegativeSampler": lambda: NegativeSampler(np.zeros((4, 6), dtype=bool), seed=0),
     "run_experiment": lambda: experiments.run_experiment(PRESETS["mf"], data_path="unused"),
     "build_server": lambda: serve.build_server(
         serve.parser().parse_args(["--model", "mf", "--data", "unused"])),
+    "cli.run": lambda: run_cli.main(["--model", "mf", "--data", "unused"]),
 }
 
 
@@ -488,3 +507,52 @@ def test_din_routes(monkeypatch, route):
         scores = model.score_catalog(ctx)
     assert scores.shape == (3, 7)
     assert seen == (["pool"] if route == "window" else [])
+
+
+def _lookups(monkeypatch):
+    from deeplearningrecommendationsystem_tpu_torch.ops import embedding
+
+    seen = []
+    monkeypatch.setattr(embedding, "gather_rows_kernel",
+                        lambda t, i: seen.append("fwd") or gather.gather_rows_kernel_plain(t, i))
+    monkeypatch.setattr(embedding, "onehot_grad",
+                        lambda i, g, v: seen.append("bwd") or gather.onehot_grad_plain(i, g, v))
+    for name in ("din_head_fwd", "din_head_bwd"):
+        monkeypatch.setattr(din_head, name, lambda *a, _n=name: seen.append(_n))
+    monkeypatch.setattr(din_attention, "din_attention_pool", lambda *a: seen.append("pool"))
+    return seen
+
+
+@pytest.mark.parametrize("use_augru", [False, True], ids=["parity", "augru"])
+def test_dien_lookups_go_through_the_kernel_pair(monkeypatch, use_augru):
+    """DIEN's history and target lookups (and its auxiliary negatives') take
+    the gather wrapper, their gradients onehot_grad; no DIN head or pool."""
+    seen = _lookups(monkeypatch)
+    model = DIEN(7, 8, (4, 4, 1), (4, 4, 1), use_augru=use_augru, device="cpu")
+    hist, target = _din_batch()
+    model((hist, target)).sum().backward()
+    assert seen == ["fwd", "fwd", "bwd", "bwd"]
+    logits, aux = model.apply_with_aux(model.params(), (hist, target, hist.flip(1)))
+    (logits.sum() + aux).backward()
+    assert seen[4:] == ["fwd", "fwd", "fwd", "bwd", "bwd", "bwd"]
+    with torch.no_grad():
+        scores = model.score_catalog(ServingContext(torch.zeros((3, 24)), torch.zeros((7, 19)),
+                                                    full_histories=[h.numpy() for h in hist]))
+    assert scores.shape == (3, 7) and "pool" not in seen and "din_head_fwd" not in seen
+
+
+def test_neuralcf_and_autorec_lookups(monkeypatch):
+    """NeuralCF: four lookups a forward through the gather pair; the catalog
+    through the same. AutoRec: none."""
+    seen = _lookups(monkeypatch)
+    model = NeuralCF(4, 6, 8, (8, 4), device="cpu")
+    model((torch.tensor([0, 3, 1]), torch.tensor([5, 0, 2]))).sum().backward()
+    assert seen == ["fwd"] * 4 + ["bwd"] * 4
+    with torch.no_grad():
+        assert model.score_catalog(ServingContext(torch.zeros((4, 24)),
+                                                  torch.zeros((6, 19)))).shape == (4, 6)
+    assert seen.count("fwd") == 8  # one 64-user tile
+    del seen[:]
+    auto = AutoRec(6, 4, device="cpu")
+    auto(torch.full((4, 6), 0.5)).sum().backward()
+    assert seen == []
