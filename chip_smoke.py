@@ -118,15 +118,44 @@ no result line.
    kernel launch;
 21. serve_pair_matrix -- ``build_server --model neuralcf`` and ``--model
    autorec``, served and held as serve_afm is (``run_serve_model``);
-22. cli_run -- ``cli/run.py --model dien --epochs CLI_EPOCHS --json`` on the
-   card, its JSON line parsed, its lookups counted.
+22. minibatch -- ``run_experiment`` in minibatch mode (``train/minibatch.py``):
+   DeepFM at the preset's width and MF at D 64, MODE_EPOCHS epochs of
+   MINIBATCH_BATCH rows (the order drawn on the host), then the ranking eval;
+   held against the same trainer called on the CPU (losses within
+   MODE_LOSS_RTOL, every parameter and optimizer-state tensor within
+   STATE_RTOL), lookups counted exactly;
+23. stream -- ``fit_stream`` on MF and ``fit_stream_sparse`` on DeepFM, the
+   host arrays through the pinned, side-stream prefetch (``data/stream.py``),
+   held the same way;
+24. sparse -- ``run_experiment`` in sparse mode (``train/sparse_trainer.py``):
+   MF and DeepFM with lazy Adam, MF with row-wise AdaGrad; the table rows
+   through the gather kernel, no ``onehot_grad``; held the same way, and every
+   table row the CPU run never touched keeps its bits, in the table and in
+   its row-optimizer state; then both row optimizers on DeepFM's first
+   item-id batch, row V - 1 in the first step only: it, and every row no step
+   touches, keeps its bits;
+25. checkpoint_serve -- AutoRec trained, checkpointed (``runtime/checkpoint.py``)
+   and resumed, against the uninterrupted run; MF and DeepFM served by
+   ``build_server --checkpoint`` over HTTP, their lists against an in-memory
+   ``Recommender``'s (DeepFM's also a fused one's, ``topk_scores``); launches
+   counted exactly;
+26. cf -- UserCF and ItemCF on the synthetic ``ua`` fold, GDCF on ``u1``
+   (``cf/``), every top-k through ``topk_scores``; the lists against the
+   stable top-k of the card's own scores, Recall / Precision / F1 and GDCF's
+   losses against the CPU's;
+27. cli_run -- ``cli/run.py --model dien --epochs CLI_EPOCHS --json``,
+   ``cli/run.py --model mf --train-mode sparse --epochs CLI_EPOCHS --json``
+   and ``cli/cf.py usercf --json`` on the card, their JSON lines parsed, their
+   launches counted.
 
 The lookup pair's rows also cover the feature presets' widths (DeepFM's
 train-batch ids into user and item tables of D 128 and D 256, PNN's), DIEN's
-history and indirect rows (D 16, float32 and bf16) and NeuralCF's tables
-(D 256).
+history and indirect rows (D 16, float32 and bf16), NeuralCF's tables
+(D 256) and the minibatch modes' first batch (DeepFM's 8,192 ids into its
+D 128 tables, MF's into its D 64 user table); the ``topk_scores`` rows also
+classic CF's top 20 of 943 x 1682 and UserCF's 10 neighbours of 943 x 943.
 
-Phases 4-22 are the main paths: each sets the launch counts to 0 just before
+Phases 4-27 are the main paths: each sets the launch counts to 0 just before
 it and reads them just after. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the line before that the ``kernels`` line.
@@ -135,6 +164,7 @@ power limit, and the line before that the ``kernels`` line.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import shutil
@@ -150,11 +180,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deeplearningrecommendationsystem_tpu_torch.cf import (
+    cf_eval,
+    gdcf_train,
+    item_cf_recommend,
+    item_cf_scores,
+    load_base_test,
+    user_cf_recommend,
+    user_cf_scores,
+)
 from deeplearningrecommendationsystem_tpu_torch.cli import serve as serve_cli
 from deeplearningrecommendationsystem_tpu_torch.configs import PRESETS
 from deeplearningrecommendationsystem_tpu_torch.data import MovieLens100K, write_ml100k_format
+from deeplearningrecommendationsystem_tpu_torch.data.stream import tree_map
 from deeplearningrecommendationsystem_tpu_torch.experiments import (
     build_model,
+    matrix_batches,
     run_experiment,
     split_batches,
 )
@@ -178,9 +219,21 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as 
 from deeplearningrecommendationsystem_tpu_torch.ops.attention import attention_pool
 from deeplearningrecommendationsystem_tpu_torch.ops.interactions import pairwise_products
 from deeplearningrecommendationsystem_tpu_torch.ops.linear import mlp, mlp_init
+from deeplearningrecommendationsystem_tpu_torch.runtime.checkpoint import CheckpointManager
 from deeplearningrecommendationsystem_tpu_torch.server import RecommenderServer
 from deeplearningrecommendationsystem_tpu_torch.serving import Recommender
-from deeplearningrecommendationsystem_tpu_torch.train import TrainConfig, Trainer
+from deeplearningrecommendationsystem_tpu_torch.train import (
+    LazyAdamState,
+    RowwiseAdagradState,
+    TrainConfig,
+    Trainer,
+    fit_minibatch,
+    fit_minibatch_sparse,
+    fit_stream,
+    fit_stream_sparse,
+    sparse_table_update,
+)
+from deeplearningrecommendationsystem_tpu_torch.train.minibatch import epoch_order
 
 DEVICE = torch.device("cuda")
 NEG_INF = topk.NEG_INF
@@ -353,6 +406,35 @@ FULL_HISTORY_BUCKETS, FULL_HISTORY_CHUNK, FULL_HISTORY_BUDGET = (
 # product in float32 and round it once, and on an H100 the two runs' losses
 # came out within 1.2e-7 (DIEN) and 2.4e-7 (NeuralCF) of each other, their
 # AUCs within 1.2e-6 (PERF.md §6, DIEN and NeuralCF).
+# The minibatch, stream and sparse modes (train/minibatch.py,
+# train/sparse_trainer.py) at the presets' widths: MODE_EPOCHS epochs of
+# MINIBATCH_BATCH rows (ExperimentConfig's batch_size), each held against the
+# same call on the CPU with the same batches in the same order: losses within
+# MODE_LOSS_RTOL (float32 sums in another order, carried through some 20-50
+# Adam steps). Every tensor of the trained state (the params, the dense Adam's
+# moments and steps, the sparse tables' lazy-Adam moments and step or AdaGrad
+# accumulators) within STATE_RTOL of the CPU's, relative to that tensor's
+# largest magnitude on the CPU: on one H100 the worst came out 4.5e-6 (sparse
+# DeepFM's item table), the minibatch runs (whose onehot_grad adds with
+# atomics) 2.5e-6 at most. The lookup pair's rows at these batches, and the
+# row optimizers' padding check (SENTINEL_STEPS steps of SENTINEL_LR), draw
+# from a generator of their own (MINIBATCH_ROWS_SEED).
+MINIBATCH_BATCH, MODE_EPOCHS, MODE_LOSS_RTOL, MINIBATCH_ROWS_SEED = 8192, 2, 1e-6, 6
+STATE_RTOL, SENTINEL_STEPS, SENTINEL_LR = 2e-5, 3, 1e-2
+# checkpoint_serve: epochs before and after the checkpoint, and the resumed
+# run's params against the uninterrupted run's. onehot_grad adds a table
+# row's gradients with atomics, in another order each run, so two MF runs of
+# the same thing differ: 7.9e-7 apart after two full-batch epochs, the resumed
+# one 5.5e-7 (measured on one H100), at the limit's edge. The resume is
+# checked on AutoRec, which looks nothing up and repeats its bits.
+CHECKPOINT_EPOCHS, RESUME_ATOL = 2, 1e-6
+# classic CF (the reference scripts' settings): UserCF / ItemCF neighbours and
+# list length, GDCF iterations and cutoff; Recall / Precision / F1 against the
+# CPU's within CF_METRIC_ATOL: a near tie that the card's and the CPU's float32
+# sums order differently moves one item of one list, 1 / (943 x 10) of ua's
+# recall; ItemCF came out 5.3e-4 (five such items) off, UserCF 1.1e-4, GDCF
+# 0 (measured on one H100; both sides deterministic, so a run repeats them)
+CF_NEIGHBOURS, CF_TOP_N, CF_GDCF_ITERATIONS, CF_GDCF_K, CF_METRIC_ATOL = 10, 20, 10, 50, 1e-3
 CSRC = "deeplearningrecommendationsystem_tpu_torch/csrc"
 PALLAS = "deeplearningrecommendationsystem_tpu/ops/pallas"
 KERNELS = {
@@ -2296,37 +2378,527 @@ def run_serve_pair_matrix(ds: MovieLens100K, data_dir: str) -> dict:
             "launches": {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}}
 
 
+# ---------------------------------------------------------------- phases 23-27
+
+def mode_cfg(name: str, mode: str, **over):
+    """The preset in a minibatch training mode: MODE_EPOCHS epochs of
+    MINIBATCH_BATCH-row batches."""
+    return PRESETS[name].replace(train_mode=mode, epochs=MODE_EPOCHS, batch_size=MINIBATCH_BATCH,
+                                 **over)
+
+
+def mode_fit(cfg, ds: MovieLens100K, device, source: str):
+    """``cfg``'s minibatch trainer called directly on ``device``: ``source``
+    "minibatch" (the data on the device) or "stream" (host arrays through the
+    pinned prefetch); the sparse trainer where ``cfg.train_mode`` is
+    "sparse". The same batches, initial weights and order on every device."""
+    trainer = Trainer(build_model(cfg, ds),
+                      TrainConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                                  epochs=cfg.epochs, compute_dtype=cfg.compute_dtype),
+                      device=device)
+    b, y = split_batches(cfg, ds, "cpu")["train"]
+    if source == "stream":
+        host = (tree_map(lambda t: t.numpy(), b), y.numpy())
+        if cfg.train_mode == "sparse":
+            return fit_stream_sparse(trainer, cfg.seed, host, cfg.batch_size,
+                                     optimizer=cfg.sparse_optimizer, seed=cfg.seed)
+        return fit_stream(trainer, cfg.seed, host, cfg.batch_size, seed=cfg.seed)
+    if cfg.train_mode == "sparse":
+        return fit_minibatch_sparse(trainer, cfg.seed, (b, y), cfg.batch_size,
+                                    optimizer=cfg.sparse_optimizer)
+    return fit_minibatch(trainer, cfg.seed, (b, y), cfg.batch_size)
+
+
+def mode_steps(cfg, ds: MovieLens100K) -> int:
+    """Minibatch steps of a run: the train rows' full batches, each epoch."""
+    rows = int(split_batches(cfg, ds, "cpu")["train"][1].shape[0])
+    return cfg.epochs * (rows // cfg.batch_size)
+
+
+def hold_mode(label: str, card_losses, cpu_losses) -> dict:
+    """The card's epoch losses within MODE_LOSS_RTOL of the CPU's (the same
+    call on the same batches), finite; returns them and the largest relative
+    loss difference."""
+    card_losses, cpu_losses = np.asarray(card_losses), np.asarray(cpu_losses)
+    if not np.isfinite(card_losses).all():
+        raise AssertionError(f"{label}: non-finite losses {card_losses.tolist()}")
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=MODE_LOSS_RTOL, err_msg=label)
+    return {"train_loss": card_losses.tolist(),
+            "max_rel_loss_diff_vs_cpu": float(np.max(np.abs(card_losses / cpu_losses - 1)))}
+
+
+def state_leaves(params: dict, opt_state=None) -> dict:
+    """name -> tensor on the host: ``params``, then ``opt_state`` where there
+    is one (the dense Adam's moments and steps by param; each sparse table's
+    lazy-Adam moments and step, or its AdaGrad accumulators)."""
+    out = {}
+
+    def walk(path, node):
+        if dataclasses.is_dataclass(node):
+            node = {f.name: getattr(node, f.name) for f in dataclasses.fields(node)}
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{path}/{k}", v)
+        else:
+            out[path] = torch.as_tensor(node).detach().to("cpu", copy=True)
+
+    walk("params", params)
+    walk("opt_state", opt_state or {})
+    return out
+
+
+def hold_state(label: str, got: dict, want: dict, tables: dict) -> dict:
+    """Every tensor of the card's trained state ``got`` against the CPU's
+    ``want`` (``state_leaves``): the same names, shapes and dtypes, each within
+    STATE_RTOL of the CPU tensor's largest magnitude. For a sparse run
+    (``tables``: the model's ``sparse_tables``), every table row the CPU run
+    never touched (its lazy-Adam moments or its AdaGrad accumulator still 0)
+    has the same bits on the card, in the table and in its state. Returns the
+    largest difference, absolute and relative, the tensor it is in, and the
+    count of untouched rows."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: state {sorted(got)} on the card, {sorted(want)} on the CPU")
+    worst, worst_abs, worst_name = 0.0, 0.0, None
+    for name, w in want.items():
+        g = got[name]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label} {name}: {g.dtype}{list(g.shape)} on the card, "
+                                 f"{w.dtype}{list(w.shape)} on the CPU")
+        err = float((g.double() - w.double()).abs().max()) if w.numel() else 0.0
+        scale = float(w.double().abs().max()) if w.numel() else 0.0
+        rel = err / scale if scale else (0.0 if err == 0 else float("inf"))
+        worst_abs = max(worst_abs, err)
+        if rel >= worst:
+            worst, worst_name = rel, name
+    if not worst <= STATE_RTOL:
+        raise AssertionError(f"{label}: {worst_name} is {worst} off the CPU's, relative")
+    untouched = 0
+    for table, path in tables.items():
+        moments = want[f"opt_state/sparse/{table}/mv" if f"opt_state/sparse/{table}/mv" in want
+                       else f"opt_state/sparse/{table}/accum"]
+        rows = (moments.reshape(moments.shape[0], -1) == 0).all(dim=1)
+        names = [f"params/{path}"] + [k for k in want if k.startswith(f"opt_state/sparse/{table}/")
+                                      and want[k].dim() > 0]
+        for name in names:
+            if not torch.equal(got[name][rows], want[name][rows]):
+                raise AssertionError(f"{label}: an untouched row of {name} moved on the card")
+        untouched += int(rows.sum())
+    return {"max_abs_state_diff_vs_cpu": worst_abs, "max_rel_state_diff_vs_cpu": worst,
+            "worst_state_tensor": worst_name, "untouched_rows": untouched}
+
+
+def sparse_tables(cfg, ds: MovieLens100K) -> dict:
+    """The model's ``sparse_tables`` in sparse mode, else none."""
+    return build_model(cfg, ds).sparse_tables if cfg.train_mode == "sparse" else {}
+
+
+def mode_counts(cfg, ds: MovieLens100K, lookups: int, sparse: bool, catalog_tiles: int = 0):
+    """The lookup pair's launches of a minibatch run: ``lookups`` gathers a
+    step (``onehot_grad`` as many, the sparse step none), and the catalog's."""
+    steps = mode_steps(cfg, ds)
+    return {"gather_rows": lookups * (steps + catalog_tiles),
+            "onehot_grad": 0 if sparse else lookups * steps}
+
+
+def run_mode_experiments(phase: str, runs: dict, ds: MovieLens100K) -> dict:
+    """Each ``cfg`` of ``runs`` through ``run_experiment`` on the card (its
+    training mode, then the serving and ranking evaluation), counted from 0,
+    and held against the same trainer called on the CPU (no catalog there)."""
+    reset_launches()  # the main path's run starts here
+    results = {}
+    for label, (cfg, lookups, tiles) in runs.items():
+        before = launches()
+        res, wall_s = timed_run(cfg, ds)
+        after = launches()
+        check_counts(f"{phase} {label}", {k: after[k] - before[k] for k in after},
+                     mode_counts(cfg, ds, lookups, cfg.train_mode == "sparse", tiles))
+        results[label] = (cfg, res, wall_s)
+    counts = launches()  # ... and ends here
+    out = {}
+    for label, (cfg, res, wall_s) in results.items():
+        if set(res.history) != {"train_loss"}:
+            raise AssertionError(f"{phase} {label}: history keys {sorted(res.history)}")
+        # the experiment's params, then the same trainer's whole state (its
+        # optimizer's too, which the experiment does not return), against the CPU
+        cpu = mode_fit(cfg, ds, "cpu", "minibatch")
+        card = mode_fit(cfg, ds, DEVICE, "minibatch")
+        tables = sparse_tables(cfg, ds)
+        held = hold_state(f"{phase} {label} params", state_leaves(res.params),
+                          state_leaves(cpu.params), {})
+        out[label] = {"train_mode": cfg.train_mode, "optimizer": cfg.sparse_optimizer
+                      if cfg.train_mode == "sparse" else "adam",
+                      "batch": cfg.batch_size, "steps": mode_steps(cfg, ds),
+                      **hold_mode(f"{phase} {label}", res.history["train_loss"],
+                                  cpu.history["train_loss"].numpy()),
+                      "max_abs_param_diff_vs_cpu": held["max_abs_state_diff_vs_cpu"],
+                      "max_rel_param_diff_vs_cpu": held["max_rel_state_diff_vs_cpu"],
+                      **hold_state(f"{phase} {label} state",
+                                   state_leaves(card.params, card.opt_state),
+                                   state_leaves(cpu.params, cpu.opt_state), tables),
+                      "ranking_test@10": res.ranking["test@10"], "wall_s": wall_s,
+                      "train_time_s": res.train_time_s, "examples_per_s": res.examples_per_sec}
+    return {"phase": phase, "runs": out, "launches": counts}
+
+
+def run_minibatch(ds: MovieLens100K) -> dict:
+    """``run_experiment`` in minibatch mode: DeepFM at the preset's width
+    (embedding 128, tower (512, 256, 128, 1); four lookups a forward, then
+    the catalog) and MF at D 64 (two; its catalog is a product), MODE_EPOCHS
+    epochs of MINIBATCH_BATCH rows."""
+    return run_mode_experiments("minibatch", {
+        "deepfm": (mode_cfg("deepfm", "minibatch"), 4, n_tiles(ds)),
+        "mf": (mode_cfg("mf", "minibatch"), 2, 0)}, ds)
+
+
+def check_sentinel(ids: torch.Tensor, V: int, D: int, gen: torch.Generator) -> dict:
+    """The row optimizers' padding slots on the card (``train/sparse.py``:
+    ``dedup_rows``' CUDA sum and ``_write_slots``), which all read row V - 1.
+    SENTINEL_STEPS steps of ``sparse_table_update`` with random row gradients
+    into a random [V, D] table, with lazy Adam and with row-wise AdaGrad: the
+    first on ``ids`` with row V - 1 among them (repeated, beside the padding
+    slots), the others on ``ids`` without it. The table and state against the
+    same steps on the CPU (``hold_state``: the rows no step touches keep their
+    first bits), and on the card row V - 1 keeps, after the first step, its
+    bits in the table and in its state."""
+    later = torch.where(ids == V - 1, 0, ids)
+    first = later.clone()
+    first[:8] = V - 1
+    batches = [first] + [later] * (SENTINEL_STEPS - 1)
+    table0 = torch.randn((V, D), generator=gen, device=DEVICE)
+    grads = [torch.randn((ids.shape[0], D), generator=gen, device=DEVICE) for _ in batches]
+    missed = torch.ones(V, dtype=torch.bool)
+    missed[first.cpu()] = False
+    missed[later.cpu()] = False
+    out = {"ids": int(ids.shape[0]), "table": [V, D], "steps": SENTINEL_STEPS,
+           "rows_missed": int(missed.sum())}
+    for name, init in (("lazy_adam", lambda dev: LazyAdamState.init(V, D, device=dev)),
+                       ("rowwise_adagrad", lambda dev: RowwiseAdagradState.init(V, device=dev))):
+        def steps(dev):
+            """(the state after the first step, the state after the last)"""
+            table, state = table0.to(dev, copy=True), init(dev)
+            after = []
+            for b, g in zip(batches, grads):
+                sparse_table_update(table, state, b.to(dev), g.to(dev), SENTINEL_LR)
+                after.append(state_leaves({"table": table}, {"sparse": {"table": state}}))
+            return after[0], after[-1]
+
+        kept, card = steps(DEVICE)
+        held = hold_state(f"sparse sentinel {name}", card, steps(torch.device("cpu"))[1],
+                          {"table": "table"})
+        if held["untouched_rows"] != out["rows_missed"]:
+            raise AssertionError(f"sparse sentinel {name}: {held['untouched_rows']} rows untouched "
+                                 f"on the CPU, {out['rows_missed']} missed by the ids")
+        if not torch.equal(card["params/table"][missed], table0.cpu()[missed]):
+            raise AssertionError(f"sparse sentinel {name}: a row the ids miss moved on the card")
+        for leaf, t in card.items():
+            if t.dim() and not torch.equal(t[V - 1], kept[leaf][V - 1]):
+                raise AssertionError(f"sparse sentinel {name}: row V - 1 of {leaf} moved after "
+                                     "the step that touched it")
+        out[name] = held
+    return out
+
+
+def run_sparse(ds: MovieLens100K) -> dict:
+    """``run_experiment`` in sparse mode: MF and DeepFM with lazy Adam, MF with
+    row-wise AdaGrad; the table rows through the gather kernel, no
+    ``onehot_grad``. Then ``check_sentinel`` on DeepFM's first MINIBATCH_BATCH
+    item ids into its item table."""
+    out = run_mode_experiments("sparse", {
+        "mf_lazy_adam": (mode_cfg("mf", "sparse"), 2, 0),
+        "deepfm_lazy_adam": (mode_cfg("deepfm", "sparse"), 4, n_tiles(ds)),
+        "mf_rowwise_adagrad": (mode_cfg("mf", "sparse", sparse_optimizer="rowwise_adagrad"), 2,
+                               0)}, ds)
+    x, _ = split_batches(PRESETS["deepfm"], ds, DEVICE)["train"]
+    first = epoch_order(0, x.shape[0], 1, MINIBATCH_BATCH)[0, 0].to(DEVICE)
+    _, items = ds.spec.ids(x[first])
+    gen = torch.Generator(device=DEVICE).manual_seed(MINIBATCH_ROWS_SEED)
+    out["sentinel"] = check_sentinel(items, ds.num_items,
+                                     PRESETS["deepfm"].model_kwargs["embedding_dim"], gen)
+    return out
+
+
+def run_stream(ds: MovieLens100K) -> dict:
+    """``fit_stream`` on MF and ``fit_stream_sparse`` on DeepFM (lazy Adam),
+    MODE_EPOCHS epochs each: the host arrays through the pinned, side-stream
+    prefetch; against the same calls on the CPU."""
+    runs = {"mf": (mode_cfg("mf", "stream"), 2), "deepfm_sparse": (mode_cfg("deepfm", "sparse"), 4)}
+    reset_launches()  # the main path's run starts here
+    results = {}
+    for label, (cfg, lookups) in runs.items():
+        before = launches()
+        t0 = time.perf_counter()
+        res = mode_fit(cfg, ds, DEVICE, "stream")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        after = launches()
+        check_counts(f"stream {label}", {k: after[k] - before[k] for k in after},
+                     mode_counts(cfg, ds, lookups, cfg.train_mode == "sparse"))
+        results[label] = (cfg, res, wall_s)
+    counts = launches()  # ... and ends here
+    out = {}
+    for label, (cfg, res, wall_s) in results.items():
+        cpu = mode_fit(cfg, ds, "cpu", "stream")
+        out[label] = {"trainer": "fit_stream_sparse" if cfg.train_mode == "sparse"
+                      else "fit_stream", "batch": cfg.batch_size, "steps": mode_steps(cfg, ds),
+                      **hold_mode(f"stream {label}", res.history["train_loss"].cpu().numpy(),
+                                  cpu.history["train_loss"].numpy()),
+                      **hold_state(f"stream {label}", state_leaves(res.params, res.opt_state),
+                                   state_leaves(cpu.params, cpu.opt_state),
+                                   sparse_tables(cfg, ds)),
+                      "wall_s": wall_s}
+    return {"phase": "stream", "runs": out, "launches": counts}
+
+
+def served_lists(port: int, users: list, k: int) -> list:
+    """The lists /v1/recommend answers for ``users`` (one POST) and for the
+    first user alone (one GET)."""
+    batch = http(port, "POST", "/v1/recommend", {"users": users, "k": k})["items"]
+    single = http(port, "GET", f"/v1/recommend?user={users[0]}&k={k}")["items"]
+    if single != batch[0]:
+        raise AssertionError("checkpoint_serve: GET and POST answer differently")
+    return batch
+
+
+def run_checkpoint_serve(ds: MovieLens100K, data_dir: str) -> dict:
+    """Checkpoints on the card. The resume: AutoRec (``matrix_batches``, the
+    preset's width) for CHECKPOINT_EPOCHS full-batch epochs, a checkpoint with
+    its Adam state, CHECKPOINT_EPOCHS more from it, held against 2 x
+    CHECKPOINT_EPOCHS uninterrupted (losses rtol MODE_LOSS_RTOL, params atol
+    RESUME_ATOL), and the uninterrupted run against itself (atol RESUME_ATOL
+    too). AutoRec looks
+    nothing up, so every kernel of its step adds in a fixed order and a run
+    repeats its bits; a model with lookups does not (``onehot_grad`` adds with
+    atomics, see RESUME_ATOL). Serving: MF and DeepFM, CHECKPOINT_EPOCHS
+    full-batch epochs each, saved and served by ``build_server --checkpoint``
+    over HTTP; the lists must equal an in-memory ``Recommender``'s over the
+    same params (MF through ``topk_serve_matmul``), and DeepFM's also a fused
+    recommender's (``topk_scores``). Launches counted exactly."""
+    E = CHECKPOINT_EPOCHS
+    root = tempfile.mkdtemp(prefix="checkpoints_")
+    seen = ds.seen_mask(ds.train, ds.valid, ds.test)
+    users = list(range(0, ds.num_users, 29))  # 33 users
+
+    def fit(cfg, model, batches, weights, epochs, **kw):
+        tc = TrainConfig(learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                         epochs=epochs, track_metrics=False)
+        return Trainer(model, tc, device=DEVICE).fit(batches["train"], weights=weights, **kw)
+
+    try:
+        reset_launches()  # the main path's run starts here
+        ar = PRESETS["autorec"]
+        ar_batches, ar_weights, _, _ = matrix_batches(ar, ds, DEVICE)
+        ar_weights = {"train": ar_weights["train"]}
+        whole = fit(ar, build_model(ar, ds), ar_batches, ar_weights, 2 * E)
+        again = fit(ar, build_model(ar, ds), ar_batches, ar_weights, 2 * E)
+        first = fit(ar, build_model(ar, ds), ar_batches, ar_weights, E)
+        mgr = CheckpointManager(f"{root}/autorec")
+        mgr.save(E, first.params, opt_state=first.opt_state)
+        fresh = build_model(ar, ds)
+        state = mgr.restore(template={"params": fresh.state_dict()}, device=DEVICE)
+        second = fit(ar, fresh, ar_batches, ar_weights, E, params=state["params"],
+                     opt_state=state["opt_state"])
+        resumed = torch.cat([first.history["train_loss"], second.history["train_loss"]])
+        np.testing.assert_allclose(resumed.cpu().numpy(), whole.history["train_loss"].cpu().numpy(),
+                                   rtol=MODE_LOSS_RTOL, err_msg="checkpoint_serve resume")
+        resume_err = max(float((second.params[k] - whole.params[k]).abs().max())
+                         for k in whole.params)
+        rerun_err = max(float((again.params[k] - whole.params[k]).abs().max())
+                        for k in whole.params)
+        if not resume_err <= RESUME_ATOL:
+            raise AssertionError(f"checkpoint_serve: the resumed params are {resume_err} off")
+        if not rerun_err <= RESUME_ATOL:
+            raise AssertionError(f"checkpoint_serve: a rerun's params are {rerun_err} off")
+
+        mf = PRESETS["mf"]
+        mf_res = fit(mf, build_model(mf, ds), split_batches(mf, ds, DEVICE), None, E)
+        CheckpointManager(f"{root}/mf").save(E, mf_res.params)
+        fm = PRESETS["deepfm"]
+        fm_res = fit(fm, build_model(fm, ds), split_batches(fm, ds, DEVICE), None, E)
+        CheckpointManager(f"{root}/deepfm").save(E, fm_res.params)
+
+        served = {}
+        for name, params in (("mf", mf_res.params), ("deepfm", fm_res.params)):
+            args = serve_cli.parser().parse_args(["--model", name, "--data", data_dir, "--port",
+                                                  "0", "--checkpoint", f"{root}/{name}"])
+            server = serve_cli.build_server(args).serve_background()
+            try:
+                rec = server.recommender
+                got = served_lists(server.port, users, 50)
+                model = build_model(PRESETS[name], ds)
+                model.load_state_dict({k: v.cpu() for k, v in params.items()})
+                memory = Recommender(model, rec.ctx, seen=seen, device=DEVICE)
+                if got != memory.top_k(50, users).tolist():
+                    raise AssertionError(f"checkpoint_serve {name}: the served lists are not "
+                                         "the in-memory Recommender's")
+                entry = {"users": len(users), "k": 50}
+                if name == "deepfm":
+                    fused = Recommender(rec.model, rec.ctx, seen=seen, use_pallas="fused",
+                                        device=DEVICE)
+                    if fused.top_k(50, users).tolist() != got:
+                        raise AssertionError("checkpoint_serve deepfm: the fused lists differ")
+                    entry["fused_equal"] = True
+                served[name] = entry
+            finally:
+                server.shutdown()
+        torch.cuda.synchronize()
+        counts = launches()  # ... and ends here
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # AutoRec looks nothing up. Trainer.fit takes one step an epoch (MF's two
+    # lookups, DeepFM's n), and build_server one more epoch of each; DeepFM's
+    # catalog is scored four times (the one-epoch run's ranking eval, the
+    # server, the in-memory and the fused recommender); MF's top-k three times
+    # (the POST, the GET, the in-memory recommender), DeepFM's fused one once
+    n = LOOKUPS["deepfm"]
+    check_counts("checkpoint_serve", counts, {
+        **{k: 0 for k in KERNELS}, "gather_rows": (2 + n) * (E + 1) + 4 * n * n_tiles(ds),
+        "onehot_grad": (2 + n) * (E + 1), "topk_serve_matmul": 3, "topk_scores": 1})
+    return {"phase": "checkpoint_serve",
+            "config": f"autorec {E} + {E} full-batch epochs through a checkpoint against "
+                      f"{2 * E}; mf and deepfm ({E} epochs each) served from checkpoints",
+            "max_rel_loss_diff_resumed": float(np.max(np.abs(
+                resumed.cpu().numpy() / whole.history["train_loss"].cpu().numpy() - 1))),
+            "max_abs_param_diff_resumed": resume_err, "max_abs_param_diff_rerun": rerun_err,
+            "served": served, "launches": counts}
+
+
+def run_cf(data_dir: str) -> dict:
+    """Classic CF on the card (``cf/``): UserCF and ItemCF on the ``ua`` fold
+    (CF_NEIGHBOURS neighbours, top CF_TOP_N), GDCF (CF_GDCF_ITERATIONS
+    iterations, top CF_GDCF_K) on ``u1``; each top-k through ``topk_scores``.
+    After the counted runs, every UserCF and ItemCF list against the stable
+    top-k of the card's own masked predictions, GDCF's last list against the
+    stable top-k of its pre-update logits (the final scores of a run one
+    iteration shorter), and Recall / Precision / F1 (and GDCF's losses)
+    against the same calls on the CPU."""
+    ua, ua_tests = load_base_test(data_dir, "ua")
+    u1, u1_tests = load_base_test(data_dir, "u1")
+    neighbourhood = {"usercf": (user_cf_recommend, user_cf_scores),
+                     "itemcf": (item_cf_recommend, item_cf_scores)}
+    reset_launches()  # the main path's run starts here
+    recs, walls = {}, {}
+    for algo, (recommend, _) in neighbourhood.items():
+        t0 = time.perf_counter()
+        recs[algo] = recommend(ua, CF_NEIGHBOURS, CF_TOP_N, device=DEVICE)
+        torch.cuda.synchronize()
+        walls[algo] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hist, _ = gdcf_train(u1, iterations=CF_GDCF_ITERATIONS, top_k=CF_GDCF_K, device=DEVICE)
+    torch.cuda.synchronize()
+    walls["gdcf"] = time.perf_counter() - t0
+    counts = launches()  # ... and ends here
+    # two top-k each for UserCF and ItemCF (the neighbours, the lists), one a
+    # GDCF iteration
+    check_counts("cf", counts, {"topk_scores": 2 * 2 + CF_GDCF_ITERATIONS, "gather_rows": 0,
+                                "onehot_grad": 0, "topk_serve_matmul": 0})
+
+    out = {}
+    m = torch.from_numpy(ua).to(DEVICE)
+    for algo, (recommend, scores) in neighbourhood.items():
+        pred = torch.where(m > 0, NEG_INF, scores(m, CF_NEIGHBOURS, device=DEVICE))
+        if not torch.equal(recs[algo].long(), topk.stable_top_k(pred, CF_TOP_N)[1]):
+            raise AssertionError(f"cf {algo}: the lists are not the stable top-k")
+        got = cf_eval(recs[algo].cpu().numpy(), ua_tests)
+        want = cf_eval(recommend(ua, CF_NEIGHBOURS, CF_TOP_N, device="cpu").numpy(), ua_tests)
+        diff = max(abs(a - b) for a, b in zip(got, want))
+        if diff > CF_METRIC_ATOL:
+            raise AssertionError(f"cf {algo}: recall/precision/f1 {got} on the card, {want} CPU")
+        out[algo] = {"fold": "ua", "recall": got[0], "precision": got[1], "f1": got[2],
+                     "max_metric_diff_vs_cpu": diff, "wall_s": walls[algo]}
+    _, last_logits = gdcf_train(u1, iterations=CF_GDCF_ITERATIONS - 1, top_k=CF_GDCF_K,
+                                device=DEVICE)
+    if not torch.equal(hist["rec"][-1].long(), topk.stable_top_k(last_logits, CF_GDCF_K)[1]):
+        raise AssertionError("cf gdcf: the last list is not the stable top-k of its logits")
+    cpu, _ = gdcf_train(u1, iterations=CF_GDCF_ITERATIONS, top_k=CF_GDCF_K, device="cpu")
+    losses = hist["loss"].cpu().numpy()
+    np.testing.assert_allclose(losses, cpu["loss"].numpy(), rtol=MODE_LOSS_RTOL, err_msg="gdcf")
+    got = cf_eval(hist["rec"][-1].cpu().numpy(), u1_tests)
+    want = cf_eval(cpu["rec"][-1].numpy(), u1_tests)
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    if diff > CF_METRIC_ATOL:
+        raise AssertionError(f"cf gdcf: recall/precision/f1 {got} on the card, {want} CPU")
+    out["gdcf"] = {"fold": "u1", "iterations": CF_GDCF_ITERATIONS, "loss": losses.tolist(),
+                   "max_rel_loss_diff_vs_cpu": float(np.max(np.abs(losses / cpu["loss"].numpy()
+                                                                   - 1))),
+                   "recall": got[0], "precision": got[1], "f1": got[2],
+                   "max_metric_diff_vs_cpu": diff, "wall_s": walls["gdcf"]}
+    return {"phase": "cf", "runs": out, "launches": counts}
+
+
 def run_cli(ds: MovieLens100K, data_dir: str) -> dict:
-    """``cli/run.py --model dien --epochs CLI_EPOCHS --json`` on the card (its
-    default device), the preset's full-history serving: its JSON line must
-    parse and name DIEN, with finite metrics; the lookups are counted."""
+    """On the card (the CLIs' default device), each JSON line parsed and its
+    launches counted: ``cli/run.py --model dien --epochs CLI_EPOCHS --json``
+    (the preset's full-history serving; finite metrics), ``cli/run.py --model
+    mf --train-mode sparse --epochs CLI_EPOCHS --json`` (the table rows through
+    the gather kernel, no ``onehot_grad``; the loss held against the same
+    sparse run on the CPU), and ``cli/cf.py usercf --json`` (two top-k through
+    ``topk_scores``; its metrics against the CPU's)."""
+    from deeplearningrecommendationsystem_tpu_torch.cli import cf as cf_cli_module
     from deeplearningrecommendationsystem_tpu_torch.cli import run as run_cli_module
 
-    buf = io.StringIO()
+    def command(main, argv) -> tuple:
+        buf = io.StringIO()
+        before = launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code = main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        after = launches()
+        if code != 0:
+            raise AssertionError(f"cli_run {argv}: exit {code}")
+        payload = json.loads(buf.getvalue().strip().splitlines()[-1])
+        return payload, {k: after[k] - before[k] for k in after}, wall_s
+
     reset_launches()  # the main path's run starts here
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        code = run_cli_module.main(["--model", "dien", "--epochs", str(CLI_EPOCHS), "--json",
-                                    "--data", data_dir])
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    E = CLI_EPOCHS
+    payload, dien_counts, wall_s = command(run_cli_module.main, [
+        "--model", "dien", "--epochs", str(E), "--json", "--data", data_dir])
+    sparse_argv = ["--model", "mf", "--train-mode", "sparse", "--epochs", str(E), "--json",
+                   "--data", data_dir]
+    sparse_payload, sparse_counts, sparse_wall_s = command(run_cli_module.main, sparse_argv)
+    cf_payload, cf_counts, cf_wall_s = command(cf_cli_module.main,
+                                               ["usercf", "--json", "--data", data_dir])
     counts = launches()  # ... and ends here
-    payload = json.loads(buf.getvalue().strip().splitlines()[-1])
-    if code != 0 or payload["model"] != "dien":
-        raise AssertionError(f"cli_run: exit {code}, payload {payload}")
+    if payload["model"] != "dien":
+        raise AssertionError(f"cli_run: payload {payload}")
     if not all(np.isfinite(v) for v in payload["final"].values()):
         raise AssertionError(f"cli_run: non-finite metrics {payload['final']}")
     full = [row[row >= 0] for row in ds.itemid_matrix(ds.data)]
     tiles, chunks, _ = full_history_work(full, ds.num_items)
-    E = CLI_EPOCHS
-    check_counts("cli_run", counts, {**din_head_counts({}, {}), "din_attention_pool": 0,
-                                     "gather_rows": 2 * (3 * E + 3) + tiles + chunks,
-                                     "onehot_grad": 2 * E})
+    check_counts("cli_run dien", dien_counts, {**din_head_counts({}, {}), "din_attention_pool": 0,
+                                               "gather_rows": 2 * (3 * E + 3) + tiles + chunks,
+                                               "onehot_grad": 2 * E})
+
+    mf = PRESETS["mf"].replace(train_mode="sparse", epochs=E)  # the CLI's config
+    check_counts("cli_run mf sparse", sparse_counts, mode_counts(mf, ds, 2, True))
+    if set(sparse_payload["final"]) != {"train_loss"}:
+        raise AssertionError(f"cli_run mf sparse: final {sparse_payload['final']}")
+    cpu = mode_fit(mf, ds, "cpu", "minibatch")
+    card_loss, cpu_loss = sparse_payload["final"]["train_loss"], float(cpu.history["train_loss"][-1])
+    if not abs(card_loss / cpu_loss - 1) <= MODE_LOSS_RTOL:
+        raise AssertionError(f"cli_run mf sparse: loss {card_loss} on the card, {cpu_loss} CPU")
+
+    check_counts("cli_run usercf", cf_counts, {"topk_scores": 2, "gather_rows": 0,
+                                               "onehot_grad": 0, "topk_serve_matmul": 0})
+    m, tests = load_base_test(data_dir, "ua")
+    want = cf_eval(user_cf_recommend(m, device="cpu").numpy(), tests)
+    got = (cf_payload["recall"], cf_payload["precision"], cf_payload["f1"])
+    if max(abs(a - b) for a, b in zip(got, want)) > CF_METRIC_ATOL:
+        raise AssertionError(f"cli_run usercf: {got} on the card, {want} CPU")
     return {"phase": "cli_run",
             "command": f"cli/run.py --model dien --epochs {E} --json (device cuda)",
             "wall_s": wall_s, "train_time_s": payload["train_time_s"],
             "examples_per_sec": payload["examples_per_sec"],
-            "ranking_test@10": payload["ranking"]["test@10"], "launches": counts}
+            "ranking_test@10": payload["ranking"]["test@10"],
+            "sparse": {"command": "cli/run.py " + " ".join(sparse_argv[:-2]), "wall_s": sparse_wall_s,
+                       "train_loss": card_loss, "rel_loss_diff_vs_cpu": abs(card_loss / cpu_loss - 1),
+                       "ranking_test@10": sparse_payload["ranking"]["test@10"],
+                       "launches": sparse_counts},
+            "usercf": {"command": "cli/cf.py usercf --json", "wall_s": cf_wall_s,
+                       "recall": got[0], "precision": got[1], "f1": got[2],
+                       "launches": cf_counts},
+            "launches": counts}
 
 
 # ---------------------------------------------------------------- main
@@ -2434,6 +3006,31 @@ def main() -> int:
             emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
             rows["onehot_grad"].append(check_grad(tname, ids, V, D, dtype, pair_seq_gen))
             emit({"phase": "kernel_check", "kernel": "onehot_grad", **rows["onehot_grad"][-1]})
+        # the lookup pair at the minibatch modes' batches, from a generator of
+        # their own: the first MINIBATCH_BATCH rows of the first epoch's order
+        # (epoch_order, seed 0) of DeepFM's train rows into its user and item
+        # tables (D 128) and of MF's into its user table (D 64)
+        mb_gen = torch.Generator(device=DEVICE).manual_seed(MINIBATCH_ROWS_SEED)
+        (mf_u, _), _ = split_batches(PRESETS["mf"], ds, DEVICE)["train"]
+        fm_first = epoch_order(0, fm_x.shape[0], 1, MINIBATCH_BATCH)[0, 0].to(DEVICE)
+        mf_first = epoch_order(0, mf_u.shape[0], 1, MINIBATCH_BATCH)[0, 0].to(DEVICE)
+        fm_D = PRESETS["deepfm"].model_kwargs["embedding_dim"]
+        mb_user, mb_item = ds.spec.ids(fm_x[fm_first])
+        for tname, V, D, ids in (("deepfm minibatch user", ds.num_users, fm_D, mb_user),
+                                 ("deepfm minibatch item", ds.num_items, fm_D, mb_item),
+                                 ("mf minibatch user", ds.num_users, EMBEDDING_DIM, mf_u[mf_first])):
+            table = torch.randn((V, D), generator=mb_gen, device=DEVICE)
+            rows["gather_rows"].append(check_gather(tname, table, ids))
+            emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
+            rows["onehot_grad"].append(check_grad(tname, ids, V, D, torch.float32, mb_gen))
+            emit({"phase": "kernel_check", "kernel": "onehot_grad", **rows["onehot_grad"][-1]})
+        # classic CF's top-k: the top 20 unrated items of every user, and
+        # UserCF's 10 neighbours of every user
+        for U_, I_, k in ((ds.num_users, ds.num_items, CF_TOP_N),
+                          (ds.num_users, ds.num_users, CF_NEIGHBOURS)):
+            rows["topk_scores"].append(check_topk("topk_scores", U_, I_, 0, k, mb_gen))
+            emit({"phase": "kernel_check", "kernel": "topk_scores", **rows["topk_scores"][-1]})
+        del mf_u, fm_first, mf_first, mb_user, mb_item
         del lookups, table, din_hist, din_y, lr_user, lr_item, fm_x, fm_user, fm_item
         del pair_seq, dien_hist, dien_tgt, dien_users, ncf_user, ncf_item
         # the rows of widths past the presets' draw from their own generator, so
@@ -2526,7 +3123,8 @@ def main() -> int:
                   run_serve_model(ds, tmp, "deepfm", DEEPFM_EPOCHS), run_feature_zoo(ds),
                   run_dien(ds), run_dien_bf16_aux(ds), run_neuralcf(ds),
                   run_autorec(ds, "autorec"), run_autorec(ds, "i-autorec"),
-                  run_serve_pair_matrix(ds, tmp), run_cli(ds, tmp)]
+                  run_serve_pair_matrix(ds, tmp), run_minibatch(ds), run_stream(ds),
+                  run_sparse(ds), run_checkpoint_serve(ds, tmp), run_cf(tmp), run_cli(ds, tmp)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for p in phases:

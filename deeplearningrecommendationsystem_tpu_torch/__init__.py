@@ -16,7 +16,10 @@ Ported, for all 15 presets: serving (data loader, models, ``Recommender``,
 and ranking metrics, ``experiments.run_experiment``, ``cli/run.py``,
 ``cli/serve.py``, the embedding gather and its backward, the fused MF and LR
 trainers, AFM's attention pool, DIN's fused head and attention pool, and
-DIEN's GRU in plain torch).
+DIEN's GRU in plain torch); the minibatch, stream and sparse training modes
+(``train/minibatch.py``, ``data/stream.py``, ``train/sparse.py``,
+``train/sparse_trainer.py``), checkpoints (``runtime/checkpoint.py``) and
+classic CF (``cf/``, ``cli/cf.py``). Meshes are not ported yet.
 """
 
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device

@@ -11,13 +11,13 @@ per-model scripts:
 The preset table carries each script's hyperparameters; flags override them.
 ``--device`` is ``cuda`` by default (raises where there is none) or ``cpu``
 (the kernels' plain versions). ``--data`` defaults to ``$ML100K_PATH``, else
-``dataset_example/ml-100k`` (the reference checkout's layout). The flags of
-what is not ported yet (``--train-mode`` other than ``fullbatch``, ``--mesh``)
-exit with a message naming their ``ROADMAP.md`` item; ``--ep-strategy``,
-``--batch-size`` and ``--sparse-optimizer`` belong to those modes and are
-accepted; ``--fast-gathers`` sets the two ``TrainConfig`` gather fields, which
-have no effect here (one kernel pair). The JAX CLI's compilation cache is
-JAX's own and has no counterpart.
+``dataset_example/ml-100k`` (the reference checkout's layout).
+``--train-mode`` picks full-batch (the default), minibatch, stream or sparse
+training (``--batch-size``, ``--sparse-optimizer``); ``--mesh`` is not ported
+yet and exits with a message naming ``ROADMAP.md`` §1 item 13, and
+``--ep-strategy`` belongs to it and is accepted; ``--fast-gathers`` sets the
+two ``TrainConfig`` gather fields, which have no effect here (one kernel
+pair). The JAX CLI's compilation cache is JAX's own and has no counterpart.
 """
 
 from __future__ import annotations
@@ -78,8 +78,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--train-mode",
         choices=["fullbatch", "minibatch", "sparse", "stream"],
-        help="fullbatch = reference parity regime; minibatch, sparse and stream are "
-        "not ported yet (ROADMAP.md §1 item 11)",
+        help="fullbatch = reference parity regime; minibatch = shuffled SGD; "
+        "sparse = minibatch with row-sparse embedding updates (mf/deepfm); "
+        "stream = host-streamed minibatches with device prefetch (data/stream.py)",
     )
     ap.add_argument("--batch-size", type=int, help="minibatch/sparse batch size")
     ap.add_argument(
@@ -122,9 +123,6 @@ def main(argv=None) -> int:
         return 0
     if not args.model:
         ap.error("--model is required (or --list)")
-    if args.train_mode not in (None, "fullbatch"):
-        raise SystemExit(f"--train-mode {args.train_mode}: not ported yet "
-                         "(ROADMAP.md §1 item 11)")
     if args.mesh:
         raise SystemExit("--mesh: DP/EP meshes are not ported yet (ROADMAP.md §1 item 13)")
 

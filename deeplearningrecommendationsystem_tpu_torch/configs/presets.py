@@ -7,9 +7,10 @@ lr/weight-decay, epochs and eval K -- overridable from the CLI.
 
 The port's own copy of the JAX package's ``configs/presets.py`` (a pure-Python
 module), field for field, so the port imports nothing of the JAX package.
-Fields of modes the port does not run yet (``mesh_shape``, the minibatch,
-sparse and stream ``train_mode`` values) are kept so that a config means the
-same thing in both packages; ``experiments.run_experiment`` rejects them.
+The mesh fields (``mesh_shape``, ``ep_strategy``, ``unshard_params``) are
+kept so that a config means the same thing in both packages;
+``experiments.run_experiment`` rejects a ``mesh_shape`` (``ROADMAP.md`` §1
+item 13).
 """
 
 from __future__ import annotations

@@ -14,6 +14,13 @@ What the loader relies on, and this writer guarantees:
   repeats;
 * ``u.user`` holds both genders and all 21 ml-100k occupations (given at least
   21 users), and ``u.item`` holds 19 genre flags in columns 5-23.
+
+It also writes the two folds that ``cf/neighborhood.py::load_base_test``
+reads, drawn after the files above from a generator of their own, so the
+ratings do not depend on them: ``ua.base``/``ua.test``, ten ratings of each
+user in the test fold as in ml-100k's own ``ua`` split, and
+``u1.base``/``u1.test``, a disjoint 20% of the ratings in the test fold. Each
+is sorted by user, then item, as ml-100k's are.
 """
 
 from __future__ import annotations
@@ -46,6 +53,31 @@ def _ratings_per_user(rng, num_users: int, num_items: int, num_ratings: int) -> 
     return counts
 
 
+UA_TEST_PER_USER = 10
+U1_TEST_SHARE = 0.2
+
+
+def _write_ratings(file: str, rows: np.ndarray) -> None:
+    """(user, item, stars, stamp) rows with 0-based ids, sorted by user and item."""
+    rows = rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+    with open(file, "w", encoding="ISO-8859-1") as f:
+        f.writelines(f"{u + 1}\t{i + 1}\t{r}\t{t}\n" for u, i, r, t in rows)
+
+
+def _write_folds(path: str, seed: int, users, items, stars, stamps) -> None:
+    """ua.base/ua.test and u1.base/u1.test (see the module docstring)."""
+    rng = np.random.default_rng((seed, 1))
+    rows = np.stack([users, items, stars, stamps], axis=1)
+    ua_test = np.zeros(len(rows), dtype=bool)
+    for u in np.unique(users):
+        ua_test[rng.choice(np.nonzero(users == u)[0], UA_TEST_PER_USER, replace=False)] = True
+    u1_test = np.zeros(len(rows), dtype=bool)
+    u1_test[rng.choice(len(rows), int(len(rows) * U1_TEST_SHARE), replace=False)] = True
+    for fold, test in (("ua", ua_test), ("u1", u1_test)):
+        _write_ratings(os.path.join(path, f"{fold}.base"), rows[~test])
+        _write_ratings(os.path.join(path, f"{fold}.test"), rows[test])
+
+
 def write_ml100k_format(
     path: str,
     seed: int,
@@ -53,7 +85,8 @@ def write_ml100k_format(
     num_items: int = 1682,
     num_ratings: int = 100_000,
 ) -> str:
-    """Write ``u.data``, ``u.user`` and ``u.item`` under ``path``; returns ``path``."""
+    """Write ``u.data``, ``u.user``, ``u.item`` and the ``ua`` and ``u1`` folds
+    under ``path``; returns ``path``."""
     if num_ratings < num_users * MIN_RATINGS_PER_USER or num_ratings > num_users * num_items:
         raise ValueError(
             f"num_ratings={num_ratings} must lie in "
@@ -104,6 +137,8 @@ def write_ml100k_format(
             f"{u + 1}|{ages[u]}|{gender[u]}|{OCCUPATIONS[occupation[u]]}|{10000 + u:05d}\n"
             for u in range(num_users)
         )
+
+    _write_folds(path, seed, users, items, stars, stamps)
 
     genres = (rng.random((num_items, NUM_GENRES)) < 0.1).astype(np.int64)
     genres[np.arange(num_items), rng.integers(0, NUM_GENRES, num_items)] = 1

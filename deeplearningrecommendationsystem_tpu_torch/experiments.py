@@ -14,8 +14,16 @@ taken from that split's own positives; DIEN's ``aux_weight`` appends each
 example's per-step negatives [N, L]); 'matrix' (AutoRec, I-AutoRec; the
 pattern of scripts/autorec.py: global negatives drawn before a 60/20/20 split
 of the rating matrix's rows, the loss over rated entries only, and a ranking
-eval with no seen items filtered). The other training modes and the mesh
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+eval with no seen items filtered).
+
+Training modes (``cfg.train_mode``): 'fullbatch', the reference's one Adam
+step an epoch; 'minibatch' and 'stream', shuffled minibatch Adam with the
+data on the device or streamed from host memory (``train/minibatch.py``; not
+the matrix family); 'sparse', minibatch with row-sparse table updates
+(``train/sparse_trainer.py``; models with the sparse-row protocol, MF and
+DeepFM). The minibatch modes keep only ``history["train_loss"]``; the serving
+and ranking evaluation follow every mode. The mesh raises
+``NotImplementedError`` naming ``ROADMAP.md`` §1 item 13.
 
 The initial weights and the negatives are drawn from CPU generators seeded
 from ``cfg.seed`` and then moved to ``device``, so a run on a card and the
@@ -36,6 +44,7 @@ from torch import nn
 
 from deeplearningrecommendationsystem_tpu_torch.configs.presets import ExperimentConfig
 from deeplearningrecommendationsystem_tpu_torch.data.movielens import MovieLens100K, Split
+from deeplearningrecommendationsystem_tpu_torch.data.stream import tree_map
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
 from deeplearningrecommendationsystem_tpu_torch.eval.ranking import ranking_metrics
 from deeplearningrecommendationsystem_tpu_torch.eval.recommend import (
@@ -61,7 +70,13 @@ from deeplearningrecommendationsystem_tpu_torch.models import (
     WideDeep,
 )
 from deeplearningrecommendationsystem_tpu_torch.sampling import NegativeSampler
-from deeplearningrecommendationsystem_tpu_torch.train import TrainConfig, Trainer
+from deeplearningrecommendationsystem_tpu_torch.train import (
+    TrainConfig,
+    Trainer,
+    fit_minibatch,
+    fit_minibatch_sparse,
+    fit_stream,
+)
 
 # ml-100k in the reference checkout's layout, or the directory ML100K_PATH names
 DEFAULT_DATA = os.environ.get("ML100K_PATH", "dataset_example/ml-100k")
@@ -72,6 +87,7 @@ _FEATURE_MODELS = {"lr": LogisticRegression, "afm": AFM, "deepfm": DeepFM, "wide
                    "nfm": NFM, "pnn": PNN, "deepcross": DCN, "deepcrossing": DeepCrossing,
                    "ffm": FFM}
 FAMILIES = ("pair", "feature", "seq", "matrix")
+TRAIN_MODES = ("fullbatch", "minibatch", "stream", "sparse")
 
 
 def build_model(cfg: ExperimentConfig, data: MovieLens100K,
@@ -122,9 +138,10 @@ class ExperimentResult:
 def _check_supported(cfg: ExperimentConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.train_mode != "fullbatch":
-        raise NotImplementedError(
-            f"train_mode {cfg.train_mode!r} is not ported yet; see ROADMAP.md §1 item 11")
+    if cfg.train_mode not in TRAIN_MODES:
+        raise ValueError(f"unknown train_mode {cfg.train_mode!r}")
+    if cfg.family == "matrix" and cfg.train_mode in ("minibatch", "stream"):
+        raise ValueError(f"{cfg.train_mode} mode: masked-matrix family N/A")
     if cfg.mesh_shape is not None:
         raise NotImplementedError("mesh_shape (DP/EP) is not ported yet; see ROADMAP.md §1 item 13")
     if cfg.aux_weight > 0 and cfg.model != "dien":
@@ -271,11 +288,10 @@ def run_experiment(
         batches = split_batches(cfg, data, dev)
         train_examples = len(batches["train"][1])
 
-    # ---- train (full batch, one Adam step per epoch) ----
+    # ---- train ----
     _sync(dev)
     t0 = time.perf_counter()
-    result = trainer.fit(batches["train"], valid=batches["valid"], test=batches["test"],
-                         weights=weights)
+    result = _train(cfg, trainer, batches, weights)
     _sync(dev)
     train_time = time.perf_counter() - t0
 
@@ -303,6 +319,28 @@ def run_experiment(
 
         print_report(out, k=cfg.k)
     return out
+
+
+def _train(cfg: ExperimentConfig, trainer: Trainer, batches, weights):
+    """Train in ``cfg.train_mode``: 'fullbatch' (one Adam step an epoch),
+    'minibatch' and 'stream' (shuffled minibatch Adam, the data on the device
+    or streamed from host memory), 'sparse' (minibatch with row-sparse table
+    updates). Each minibatch mode draws its order from ``cfg.seed``."""
+    if cfg.train_mode == "fullbatch":
+        return trainer.fit(batches["train"], valid=batches["valid"], test=batches["test"],
+                           weights=weights)
+    if cfg.train_mode == "minibatch":
+        return fit_minibatch(trainer, cfg.seed, batches["train"], batch_size=cfg.batch_size)
+    if cfg.train_mode == "stream":
+        # the dataset stays in HOST memory; StreamingLoader shuffles + prefetches
+        b, y = batches["train"]
+        host_train = (tree_map(lambda t: t.cpu().numpy(), b), y.cpu().numpy())
+        return fit_stream(trainer, cfg.seed, host_train, batch_size=cfg.batch_size,
+                          seed=cfg.seed)
+    if cfg.train_mode == "sparse":
+        return fit_minibatch_sparse(trainer, cfg.seed, batches["train"],
+                                    batch_size=cfg.batch_size, optimizer=cfg.sparse_optimizer)
+    raise ValueError(cfg.train_mode)
 
 
 def _matrix_ranking(cfg: ExperimentConfig, data: MovieLens100K, scores: torch.Tensor,

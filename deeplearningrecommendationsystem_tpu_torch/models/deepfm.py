@@ -18,14 +18,18 @@ identity; the ReLU tower over the 6 D concat; a final Linear(2, 1) over
   effect here.
 
 The id fields and the two bias tables go through ``gather_rows`` (the gather
-and ``onehot_grad`` kernel pair): four lookups a forward. The JAX model's
-sparse-row protocol (``sparse_tables``, ``table_ids``, ``apply_rows``, for
-``train/sparse_trainer.py``) is not ported yet (``ROADMAP.md`` §1 item 11).
+and ``onehot_grad`` kernel pair): four lookups a forward.
+
+The sparse-row protocol of ``train/sparse_trainer.py``: the four
+vocabulary-height tables (the user and item embeddings and their biases) are
+``sparse_tables`` and train with a row optimizer; the small field tables and
+the tower stay dense. ``apply_rows`` is ``apply_params`` with those four
+lookups replaced by the gathered rows.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -83,4 +87,32 @@ class DeepFM(FeatureModel):
         fm_fields = fields.float() if self.f32_fm else fields
         fm = (linear_part(p["fm_linear"], x, self.spec).to(fm_fields.dtype)
               + fm_cross_term(fm_fields)[:, None])
+        return linear(p["out"], torch.cat([fm.to(deep.dtype), deep], dim=-1))[:, 0]
+
+    # -- sparse-row protocol (train/sparse_trainer.py) ----------------------
+    sparse_tables = {
+        "user": "tables.user",
+        "item": "tables.item",
+        "user_bias": "fm_linear.user_bias",
+        "item_bias": "fm_linear.item_bias",
+    }
+
+    def table_ids(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        u, i = self.spec.ids(x)
+        return {"user": u, "item": i, "user_bias": u, "item_bias": i}
+
+    def apply_rows(self, dense: Mapping[str, Any], rows: Mapping[str, torch.Tensor],
+                   x: torch.Tensor) -> torch.Tensor:
+        """``apply_params`` with the four tables' lookups given as ``rows``;
+        ``dense`` is the params without those tables (``embed_fields`` then
+        embeds only the remaining fields)."""
+        p = nest(dense)
+        e = embed_fields(p["tables"], x, self.spec)
+        e["user"], e["item"] = rows["user"], rows["item"]
+        fields = stack_fields(e)  # [B, 6, D]
+        deep = tower(p, fields.reshape(fields.shape[0], -1))
+        fm_fields = fields.float() if self.f32_fm else fields
+        w = p["fm_linear"]["wide"]
+        wide = rows["user_bias"] + rows["item_bias"] + linear(w, self.spec.dense(x).to(w["w"].dtype))
+        fm = wide.to(fm_fields.dtype) + fm_cross_term(fm_fields)[:, None]
         return linear(p["out"], torch.cat([fm.to(deep.dtype), deep], dim=-1))[:, 0]

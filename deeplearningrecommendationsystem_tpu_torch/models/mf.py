@@ -15,9 +15,13 @@ The JAX package's ``models/mf.py`` as an ``nn.Module``: the ``user`` and
 
 ``onehot_epoch`` is accepted for the JAX field of that name: the ``[D, B]``
 one-hot layout was a TPU workaround for its slow native gather, and the
-lookup computes the same function through the same kernels either way. The
-sparse-row protocol waits for ``train/sparse_trainer.py`` (``ROADMAP.md`` §1
-item 11).
+lookup computes the same function through the same kernels either way.
+
+The sparse-row protocol of ``train/sparse_trainer.py``: ``sparse_tables``
+names the two tables (by parameter name), ``table_ids`` gives a batch's ids
+into each, and ``apply_rows`` computes the logits from the gathered rows, so
+a minibatch step is differentiated w.r.t. those rows and never forms a
+``[V, D]`` gradient. MF has no dense remainder.
 """
 
 from __future__ import annotations
@@ -87,3 +91,14 @@ class MatrixFactorization(nn.Module):
         """(P, Q) with scores == P @ Q^T -- feeds the fused score+mask+top-k
         kernel (ops/serving_topk.py) without materialising the [U, I] scores."""
         return self.user, self.item
+
+    # -- sparse-row protocol (train/sparse_trainer.py) ----------------------
+    sparse_tables = {"user": "user", "item": "item"}
+
+    def table_ids(self, batch) -> Dict[str, torch.Tensor]:
+        users, items = batch
+        return {"user": users, "item": items}
+
+    def apply_rows(self, dense: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor],
+                   batch) -> torch.Tensor:
+        return torch.sum(rows["user"] * rows["item"], dim=-1)

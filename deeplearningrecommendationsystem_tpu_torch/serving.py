@@ -2,7 +2,9 @@
 
 The JAX package's ``serving.py::Recommender`` on PyTorch: score the catalog
 once (or per refresh), then answer per-user top-K queries, with seen-item
-exclusion. ``ShardedRecommender`` and checkpoint loading are not ported yet.
+exclusion; ``Recommender.from_checkpoint`` serves the params of a
+``runtime/checkpoint.py`` checkpoint. ``ShardedRecommender`` is not ported yet
+(``ROADMAP.md`` §1 item 13).
 """
 
 from __future__ import annotations
@@ -49,6 +51,21 @@ class Recommender:
         )
         self.use_pallas = use_pallas
         self._scores: Optional[torch.Tensor] = None
+
+    @classmethod
+    def from_checkpoint(cls, model: nn.Module, checkpoint_dir: str, ctx: ServingContext,
+                        seen=None, device: str | torch.device = "cuda") -> "Recommender":
+        """Load the latest checkpoint's ``state["params"]`` into ``model`` (its
+        names and shapes checked against the model's), then serve it."""
+        from deeplearningrecommendationsystem_tpu_torch.runtime.checkpoint import (
+            CheckpointManager,
+        )
+
+        mgr = CheckpointManager(checkpoint_dir)
+        state = mgr.restore(template={"params": model.state_dict()}, device=device)
+        mgr.close()
+        model.load_state_dict(state["params"])
+        return cls(model, ctx, seen, device=device)
 
     @torch.no_grad()
     def refresh(self) -> None:

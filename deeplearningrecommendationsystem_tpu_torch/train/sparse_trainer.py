@@ -1,0 +1,182 @@
+"""Minibatch training with row-sparse embedding updates.
+
+The JAX package's ``train/sparse_trainer.py`` on PyTorch, on one device:
+
+* the model's ``sparse_tables`` (vocabulary-height parameters, by name) are
+  popped out of its parameters;
+* each minibatch gathers only its rows, through ``ops/embedding.py::
+  gather_rows`` (the gather kernel on the card) under ``no_grad``; those rows
+  are the autograd leaves, so the loss is differentiated w.r.t. the gathered
+  rows and no ``[V, D]`` gradient exists;
+* ``train/sparse.py``'s lazy Adam or row-wise AdaGrad then updates the touched
+  rows in place;
+* the rest (MLPs, small field tables) trains with the dense Adam of
+  ``train/optim.py``, as in the full-batch Trainer (a model with no dense
+  remainder, MF, has no dense optimizer).
+
+The sparse step ignores ``compute_dtype``, as the JAX one does: the model's
+``apply_rows`` runs on the float32 rows and params. The model's parameters are
+trained in place; ``history["train_loss"]`` [epochs] holds each epoch's mean
+step loss, kept on the device until the end.
+
+``fit_minibatch_sparse`` draws each epoch's order as ``train/minibatch.py``
+does (``epoch_order``, on the host); ``fit_stream_sparse`` streams the host
+arrays through ``data/stream.py`` in the JAX package's NumPy order.
+
+Row-sharded tables (``mesh`` with a model axis > 1) are not ported yet
+(``ROADMAP.md`` §1 item 13) and raise; the JAX ``ep_strategy`` and ``unshard``
+arguments, which only mean something on such a mesh, come with it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
+
+import torch
+
+from deeplearningrecommendationsystem_tpu_torch.data.stream import StreamingLoader
+from deeplearningrecommendationsystem_tpu_torch.ops.embedding import gather_rows
+from deeplearningrecommendationsystem_tpu_torch.train import minibatch as _minibatch
+from deeplearningrecommendationsystem_tpu_torch.train.optim import torch_adam
+from deeplearningrecommendationsystem_tpu_torch.train.sparse import (
+    LazyAdamState,
+    RowwiseAdagradState,
+    sparse_table_update,
+)
+from deeplearningrecommendationsystem_tpu_torch.train.trainer import (
+    Trainer,
+    TrainResult,
+    _bce_with_logits,
+    _to_device,
+)
+
+
+def pop_tables(params: Mapping[str, torch.Tensor], paths: Mapping[str, str]):
+    """Split ``params`` (name -> tensor) into (dense remainder, {table: tensor})
+    by the tables' parameter names; ``params`` itself is not changed."""
+    dense = dict(params)
+    return dense, {name: dense.pop(path) for name, path in paths.items()}
+
+
+def merge_tables(params: Mapping[str, torch.Tensor], paths: Mapping[str, str],
+                 tables: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`pop_tables`."""
+    out = dict(params)
+    out.update({path: tables[name] for name, path in paths.items()})
+    return out
+
+
+def _check(trainer: Trainer, mesh) -> None:
+    if not hasattr(trainer.model, "sparse_tables"):
+        raise TypeError(
+            f"{type(trainer.model).__name__} does not implement the sparse-table protocol")
+    if mesh is not None and dict(getattr(mesh, "shape", {})).get("model", 1) > 1:
+        raise NotImplementedError(
+            "row-sharded (EP) tables are not ported yet; see ROADMAP.md §1 item 13")
+
+
+class _SparseRun:
+    """The model's tables (its parameters' storage, updated in place), their
+    row-optimizer states and the dense remainder's Adam."""
+
+    def __init__(self, trainer: Trainer, optimizer: str, params: Optional[dict]):
+        model = trainer.model
+        trainer._load(params, None)
+        named = dict(model.named_parameters())
+        self.model, self.lr = model, trainer.config.learning_rate
+        self.dense, tables = pop_tables(named, model.sparse_tables)
+        self.tables = {k: t.detach() for k, t in tables.items()}
+        dev = trainer.device
+        if optimizer == "lazy_adam":
+            self.states = {k: LazyAdamState.init(t.shape[0], t.shape[1], device=dev)
+                           for k, t in self.tables.items()}
+        elif optimizer == "rowwise_adagrad":
+            self.states = {k: RowwiseAdagradState.init(t.shape[0], device=dev)
+                           for k, t in self.tables.items()}
+        else:
+            raise ValueError(optimizer)
+        self.dense_opt = (torch_adam(self.dense.values(), self.lr, trainer.config.weight_decay)
+                          if self.dense else None)
+
+    def step(self, b, y) -> torch.Tensor:
+        ids = self.model.table_ids(b)
+        with torch.no_grad():
+            rows = {k: gather_rows(t, ids[k]) for k, t in self.tables.items()}
+        for r in rows.values():
+            r.requires_grad_(True)
+        if self.dense_opt is not None:
+            self.dense_opt.zero_grad(set_to_none=True)
+        loss = _bce_with_logits(self.model.apply_rows(self.dense, rows, b), y)
+        loss.backward()
+        if self.dense_opt is not None:
+            self.dense_opt.step()
+        with torch.no_grad():
+            for k, table in self.tables.items():
+                sparse_table_update(table, self.states[k], ids[k], rows[k].grad, self.lr)
+        return loss.detach()
+
+    def result(self, epoch_losses: Iterable[torch.Tensor]) -> TrainResult:
+        params = {k: v.detach().clone() for k, v in self.model.named_parameters()}
+        dense_state = {}
+        if self.dense_opt is not None:
+            for name, p in self.dense.items():
+                dense_state[name] = {k: v.detach().clone()
+                                     for k, v in self.dense_opt.state[p].items()}
+        return TrainResult(params=params, history={"train_loss": torch.stack(list(epoch_losses))},
+                           opt_state={"dense": dense_state, "sparse": self.states})
+
+
+def fit_minibatch_sparse(
+    trainer: Trainer,
+    rng,
+    train: Tuple[Any, torch.Tensor],
+    batch_size: int,
+    optimizer: str = "lazy_adam",  # 'lazy_adam' | 'rowwise_adagrad'
+    mesh: Any = None,
+    params: Any = None,
+) -> TrainResult:
+    """Shuffled minibatch epochs with sparse row updates on the id tables.
+
+    The model implements the sparse protocol (``sparse_tables``,
+    ``table_ids``, ``apply_rows``: see ``models/mf.py``). ``rng`` seeds the
+    host order (``train/minibatch.py::epoch_order``); ``params`` resumes the
+    weights."""
+    _check(trainer, mesh)
+    batch, labels = _to_device(train, trainer.device)
+    run = _SparseRun(trainer, optimizer, params)
+    order = _minibatch.epoch_order(rng, labels.shape[0], trainer.config.epochs, batch_size)
+    epoch_losses = []
+    for perm in order.to(trainer.device):
+        losses = [run.step(_minibatch.take_rows(batch, idx), labels[idx]) for idx in perm]
+        epoch_losses.append(torch.stack(losses).mean())
+    return run.result(epoch_losses)
+
+
+def fit_stream_sparse(
+    trainer: Trainer,
+    rng,
+    train: Tuple[Any, Any],  # tree of HOST NumPy arrays, equal leading dim
+    batch_size: int,
+    optimizer: str = "lazy_adam",
+    mesh: Any = None,
+    params: Any = None,
+    prefetch: int = 2,
+    seed: int = 0,
+) -> TrainResult:
+    """Row-sparse minibatch training fed by the host-streaming loader: the
+    dataset stays in host memory (shuffled there with ``seed``) while the
+    tables update row-sparsely. The same step as :func:`fit_minibatch_sparse`;
+    only the batch source differs. ``rng`` is the JAX signature's
+    initialisation key: the model already holds its weights."""
+    del rng
+    _check(trainer, mesh)
+    loader = StreamingLoader(train, batch_size, seed=seed, prefetch=prefetch,
+                             device=trainer.device)
+    if len(loader) == 0:
+        raise ValueError(f"batch_size {batch_size} larger than the dataset ({loader.n} rows)")
+    run = _SparseRun(trainer, optimizer, params)
+    epoch_losses = []
+    for _ in range(trainer.config.epochs):
+        losses = [run.step(b, y) for b, y in loader.epoch()]
+        epoch_losses.append(torch.stack(losses).mean())
+    return run.result(epoch_losses)

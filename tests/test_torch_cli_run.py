@@ -1,7 +1,8 @@
 """The port's ``cli/run.py``, as ``tests/test_cli.py`` drives the JAX one, on
 a small synthetic ml-100k-format dataset (60 users, 300 items) on the CPU:
 ``--list``; a one-epoch ``--json`` run of every preset; bf16 with ``--plot``;
-the flags of modes not ported yet; ``--plot`` without matplotlib; and
+the minibatch, stream and sparse training modes; ``--mesh``, not ported yet;
+``--plot`` without matplotlib; and
 ``runtime/logging.py::print_report``'s text against the JAX package's for
 the same result.
 """
@@ -110,13 +111,40 @@ def test_plot_without_matplotlib_fails_before_training(data_dir, tmp_path, monke
               "--plot", str(tmp_path / "x.png")])
 
 
-@pytest.mark.parametrize("flags, item", [(["--train-mode", "sparse"], "item 11"),
-                                         (["--train-mode", "minibatch"], "item 11"),
+@pytest.mark.parametrize("flags, item", [(["--train-mode", "sparse", "--mesh", "1,2"], "item 13"),
+                                         (["--train-mode", "minibatch", "--mesh", "1,2"],
+                                          "item 13"),
                                          (["--mesh", "1,2"], "item 13")],
                          ids=["sparse", "minibatch", "mesh"])
 def test_unported_flags_exit_naming_their_item(data_dir, flags, item):
+    """Every training mode runs (``test_train_modes``); ``--mesh``, in any
+    mode, exits naming its item."""
     with pytest.raises(SystemExit, match=f"ROADMAP.md §1 {item}"):
         main(["--model", "mf", "--epochs", "1", "--device", "cpu", "--data", data_dir] + flags)
+
+
+@pytest.mark.parametrize("model, flags", [
+    ("mf", ["--train-mode", "sparse"]),
+    ("mf", ["--train-mode", "sparse", "--sparse-optimizer", "rowwise_adagrad"]),
+    ("deepfm", ["--train-mode", "sparse"]),
+    ("mf", ["--train-mode", "minibatch"]),
+    ("din", ["--train-mode", "minibatch"]),
+    ("deepfm", ["--train-mode", "stream"]),
+], ids=["mf_sparse", "mf_sparse_adagrad", "deepfm_sparse", "mf_minibatch", "din_minibatch",
+        "deepfm_stream"])
+def test_train_modes(data_dir, model, flags, capsys):
+    """The minibatch modes through the CLI: the JSON summary's final metrics
+    are the last epoch's train loss alone, the ranking is there, and the text
+    report prints the other metrics as nan, as the JAX report does."""
+    argv = ["--model", model, "--epochs", "2", "--device", "cpu", "--data", data_dir,
+            "--batch-size", "1024"] + flags
+    assert main(argv + ["--json"]) == 0
+    payload = _last_json(capsys)
+    assert set(payload["final"]) == {"train_loss"} and np.isfinite(payload["final"]["train_loss"])
+    assert set(payload["ranking"]) == {"valid", "valid@10", "test", "test@10"}
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "- Training Loss: " in out and "- Valid Loss: nan" in out and "Test ranking" in out
 
 
 def test_model_is_required():
@@ -148,3 +176,17 @@ def test_print_report_text_equals_jax(k, stride):
         outs.append(buf.getvalue())
     assert outs[0] == outs[1]
     assert f"Precision@{k}" in outs[0] and "87900 examples x 4 epochs in 1.25s" in outs[0]
+
+
+def test_print_report_of_a_minibatch_history_equals_jax():
+    """A minibatch mode's history holds only ``train_loss``: the other
+    metrics print as nan, as in the JAX report."""
+    res = _result()
+    res.history = {"train_loss": res.history["train_loss"]}
+    outs = []
+    for fn in (print_report, jax_print_report):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn(res, k=50)
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] and "- Valid Loss: nan" in outs[0]

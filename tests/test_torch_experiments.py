@@ -1,6 +1,7 @@
 """MF, the feature family, DIEN, NeuralCF and both AutoRecs end to end:
 ``run_experiment`` in both packages on small synthetic ml-100k-format
-datasets, and the port's ``cli/serve.py`` on the CPU.
+datasets, in full-batch mode and, for MF and DeepFM, in the minibatch,
+stream and sparse training modes, and the port's ``cli/serve.py`` on the CPU.
 
 Both runs are made to start from the same numbers: the port's
 ``NegativeSampler`` and ``build_model`` are replaced by ones that hand it the
@@ -26,6 +27,7 @@ near 100).
 
 import argparse
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -48,7 +50,9 @@ from deeplearningrecommendationsystem_tpu_torch.data import MovieLens100K, write
 from deeplearningrecommendationsystem_tpu_torch.models import MatrixFactorization
 from deeplearningrecommendationsystem_tpu_torch.ops.serving_topk import topk_serve_matmul_plain
 from deeplearningrecommendationsystem_tpu_torch.serving import Recommender
+from deeplearningrecommendationsystem_tpu_torch.train import minibatch
 from deeplearningrecommendationsystem_tpu_torch.weights import params_from_jax
+from jax_order import jax_order
 
 U, I, R, EPOCHS = 60, 150, 3000, 3
 THRESHOLDED = ("accuracy", "precision", "recall", "f1", "auc")
@@ -70,9 +74,9 @@ class _JaxDraws:
         return {k: np.array(v) for k, v in self._inner.sample(n).items()}
 
 
-def _jax_init_model(cfg, data, generator=None):
-    params = JaxMF(data.num_users, data.num_items, **cfg.model_kwargs).init(
-        jax.random.PRNGKey(cfg.seed))
+def _jax_init_model(cfg, data, generator=None, key=None):
+    key = jax.random.PRNGKey(cfg.seed) if key is None else key
+    params = JaxMF(data.num_users, data.num_items, **cfg.model_kwargs).init(key)
     model = MatrixFactorization(data.num_users, data.num_items, **cfg.model_kwargs, device="cpu")
     return params_from_jax(model, {k: np.array(v) for k, v in params.items()})
 
@@ -172,10 +176,11 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _jax_init_feature_model(cfg, data, generator=None):
+def _jax_init_feature_model(cfg, data, generator=None, key=None):
+    key = jax.random.PRNGKey(cfg.seed) if key is None else key
     jax_model = getattr(jax_models, JAX_FEATURE_MODELS[cfg.model])(
         JaxSpec(**dataclasses.asdict(data.spec)), **cfg.model_kwargs)
-    params = jax.tree.map(np.asarray, jax_model.init(jax.random.PRNGKey(cfg.seed)))
+    params = jax.tree.map(np.asarray, jax_model.init(key))
     return params_from_jax(_build_model(cfg, data), params)
 
 
@@ -237,12 +242,69 @@ def test_other_presets_name_their_roadmap_item(dataset_dir):
 
 
 @pytest.mark.parametrize("over", [{"train_mode": "minibatch"}, {"train_mode": "sparse"},
-                                  {"train_mode": "stream"}, {"mesh_shape": (1, 2)}],
+                                  {"train_mode": "stream"}, {}],
                          ids=["minibatch", "sparse", "stream", "mesh"])
 def test_unported_modes_name_their_roadmap_item(dataset_dir, over):
+    """Every training mode is ported; a mesh, in any mode, still names its item."""
     pt = MovieLens100K(dataset_dir, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 1[13]"):
-        experiments.run_experiment(PRESETS["mf"].replace(epochs=1, **over), data=pt,
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13"):
+        experiments.run_experiment(PRESETS["mf"].replace(epochs=1, mesh_shape=(1, 2), **over),
+                                   data=pt, device="cpu")
+
+
+# ---- the training modes: MF in minibatch, stream and sparse mode (both row
+# optimizers) and a narrow DeepFM in sparse mode, against the JAX package's
+# run_experiment from the same weights and negatives, each epoch's order
+# replayed from the JAX run (the stream order is NumPy's in both)
+
+MODE_BATCH = 1024
+MODES = {
+    "minibatch": ("mf", {"train_mode": "minibatch"}),
+    "stream": ("mf", {"train_mode": "stream"}),
+    "sparse_lazy_adam": ("mf", {"train_mode": "sparse"}),
+    "sparse_rowwise_adagrad": ("mf", {"train_mode": "sparse",
+                                      "sparse_optimizer": "rowwise_adagrad"}),
+    "deepfm_sparse": ("deepfm", {"train_mode": "sparse", "model_kwargs": _TOWER}),
+}
+
+
+@pytest.mark.parametrize("case", list(MODES))
+def test_train_modes_match_jax(dataset_dir, feature_dir, monkeypatch, case):
+    name, over = MODES[case]
+    over = dict(over, epochs=2, batch_size=MODE_BATCH)
+    path = feature_dir if name == "deepfm" else dataset_dir
+    rng = jax.random.PRNGKey(0)  # the JAX run_experiment's, cfg.seed 0
+    # the JAX minibatch trainers draw the initial params from split(rng)[0]
+    # (fit_stream, as Trainer.fit, from rng itself)
+    init_key = rng if over["train_mode"] == "stream" else jax.random.split(rng)[0]
+    monkeypatch.setattr(experiments, "NegativeSampler", _JaxDraws)
+    monkeypatch.setattr(experiments, "build_model", functools.partial(
+        _jax_init_feature_model if name == "deepfm" else _jax_init_model, key=init_key))
+    monkeypatch.setattr(minibatch, "epoch_order", jax_order(rng))
+    jx = JaxMovieLens(path, seed=0, use_native=False)
+    want = jax_experiments.run_experiment(JAX_PRESETS[name].replace(**over), data=jx)
+    got = experiments.run_experiment(PRESETS[name].replace(**over), data=MovieLens100K(path, seed=0),
+                                     device="cpu")
+    assert set(got.history) == set(want.history) == {"train_loss"}
+    np.testing.assert_allclose(got.history["train_loss"], want.history["train_loss"], rtol=1e-5)
+    want_params = _flat(jax.tree.map(np.asarray, want.params))
+    assert got.params.keys() == want_params.keys()
+    for key, w in want_params.items():
+        np.testing.assert_allclose(got.params[key].numpy(), w, atol=5e-5, err_msg=key)
+    assert got.ranking.keys() == want.ranking.keys()
+    for split in want.ranking:
+        for m, w in want.ranking[split].items():
+            np.testing.assert_allclose(got.ranking[split][m], w, rtol=1e-6, err_msg=f"{split} {m}")
+    assert got.final_metrics().keys() == want.final_metrics().keys()
+
+
+def test_sparse_mode_needs_the_protocol(feature_dir):
+    pt = MovieLens100K(feature_dir, seed=0)
+    with pytest.raises(TypeError, match="sparse-table protocol"):
+        experiments.run_experiment(PRESETS["lr"].replace(epochs=1, train_mode="sparse"), data=pt,
+                                   device="cpu")
+    with pytest.raises(ValueError, match="unknown train_mode"):
+        experiments.run_experiment(PRESETS["mf"].replace(train_mode="online"), data=pt,
                                    device="cpu")
 
 
@@ -410,8 +472,12 @@ def test_build_server_trains_and_serves(dataset_dir):
 
 @pytest.mark.parametrize("flag", ["checkpoint", "mesh"])
 def test_build_server_unported_flags_exit(dataset_dir, flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        serve.build_server(_args(dataset_dir, **{flag: "x"}))
+    """``--mesh`` exits naming its item, alone or with ``--checkpoint`` (a
+    checkpoint served from row-sharded tables is item 13's too; a checkpoint
+    alone is served, ``tests/test_torch_checkpoint.py``)."""
+    flags = {"mesh": "1,2", **({"checkpoint": "x"} if flag == "checkpoint" else {})}
+    with pytest.raises(SystemExit, match="ROADMAP.md §1 item 13"):
+        serve.build_server(_args(dataset_dir, **flags))
 
 
 @pytest.mark.parametrize("name", ["lr", "afm", "deepfm"])

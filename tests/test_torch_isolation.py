@@ -16,6 +16,14 @@
 * DIEN and NeuralCF look every id up through the gather and onehot_grad
   wrappers, and DIEN takes no DIN head or pool wrapper; AutoRec looks
   nothing up.
+* The minibatch trainers look ids up through the gather and onehot_grad
+  wrappers; the sparse trainer gathers its table rows through the gather
+  wrapper and never forms a table gradient (no onehot_grad).
+* Classic CF (UserCF, ItemCF, GDCF) takes every top-k through the
+  ``topk_scores`` wrapper, never through ``stable_top_k`` or a library
+  top-k; on a CUDA tensor that is the kernel.
+* The streaming loader's pinned, side-stream copy delivers every batch whole
+  on the card (a CUDA test).
 
 This file imports neither JAX nor the JAX package, so its CUDA test also runs
 on a machine that has only the port (``-m cuda --noconftest``).
@@ -30,10 +38,15 @@ import numpy as np
 import pytest
 import torch
 
-from deeplearningrecommendationsystem_tpu_torch import experiments
+from deeplearningrecommendationsystem_tpu_torch import cf, experiments
+from deeplearningrecommendationsystem_tpu_torch.cli import cf as cf_cli
 from deeplearningrecommendationsystem_tpu_torch.cli import run as run_cli
 from deeplearningrecommendationsystem_tpu_torch.cli import serve
 from deeplearningrecommendationsystem_tpu_torch.configs import PRESETS
+from deeplearningrecommendationsystem_tpu_torch.data.stream import (
+    StreamingLoader,
+    prefetch_to_device,
+)
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
 from deeplearningrecommendationsystem_tpu_torch.features import FeatureSpec
 from deeplearningrecommendationsystem_tpu_torch.models import (
@@ -63,9 +76,19 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_g
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lr_epoch
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mf_epoch
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as cuda_topk
+from deeplearningrecommendationsystem_tpu_torch.runtime.checkpoint import CheckpointManager
 from deeplearningrecommendationsystem_tpu_torch.sampling import NegativeSampler
 from deeplearningrecommendationsystem_tpu_torch.serving import Recommender
-from deeplearningrecommendationsystem_tpu_torch.train import TrainConfig, Trainer
+from deeplearningrecommendationsystem_tpu_torch.train import (
+    LazyAdamState,
+    RowwiseAdagradState,
+    TrainConfig,
+    Trainer,
+    fit_minibatch,
+    fit_minibatch_sparse,
+    fit_stream,
+    fit_stream_sparse,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "deeplearningrecommendationsystem_tpu_torch"
@@ -118,7 +141,15 @@ def test_port_files_are_found():
             "deeplearningrecommendationsystem_tpu_torch/models/autorec.py",
             "deeplearningrecommendationsystem_tpu_torch/runtime/logging.py",
             "deeplearningrecommendationsystem_tpu_torch/runtime/plotting.py",
-            "deeplearningrecommendationsystem_tpu_torch/runtime/profiler.py"} <= names
+            "deeplearningrecommendationsystem_tpu_torch/runtime/profiler.py",
+            "deeplearningrecommendationsystem_tpu_torch/runtime/checkpoint.py",
+            "deeplearningrecommendationsystem_tpu_torch/data/stream.py",
+            "deeplearningrecommendationsystem_tpu_torch/train/minibatch.py",
+            "deeplearningrecommendationsystem_tpu_torch/train/sparse.py",
+            "deeplearningrecommendationsystem_tpu_torch/train/sparse_trainer.py",
+            "deeplearningrecommendationsystem_tpu_torch/cf/neighborhood.py",
+            "deeplearningrecommendationsystem_tpu_torch/cf/gdcf.py",
+            "deeplearningrecommendationsystem_tpu_torch/cli/cf.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -169,7 +200,40 @@ ENTRY_POINTS = {
     "build_server": lambda: serve.build_server(
         serve.parser().parse_args(["--model", "mf", "--data", "unused"])),
     "cli.run": lambda: run_cli.main(["--model", "mf", "--data", "unused"]),
+    "cli.cf": lambda: cf_cli.main(["usercf", "--data", "unused"]),
+    "user_cf_recommend": lambda: cf.user_cf_recommend(np.zeros((4, 6), np.float32)),
+    "item_cf_recommend": lambda: cf.item_cf_recommend(np.zeros((4, 6), np.float32)),
+    "gdcf_train": lambda: cf.gdcf_train(np.zeros((4, 6), np.float32)),
+    "CheckpointManager.restore": lambda: _checkpoint().restore(),
+    "Recommender.from_checkpoint": lambda: Recommender.from_checkpoint(
+        MatrixFactorization(4, 6, 8, device="cpu"), _checkpoint().directory, _ctx()),
+    "StreamingLoader": lambda: StreamingLoader(np.zeros(4), 2),
+    "prefetch_to_device": lambda: next(prefetch_to_device(iter([np.zeros(2)]))),
+    "fit_minibatch": lambda: fit_minibatch(_cpu_trainer_on_cuda(), 0, _pairs(), 2),
+    "fit_stream": lambda: fit_stream(_cpu_trainer_on_cuda(), 0, _pairs(np), 2),
+    "fit_minibatch_sparse": lambda: fit_minibatch_sparse(_cpu_trainer_on_cuda(), 0, _pairs(), 2),
+    "fit_stream_sparse": lambda: fit_stream_sparse(_cpu_trainer_on_cuda(), 0, _pairs(np), 2),
+    "LazyAdamState.init": lambda: LazyAdamState.init(6, 8),
+    "RowwiseAdagradState.init": lambda: RowwiseAdagradState.init(6),
 }
+
+
+def _checkpoint():
+    import tempfile
+
+    mgr = CheckpointManager(tempfile.mkdtemp())
+    mgr.save(1, {"user": torch.zeros(4, 8), "item": torch.zeros(6, 8)})
+    return mgr
+
+
+def _cpu_trainer_on_cuda():
+    """The Trainer as a trainer's caller builds it: on its default device."""
+    return Trainer(MatrixFactorization(4, 6, 8, device="cpu"), TrainConfig(epochs=1))
+
+
+def _pairs(lib=torch):
+    ids = lib.zeros(4, dtype=lib.int64)
+    return (ids, ids), lib.zeros(4, dtype=lib.float32)
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))
@@ -556,3 +620,133 @@ def test_neuralcf_and_autorec_lookups(monkeypatch):
     auto = AutoRec(6, 4, device="cpu")
     auto(torch.full((4, 6), 0.5)).sum().backward()
     assert seen == []
+
+
+# ---- the training modes and classic CF
+
+def _feature_batch(n=6):
+    x = torch.zeros((n, 45))
+    x[:, 0], x[:, 1], x[:, 2] = torch.arange(n) % 4, torch.arange(n) % 5, 0.5
+    return x, (torch.arange(n) % 2).float()
+
+
+@pytest.mark.parametrize("mode", ["minibatch", "stream"])
+def test_minibatch_lookups_go_through_the_kernel_pair(monkeypatch, mode):
+    """Each step's lookups take the gather wrapper and their gradients the
+    onehot_grad wrapper (MF: two tables a step)."""
+    seen = _lookups(monkeypatch)
+    trainer = Trainer(MatrixFactorization(4, 6, 8, device="cpu"), TrainConfig(epochs=2),
+                      device="cpu")
+    ids = torch.tensor([0, 3, 1, 2, 3, 0])
+    train = ((ids, ids % 6), torch.ones(6))
+    if mode == "minibatch":
+        fit_minibatch(trainer, 0, train, 3)
+    else:
+        fit_stream(trainer, 0, ((ids.numpy(), ids.numpy() % 6), np.ones(6, np.float32)), 3)
+    assert seen == ["fwd", "fwd", "bwd", "bwd"] * 4  # 2 epochs x 2 steps
+
+
+@pytest.mark.parametrize("model", ["mf", "deepfm"])
+@pytest.mark.parametrize("source", ["minibatch", "stream"])
+def test_sparse_trainer_gathers_rows_through_the_wrapper(monkeypatch, model, source):
+    """The table rows come through the gather wrapper (MF 2 tables, DeepFM 4)
+    and no table gradient is formed: no onehot_grad."""
+    seen = _lookups(monkeypatch)
+    if model == "mf":
+        net, tables = MatrixFactorization(4, 6, 8, device="cpu"), 2
+        ids = torch.tensor([0, 3, 1, 2, 3, 0])
+        train = ((ids, ids % 6), torch.ones(6))
+    else:
+        net, tables = DeepFM(FeatureSpec(num_users=4, num_items=5), (8, 4, 1), 8,
+                             device="cpu"), 4
+        train = _feature_batch()
+    trainer = Trainer(net, TrainConfig(epochs=2), device="cpu")
+    if source == "minibatch":
+        fit_minibatch_sparse(trainer, 0, train, 3)
+    else:
+        host = (tuple(t.numpy() for t in train[0]) if isinstance(train[0], tuple)
+                else train[0].numpy(), train[1].numpy())
+        fit_stream_sparse(trainer, 0, host, 3)
+    assert seen == ["fwd"] * tables * 4
+
+
+def _topk_calls(monkeypatch):
+    from deeplearningrecommendationsystem_tpu_torch.cf import gdcf, neighborhood
+
+    calls = []
+
+    def record(scores, seen, k=50):
+        calls.append((tuple(scores.shape), seen.clone(), k))
+        return topk.topk_scores_plain(scores, seen, k)
+
+    for module in (neighborhood, gdcf):
+        monkeypatch.setattr(module, "topk_scores", record)
+    return calls
+
+
+@pytest.mark.parametrize("algo", ["usercf", "itemcf"])
+def test_neighbourhood_cf_topk_goes_through_topk_scores(monkeypatch, algo):
+    """Two top-k: the neighbours' (the identity masked) and the
+    recommendations' (the rated items masked)."""
+    calls = _topk_calls(monkeypatch)
+    m = (np.random.default_rng(0).random((7, 9)) < 0.3).astype(np.float32)
+    fn = cf.user_cf_recommend if algo == "usercf" else cf.item_cf_recommend
+    rec = fn(m, k_neighbors=3, top_n=4, device="cpu")
+    n = 7 if algo == "usercf" else 9
+    assert [(c[0], c[2]) for c in calls] == [((n, n), 3), ((7, 9), 4)]
+    assert torch.equal(calls[0][1], torch.eye(n, dtype=torch.bool))
+    assert torch.equal(calls[1][1], torch.from_numpy(m > 0))
+    assert rec.shape == (7, 4)
+
+
+@pytest.mark.parametrize("exclude_rated", [False, True])
+def test_gdcf_topk_goes_through_topk_scores(monkeypatch, exclude_rated):
+    calls = _topk_calls(monkeypatch)
+    m = (np.random.default_rng(0).random((7, 9)) < 0.3).astype(np.float32)
+    cf.gdcf_train(m, embedding_size=4, iterations=3, top_k=5, exclude_rated=exclude_rated,
+                  device="cpu")
+    assert [(c[0], c[2]) for c in calls] == [((7, 9), 5)] * 3
+    want = torch.from_numpy(m > 0) if exclude_rated else torch.zeros((7, 9), dtype=torch.bool)
+    assert all(torch.equal(c[1], want) for c in calls)
+
+
+def test_cf_sources_take_no_other_top_k():
+    """No stable_top_k, sort or library top-k in the CF modules: on a CUDA
+    tensor every top-k is the topk_scores kernel (its wrapper's dispatch is
+    held above)."""
+    for name in ("neighborhood.py", "gdcf.py"):
+        tree = ast.parse((PACKAGE / "cf" / name).read_text())
+        called = {n.func.attr if isinstance(n.func, ast.Attribute) else getattr(n.func, "id", "")
+                  for n in ast.walk(tree) if isinstance(n, ast.Call)}
+        assert not called & {"stable_top_k", "topk", "sort", "argsort", "top_k"}, name
+        assert "topk_scores" in called
+
+
+@pytest.mark.cuda
+def test_pinned_prefetch_on_the_card(cuda):
+    """Every batch arrives whole and in order through the pinned side-stream
+    copy, with the consumer writing over what it was handed in between."""
+    rng = np.random.default_rng(1)
+    arrays = (rng.integers(0, 1000, 50_000), rng.random((50_000, 8)).astype(np.float32))
+    loader = StreamingLoader(arrays, 4096, seed=2, prefetch=3, device=cuda)
+    want = list(StreamingLoader(arrays, 4096, seed=2, device="cpu").epoch())
+    got = 0
+    for (gi, gx), (wi, wx) in zip(loader.epoch(), want):
+        assert gi.device.type == "cuda" and gx.is_contiguous()
+        torch.testing.assert_close(gi.cpu(), wi, rtol=0, atol=0)
+        torch.testing.assert_close(gx.cpu(), wx, rtol=0, atol=0)
+        gx.mul_(0.0)  # the consumer's stream writes on the batch it was handed
+        got += 1
+    torch.cuda.synchronize()
+    assert got == len(want) == 50_000 // 4096
+
+
+@pytest.mark.cuda
+def test_cf_launches_the_topk_kernel(cuda):
+    m = (np.random.default_rng(0).random((40, 60)) < 0.2).astype(np.float32)
+    before = cuda_topk.topk_scores.launches
+    rec = cf.user_cf_recommend(m, k_neighbors=5, top_n=10, device=cuda)
+    torch.cuda.synchronize()
+    assert cuda_topk.topk_scores.launches == before + 2
+    want = cf.user_cf_recommend(m, k_neighbors=5, top_n=10, device="cpu")
+    assert rec.shape == want.shape == (40, 10)

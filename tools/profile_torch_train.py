@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 tools/profile_torch_train.py [--model mf|lr|afm|din ...] [--epochs 20]
         [--compute-dtype bfloat16]
+    python3 tools/profile_torch_train.py --model mf deepfm --train-mode sparse --epochs 2
 
 On a synthetic ml-100k-format dataset at each preset's full width it runs,
 under ``torch.profiler`` (CPU and CUDA activity), after one warm-up run each:
@@ -16,6 +17,12 @@ under ``torch.profiler`` (CPU and CUDA activity), after one warm-up run each:
 * for MF, ``MatrixFactorization.fast_fit`` (the fused kernel), float32; for
   LR, ``LogisticRegression.fast_fit`` in its compact and wide modes. DIN
   has no fused trainer: its two runs go through the fused DIN head kernels.
+
+With ``--train-mode minibatch|stream|sparse`` it runs that mode's trainer
+instead, over ``--batch-size`` rows a step (the preset's 8,192 by default):
+``fit_minibatch``, ``fit_stream`` (the host arrays through the pinned
+prefetch), or ``fit_minibatch_sparse`` with lazy Adam and with row-wise
+AdaGrad (MF and DeepFM, the models with the sparse-row protocol).
 
 For each it prints one JSON line: the wall time of the call (host clock, after
 a synchronise) with and without the profiler, the summed device time of every
@@ -45,7 +52,13 @@ from deeplearningrecommendationsystem_tpu_torch.experiments import (  # noqa: E4
     build_model,
     split_batches,
 )
-from deeplearningrecommendationsystem_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
+from deeplearningrecommendationsystem_tpu_torch.train import (  # noqa: E402
+    TrainConfig,
+    Trainer,
+    fit_minibatch,
+    fit_minibatch_sparse,
+    fit_stream,
+)
 
 
 def device_us(event) -> float:
@@ -80,6 +93,31 @@ def profiled(name: str, fn, epochs: int) -> dict:
     }
 
 
+def mode_runs(name: str, ds: MovieLens100K, epochs: int, dev, mode: str, batch_size: int):
+    """(run name, rows, call) of the minibatch trainers of ``mode`` for ``name``."""
+    cfg = PRESETS[name].replace(epochs=epochs)
+    train = split_batches(cfg, ds, dev)["train"]
+    host = tuple(t.cpu().numpy() for t in train[0]) if isinstance(train[0], tuple) else (
+        train[0].cpu().numpy())
+    host = (host, train[1].cpu().numpy())
+
+    def trainer():
+        return Trainer(build_model(cfg, ds), TrainConfig(
+            learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay, epochs=epochs),
+            device=dev)
+
+    if mode == "minibatch":
+        out = [("fit_minibatch", lambda: fit_minibatch(trainer(), cfg.seed, train, batch_size))]
+    elif mode == "stream":
+        out = [("fit_stream", lambda: fit_stream(trainer(), cfg.seed, host, batch_size,
+                                                 seed=cfg.seed))]
+    else:
+        out = [(f"fit_minibatch_sparse {opt}", lambda opt=opt: fit_minibatch_sparse(
+            trainer(), cfg.seed, train, batch_size, optimizer=opt))
+            for opt in ("lazy_adam", "rowwise_adagrad")]
+    return [(run, int(train[1].shape[0]), fn) for run, fn in out]
+
+
 def runs(name: str, ds: MovieLens100K, epochs: int, dev, compute_dtype=None):
     """(run name, rows, call) of each run profiled for the preset ``name``."""
     cfg = PRESETS[name].replace(epochs=epochs)
@@ -109,11 +147,18 @@ def runs(name: str, ds: MovieLens100K, epochs: int, dev, compute_dtype=None):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", nargs="+", choices=["mf", "lr", "afm", "din"], default=["mf"])
+    ap.add_argument("--model", nargs="+", choices=["mf", "lr", "afm", "din", "deepfm"],
+                    default=["mf"])
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--compute-dtype", choices=["bfloat16"], default=None,
                     help="Trainer.fit's compute dtype (default: float32 throughout)")
+    ap.add_argument("--train-mode", choices=["minibatch", "stream", "sparse"],
+                    help="profile that mode's trainer instead of the full-batch runs")
+    ap.add_argument("--batch-size", type=int, default=PRESETS["mf"].batch_size,
+                    help="rows a step of --train-mode")
     args = ap.parse_args()
+    if args.train_mode is None and "deepfm" in args.model:
+        ap.error("deepfm is profiled in a --train-mode only")
     if not torch.cuda.is_available():
         print("profile_torch_train: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
@@ -122,7 +167,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ds = MovieLens100K(write_ml100k_format(tmp, seed=0), seed=0)
     for name in args.model:
-        for run, rows, fn in runs(name, ds, args.epochs, dev, args.compute_dtype):
+        todo = (mode_runs(name, ds, args.epochs, dev, args.train_mode, args.batch_size)
+                if args.train_mode else runs(name, ds, args.epochs, dev, args.compute_dtype))
+        for run, rows, fn in todo:
             print(json.dumps({"model": name, "compute_dtype": args.compute_dtype or "float32",
                               **profiled(run, fn, args.epochs), "rows": rows}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
