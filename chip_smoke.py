@@ -146,17 +146,48 @@ no result line.
 27. cli_run -- ``cli/run.py --model dien --epochs CLI_EPOCHS --json``,
    ``cli/run.py --model mf --train-mode sparse --epochs CLI_EPOCHS --json``
    and ``cli/cf.py usercf --json`` on the card, their JSON lines parsed, their
-   launches counted.
+   launches counted;
+28. mesh_nccl -- one rank over NCCL on the card (``runtime/distributed.py::
+   initialize``, ``make_mesh(1, 1)``): the collectives on CUDA tensors give
+   their input back bit for bit, and one epoch of MF through
+   ``run_experiment(mesh_shape=(1, 1))`` equals the run without a mesh bit
+   for bit in the train split's pre-update forward, and after the backward
+   (whose ``onehot_grad`` atomics vary the last bits run to run) within
+   MESH_LOSS_RTOL and MESH_PARAM_RTOL, its launches equal;
+29. mesh -- ranks spawned on the one card (``runtime/distributed.py::spawn``,
+   a deadline a spawn) over Gloo, because NCCL refuses two ranks on one GPU:
+   the runs of MESH_RUNS on 2 ranks and of MESH_RUNS_4 on 4 (MF and DeepFM
+   at the presets' widths, fullbatch on (1, 2) under psum and scatter, (2, 1)
+   and (2, 2); sparse MF on (1, 2)), each rank's losses within
+   MESH_LOSS_RTOL and params within MESH_PARAM_RTOL of the same run on one
+   rank on the card, every rank's launches of the four lookup and top-k
+   kernels counted exactly; the runs that keep their tables sharded then
+   serve the top MESH_TOPK of every user through ``ShardedRecommender``,
+   the lists equal to the dense ``Recommender``'s over the same params. One
+   JSON line a run: wall, ``train_time_s``, the bytes each rank moved
+   through Gloo (all staged through the host), the launches;
+30. scaling_model -- ``runtime/scaling_model.py::program_costs`` of one
+   DeepFM fullbatch step at the preset's width, ``predict_weak_scaling`` at
+   1, 2, 4 and 8 cards, the measured step beside it, the card's name and
+   power limit;
+31. native -- ``data/native.py`` builds the C++ parser with ``c++`` and
+   loads the fixture's files to the NumPy path's arrays; the native parser
+   must have run.
 
 The lookup pair's rows also cover the feature presets' widths (DeepFM's
 train-batch ids into user and item tables of D 128 and D 256, PNN's), DIEN's
 history and indirect rows (D 16, float32 and bf16), NeuralCF's tables
 (D 256) and the minibatch modes' first batch (DeepFM's 8,192 ids into its
-D 128 tables, MF's into its D 64 user table); the ``topk_scores`` rows also
-classic CF's top 20 of 943 x 1682 and UserCF's 10 neighbours of 943 x 943.
+D 128 tables, MF's into its D 64 user table) and the mesh phase's EP blocks
+(MF's and DeepFM's tables, block 2 of 2, on clamped ids with the cotangent of
+the ids the block does not own zeroed); the ``topk_scores`` rows also
+classic CF's top 20 of 943 x 1682 and UserCF's 10 neighbours of 943 x 943;
+both top-k kernels' rows also the EP blocks' (every user over block 2 of 2
+of the items with its seen mask, a block of 4 with vocab-pad columns, the
+merge of two blocks' candidates).
 
-Phases 4-27 are the main paths: each sets the launch counts to 0 just before
-it and reads them just after. The last line of stdout is
+Phases 4-31 are the main paths: each sets the launch counts to 0 just before
+it and reads them just after (the mesh phase on each rank, around each run). The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the line before that the ``kernels`` line.
 """
@@ -219,6 +250,8 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as 
 from deeplearningrecommendationsystem_tpu_torch.ops.attention import attention_pool
 from deeplearningrecommendationsystem_tpu_torch.ops.interactions import pairwise_products
 from deeplearningrecommendationsystem_tpu_torch.ops.linear import mlp, mlp_init
+from deeplearningrecommendationsystem_tpu_torch.parallel.embedding import padded_height
+from deeplearningrecommendationsystem_tpu_torch.parallel.serving import _seen_block
 from deeplearningrecommendationsystem_tpu_torch.runtime.checkpoint import CheckpointManager
 from deeplearningrecommendationsystem_tpu_torch.server import RecommenderServer
 from deeplearningrecommendationsystem_tpu_torch.serving import Recommender
@@ -306,6 +339,7 @@ LOOKUPS = {"afm": 4, "deepfm": 4, "widedeep": 4, "nfm": 4, "pnn": 2, "deepcross"
 # another order, cuBLAS against the CPU's)
 FEATURE_TILE_RTOL = 1e-5
 FEATURE_ROWS_SEED = 4  # the lookup pair's rows at the feature presets' widths draw from their own generator
+EP_ROWS_SEED = 7  # ... and the lookup pair's and top-k rows at the mesh phase's EP blocks
 PAIR_SEQ_ROWS_SEED = 5  # ... and at DIEN's and NeuralCF's
 # the DIN head and pool kernels against their plain versions: largest error
 # within this share of the tensor's largest |value| (float32 sums over D, the
@@ -612,9 +646,16 @@ def fewer_than_k(seen: torch.Tensor) -> torch.Tensor:
     return seen
 
 
-def check_topk(name: str, U: int, I: int, D: int, k: int, gen: torch.Generator) -> dict:
+def check_topk(name: str, U: int, I: int, D: int, k: int, gen: torch.Generator,
+               seen: torch.Tensor | None = None, label: str | None = None) -> dict:
+    """The kernel against its plain version on a random seen mask whose user 0
+    keeps fewer than k unseen items, or on ``seen`` as the main path gives it
+    (an EP block's, int8, its vocab-pad columns set)."""
     dev = DEVICE
-    seen = fewer_than_k(torch.rand((U, I), generator=gen, device=dev) < SEEN_DENSITY)
+    given = seen is not None
+    if not given:
+        seen = fewer_than_k(torch.rand((U, I), generator=gen, device=dev) < SEEN_DENSITY)
+    mask = seen != 0
     kernel, plain = getattr(topk, name), getattr(topk, f"{name}_plain")
     if name == "topk_serve_matmul":
         p_int = torch.randint(-3, 4, (U, D), generator=gen, device=dev).float()
@@ -622,23 +663,24 @@ def check_topk(name: str, U: int, I: int, D: int, k: int, gen: torch.Generator) 
         P = torch.randn((U, D), generator=gen, device=dev)
         Q = torch.randn((I, D), generator=gen, device=dev)
         int_args, args = (p_int, q_int, seen), (P, Q, seen)
-        masked = torch.where(seen, NEG_INF, P @ Q.T)
+        masked = torch.where(mask, NEG_INF, P @ Q.T)
 
         def library():
-            return torch.topk(torch.where(seen, NEG_INF, torch.matmul(P, Q.T)), k)
+            return torch.topk(torch.where(mask, NEG_INF, torch.matmul(P, Q.T)), k)
     else:
         s_int = torch.randint(-20, 21, (U, I), generator=gen, device=dev).float()
         S = torch.randn((U, I), generator=gen, device=dev)
         int_args, args = (s_int, seen), (S, seen)
-        masked = torch.where(seen, NEG_INF, S)
+        masked = torch.where(mask, NEG_INF, S)
 
         def library():
-            return torch.topk(torch.where(seen, NEG_INF, S), k)
+            return torch.topk(torch.where(mask, NEG_INF, S), k)
 
     got_int = kernel(*int_args, k=k)
     check_exact(name, got_int, plain(*int_args, k=k))
     lowest_seen = [i for i in range(k + 1) if i != 5][: k - 3]
-    if got_int[1][0, 3:].tolist() != lowest_seen or got_int[0][0, 3].item() > NEG_INF / 2:
+    if not given and (got_int[1][0, 3:].tolist() != lowest_seen
+                      or got_int[0][0, 3].item() > NEG_INF / 2):
         raise AssertionError(f"{name}: the masked slots of user 0 are not its lowest seen ids")
     got = kernel(*args, k=k)
     torch.cuda.synchronize()
@@ -646,8 +688,9 @@ def check_topk(name: str, U: int, I: int, D: int, k: int, gen: torch.Generator) 
     t_bound, bound_by = topk_bound(name, U, I, D, k)
     launcher = getattr(cuda_topk, name)
     row = {
-        "shape": {"users": U, "items": I, "dim": D, "k": k} if name == "topk_serve_matmul"
-        else {"users": U, "items": I, "k": k},
+        "shape": {"users": U, "items": I, "dim": D, "k": k,
+                  **({"seen": label} if label else {})} if name == "topk_serve_matmul"
+        else {"users": U, "items": I, "k": k, **({"seen": label} if label else {})},
         "exact_on_integer_inputs": True,
         "max_abs_err": err,
         **lookup_times(lambda: kernel(*args, k=k), lambda: plain(*args, k=k), library,
@@ -735,14 +778,17 @@ def check_sum_order(name: str, got: torch.Tensor, ids: torch.Tensor, g: torch.Te
 
 
 def check_grad(table_name: str, ids: torch.Tensor, V: int, D: int, dtype,
-               gen: torch.Generator) -> dict:
+               gen: torch.Generator, owned: torch.Tensor | None = None) -> dict:
     """onehot_grad against its plain version: exact on integer cotangents;
-    on normal ones both within the float32 summation bound of the exact sums."""
+    on normal ones both within the float32 summation bound of the exact sums.
+    ``owned`` [N] zeroes the cotangent rows of the ids an EP block does not
+    own, as ``parallel/embedding.py`` hands them to the kernel."""
     N = ids.shape[0]
-    g_int = torch.randint(-8, 9, (N, D), generator=gen, device=DEVICE).to(dtype)
+    keep = (torch.ones(N, device=DEVICE) if owned is None else owned.float())[:, None].to(dtype)
+    g_int = torch.randint(-8, 9, (N, D), generator=gen, device=DEVICE).to(dtype) * keep
     if not torch.equal(gat.onehot_grad(ids, g_int, V), gat.onehot_grad_plain(ids, g_int, V)):
         raise AssertionError(f"onehot_grad ({table_name}): kernel != plain on integer cotangents")
-    g = torch.randn((N, D), generator=gen, device=DEVICE).to(dtype)
+    g = torch.randn((N, D), generator=gen, device=DEVICE).to(dtype) * keep
     got, want = gat.onehot_grad(ids, g, V), gat.onehot_grad_plain(ids, g, V)
     check_sum_order(f"onehot_grad ({table_name})", got, ids, g, V)
     check_sum_order(f"onehot_grad_plain ({table_name})", want, ids, g, V)
@@ -762,6 +808,50 @@ def check_grad(table_name: str, ids: torch.Tensor, V: int, D: int, dtype,
                        lambda: cuda_gather.onehot_grad(ids, g, V)),
         "bound_ms": t_bound, "bound_by": bound_by,
     }
+
+
+def check_ep_blocks(ds: MovieLens100K, ids_by_model: dict, rows: dict) -> None:
+    """The lookup pair's and both top-k kernels' rows at the mesh phase's EP
+    blocks, appended to ``rows``: block 2 of 2 of MF's (D 64) and DeepFM's
+    (D 128) user and item tables on their train ids, clamped into the block,
+    the cotangent rows of the ids it does not own zeroed
+    (``parallel/embedding.py::_owned_rows``); MF's sharded top-k
+    (``parallel/serving.py::sharded_topk``: the block's fused top-k of every
+    user over 841 items with the block's seen mask, then the merge of 2 x
+    MESH_TOPK candidates) and DeepFM's block top-k of its block scores
+    (``sharded_feature_topk``); and a block with vocab-pad columns (block 4
+    of 4: 2 of 421 columns past 1682) marked seen."""
+    gen = torch.Generator(device=DEVICE).manual_seed(EP_ROWS_SEED)
+    m = 2
+    for model_name, (D, user_ids, item_ids) in ids_by_model.items():
+        for field, V, ids in (("user", ds.num_users, user_ids), ("item", ds.num_items, item_ids)):
+            block_rows = padded_height(V, m) // m
+            local = ids.long() - (m - 1) * block_rows
+            owned = (local >= 0) & (local < block_rows)
+            local = local.clamp(0, block_rows - 1).contiguous()
+            tname = f"{model_name} {field} EP block {m} of {m}"
+            table = torch.randn((block_rows, D), generator=gen, device=DEVICE)
+            rows["gather_rows"].append(check_gather(tname, table, local))
+            emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
+            rows["onehot_grad"].append(check_grad(tname, local, block_rows, D, torch.float32, gen,
+                                                  owned=owned))
+            emit({"phase": "kernel_check", "kernel": "onehot_grad", **rows["onehot_grad"][-1]})
+    seen = torch.as_tensor(ds.seen_mask(ds.train, ds.valid, ds.test), device=DEVICE)
+    for blocks, name, D in ((m, "topk_serve_matmul", EMBEDDING_DIM), (m, "topk_scores", 0),
+                            (4, "topk_serve_matmul", EMBEDDING_DIM)):
+        block_rows = padded_height(ds.num_items, blocks) // blocks
+        blk = _seen_block(seen, ds.num_users, (blocks - 1) * block_rows, block_rows,
+                          ds.num_items, DEVICE)
+        label = (f"EP block {blocks} of {blocks}, "
+                 f"{block_rows * blocks - ds.num_items} vocab-pad columns marked")
+        rows[name].append(check_topk(name, ds.num_users, block_rows, D, MESH_TOPK, gen,
+                                     seen=blk, label=label))
+        emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
+    no_seen = torch.zeros((ds.num_users, m * MESH_TOPK), dtype=torch.int8, device=DEVICE)
+    rows["topk_scores"].append(check_topk("topk_scores", ds.num_users, m * MESH_TOPK, 0,
+                                          MESH_TOPK, gen, seen=no_seen,
+                                          label=f"merge of {m} EP blocks' candidates"))
+    emit({"phase": "kernel_check", "kernel": "topk_scores", **rows["topk_scores"][-1]})
 
 
 def mf_epoch_bound(B: int, U: int, I: int, D: int, epochs: int):
@@ -2903,6 +2993,363 @@ def run_cli(ds: MovieLens100K, data_dir: str) -> dict:
 
 # ---------------------------------------------------------------- main
 
+
+# ---------------------------------------------------------------- phases 28-31
+
+MESH_EPOCHS = 2  # the fullbatch mesh runs' epochs (each rank trains the full model)
+MESH_TOPK = 50
+MESH_DEADLINE_S = 420.0  # one spawn's deadline: past it every rank is killed and the phase fails
+MESH_LOSS_RTOL = 1e-6
+MESH_PARAM_RTOL = 1e-5  # of each tensor's largest magnitude: the data axis reorders sums
+SPARSE_BATCH = 8192
+# (label, preset, mesh, strategy, unshard, mode): the runs of the 2-rank spawn,
+# then the 4-rank one's
+MESH_RUNS = (("mf_1x2", "mf", (1, 2), "psum", True, "fullbatch"),
+             ("deepfm_1x2", "deepfm", (1, 2), "psum", False, "fullbatch"),
+             ("deepfm_1x2_scatter", "deepfm", (1, 2), "scatter", True, "fullbatch"),
+             ("deepfm_2x1", "deepfm", (2, 1), "psum", True, "fullbatch"),
+             ("mf_sparse_1x2", "mf", (1, 2), "psum", False, "sparse"))
+MESH_RUNS_4 = (("deepfm_2x2", "deepfm", (2, 2), "psum", True, "fullbatch"),)
+COUNTED = ("gather_rows", "onehot_grad", "topk_serve_matmul", "topk_scores")
+
+
+def mesh_cfg(preset: str, mode: str, **over):
+    cfg = PRESETS[preset].replace(track_metrics=False, train_mode=mode, **over)
+    if mode == "sparse":
+        return cfg.replace(epochs=1, batch_size=SPARSE_BATCH, sparse_optimizer="lazy_adam")
+    return cfg.replace(epochs=MESH_EPOCHS)
+
+
+def same_bits(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: not the same bits")
+
+
+def cpu_tree(tree: dict) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+def counted() -> dict:
+    counts = launches()
+    return {name: counts[name] for name in COUNTED}
+
+
+def run_mesh_nccl(ds: MovieLens100K) -> dict:
+    """One rank over NCCL on the card: the collectives on CUDA tensors (the
+    transport itself, then the public functions of a one-rank group, which
+    move nothing), and one epoch of MF through ``run_experiment(mesh_shape=(1,
+    1))`` held to the run without a mesh (``hold_repeat``: bit for bit before
+    the first backward), its launches equal."""
+    from deeplearningrecommendationsystem_tpu_torch.parallel import collectives, make_mesh
+    from deeplearningrecommendationsystem_tpu_torch.parallel.mesh import MODEL_AXIS, axis_group
+    from deeplearningrecommendationsystem_tpu_torch.runtime import distributed
+
+    store = tempfile.mkdtemp(prefix="nccl_store_")
+    distributed.initialize(init_method=f"file://{store}/store", world_size=1, rank=0,
+                           backend="nccl")
+    try:
+        mesh = make_mesh(1, 1)
+        group = axis_group(mesh, MODEL_AXIS)
+        x = torch.randn((1024, 64), device=DEVICE)
+        ops = {"sum": collectives._all_reduce, "all_gather": torch.distributed.all_gather_into_tensor,
+               "reduce_scatter": torch.distributed.reduce_scatter_tensor}
+        collectives.reset_stats()
+        for name, op in ops.items():
+            same_bits(f"mesh_nccl {name}", collectives._collective(op, x.shape, x, group), x)
+        for name, fn in (("sum_over", collectives.sum_over),
+                         ("all_gather_tiled", collectives.all_gather_tiled),
+                         ("reduce_scatter_tiled", collectives.reduce_scatter_tiled)):
+            same_bits(f"mesh_nccl {name}", fn(x, group), x)
+        stats = dict(collectives.STATS)
+        if stats["staged_bytes"] or stats["calls"] != 3:
+            raise AssertionError(f"mesh_nccl: NCCL staged or skipped a call: {stats}")
+        cfg = PRESETS["mf"].replace(epochs=1)
+        reset_launches()
+        plain = run_experiment(cfg, data=ds, device=DEVICE)
+        plain_counts = counted()
+        again = run_experiment(cfg, data=ds, device=DEVICE)
+        reset_launches()  # the main path's run starts here
+        meshed = run_experiment(cfg.replace(mesh_shape=(1, 1)), data=ds, device=DEVICE)
+        counts = launches()  # ... and ends here
+        check_counts("mesh_nccl", counts, plain_counts)
+        held = hold_repeat("mesh_nccl", meshed, plain, again)
+        return {"phase": "mesh_nccl", "transport": dict(stats), "launches": counts,
+                "train_loss": meshed.history["train_loss"].tolist(), **held,
+                "nvidia_smi": card_line()}
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def hold_repeat(phase: str, got, want, again) -> dict:
+    """``got`` against the run ``want`` (``again`` is ``want``'s call repeated,
+    whose gap to it is the run's own spread): the train split's first history
+    entry of every metric, the pre-update forward, which runs before any
+    backward, the same bits; everything after a backward within
+    MESH_LOSS_RTOL (the history) and MESH_PARAM_RTOL (params and the
+    checksum, a sum of both signs), since ``onehot_grad`` sums with atomics
+    and a backward's last bits vary run to run on the card (two runs that
+    happen to agree say nothing of a third)."""
+    same, spread, worst = 0, 0.0, 0.0
+    pairs = [(f"history {k}", got.history[k], v, again.history[k]) for k, v in want.history.items()]
+    pairs += [(f"param {k}", got.params[k].cpu().numpy(), v.cpu().numpy(),
+               again.params[k].cpu().numpy()) for k, v in want.params.items()]
+    for name, g, w, a in pairs:
+        g, w, a = np.asarray(g), np.asarray(w), np.asarray(a)
+        if name.startswith("history train_") and not np.array_equal(g[:1], w[:1]):
+            raise AssertionError(f"{phase}: {name}'s pre-update entry differs")
+        # a history entry relative to itself, a param to its largest magnitude;
+        # the checksum as a param
+        loss = name.startswith("history") and not name.endswith("_param_checksum")
+        scale = np.abs(w) if name.startswith("history") else max(float(np.max(np.abs(w))), 1e-30)
+        tol = MESH_LOSS_RTOL if loss else MESH_PARAM_RTOL
+        err = float(np.max(np.abs(g - w) / np.maximum(scale, 1e-30)))
+        spread = max(spread, float(np.max(np.abs(a - w) / np.maximum(scale, 1e-30))))
+        if err > tol:
+            raise AssertionError(f"{phase}: {name} off by {err} (the run's own spread {spread})")
+        same += int(np.array_equal(g, w))
+        worst = max(worst, err)
+    return {"same_bits": same, "compared": len(pairs), "max_rel_diff": worst,
+            "repeat_spread": spread}
+
+
+def mesh_rank(rank: int, world: int, data_dir: str, runs) -> dict:
+    """One Gloo rank on the card: each run of ``runs`` through
+    ``run_experiment`` on its mesh, its lookups counted and its bytes through
+    Gloo; the runs that keep their tables sharded then serve the top
+    MESH_TOPK of every user through ``ShardedRecommender``, held here against
+    the dense ``Recommender`` over the same params (the blocks gathered)."""
+    from deeplearningrecommendationsystem_tpu_torch.parallel import collectives, make_mesh
+    from deeplearningrecommendationsystem_tpu_torch.parallel.ep import unshard_model_tables
+    from deeplearningrecommendationsystem_tpu_torch.serving import ShardedRecommender
+
+    torch.cuda.set_device(0)
+    ds = MovieLens100K(data_dir, seed=0)
+    seen = ds.seen_mask(ds.train, ds.valid, ds.test)
+    out = {}
+    for label, preset, axes, strategy, unshard, mode in runs:
+        cfg = mesh_cfg(preset, mode, mesh_shape=axes, ep_strategy=strategy,
+                       unshard_params=unshard)
+        collectives.reset_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_experiment(cfg, data=ds, device=DEVICE)
+        torch.cuda.synchronize()
+        row = {"wall_s": time.perf_counter() - t0, "train_time_s": res.train_time_s,
+               "launches": counted(), "gloo": dict(collectives.STATS),
+               "history": {k: np.asarray(v) for k, v in res.history.items()},
+               "params": cpu_tree(res.params), "ranking": res.ranking}
+        if not unshard:
+            mesh = make_mesh(*axes)
+            model = build_model(cfg, ds)
+            rec = ShardedRecommender(model, res.params, res.ctx, mesh, seen=seen, device=DEVICE)
+            reset_launches()
+            t0 = time.perf_counter()
+            ids = rec.top_k(MESH_TOPK)
+            row["serve_s"] = time.perf_counter() - t0
+            row["serve_launches"] = counted()
+            dense_model = build_model(cfg, ds)
+            dense_model.load_state_dict(unshard_model_tables(res.params, res.ep_heights, mesh))
+            dense = Recommender(dense_model, res.ctx, seen=seen, device=DEVICE)
+            want = dense.top_k(MESH_TOPK)
+            full = (~seen).sum(1) >= MESH_TOPK  # users with at least k unseen items
+            row["lists_equal"] = bool(np.array_equal(ids[full], want[full]))
+            row["users_held"] = int(full.sum())
+        out[label] = row
+    return out
+
+
+def expected_mesh_counts(preset: str, mode: str, unshard: bool, plain: dict,
+                         sparse_steps: int) -> dict:
+    """Every rank's launches of a mesh run: the one-rank run's where the
+    tables come back whole (one gather and one onehot_grad a lookup, the
+    ranking's catalog alike); a lookup a forward and a backward where they
+    stay sharded (no ranking); two gathers a sparse step."""
+    if mode == "sparse":
+        return {"gather_rows": 2 * sparse_steps, "onehot_grad": 0, "topk_serve_matmul": 0,
+                "topk_scores": 0}
+    if unshard:
+        return plain[preset]["launches"]
+    lookups = LOOKUPS.get(preset, 2)
+    return {"gather_rows": lookups * MESH_EPOCHS, "onehot_grad": lookups * MESH_EPOCHS,
+            "topk_serve_matmul": 0, "topk_scores": 0}
+
+
+def expected_serve_counts(preset: str, ds) -> dict:
+    """Every rank's launches of one sharded top-k of every user: MF gathers
+    the user rows (its user table is sharded) and runs the fused matmul top-k
+    on its item block, then merges; DeepFM gathers its two user tables' rows,
+    then looks up its four tables once a user tile of its block's forward,
+    takes the block's top-k and merges."""
+    if preset == "mf":
+        return {"gather_rows": 1, "onehot_grad": 0, "topk_serve_matmul": 1, "topk_scores": 1}
+    tiles = -(-ds.num_users // CATALOG_TILE)
+    return {"gather_rows": 2 + LOOKUPS["deepfm"] * tiles, "onehot_grad": 0,
+            "topk_serve_matmul": 0, "topk_scores": 2}
+
+
+def hold_mesh_run(label: str, got: dict, want, axes, unshard: bool) -> dict:
+    """A rank's run against the one-rank run on the card: losses within
+    MESH_LOSS_RTOL, every param within MESH_PARAM_RTOL of its largest
+    magnitude (the blocks against the rows they hold)."""
+    g, w = np.asarray(got["history"]["train_loss"]), want.history["train_loss"]
+    if not np.isfinite(g).all():
+        raise AssertionError(f"mesh {label}: non-finite losses {g.tolist()}")
+    loss_err = float(np.max(np.abs(g / w - 1)))
+    if loss_err > MESH_LOSS_RTOL:
+        raise AssertionError(f"mesh {label}: losses {g.tolist()} vs {w.tolist()} on one rank")
+    worst = 0.0
+    for name, p in want.params.items():
+        p = p.cpu().numpy()
+        q = got["params"][name]
+        if q.shape != p.shape:  # a block of a table left sharded: the rows it holds
+            rows = q.shape[0]
+            lo = got["coord"] * rows
+            p = np.concatenate([p, np.zeros((rows * axes[1] - len(p),) + p.shape[1:], p.dtype)])
+            p = p[lo:lo + rows]
+        err = float(np.max(np.abs(q - p)) / max(float(np.max(np.abs(p))), 1e-30))
+        if err > MESH_PARAM_RTOL:
+            raise AssertionError(f"mesh {label}: {name} off by {err} of its largest magnitude")
+        worst = max(worst, err)
+    return {"max_rel_loss_diff": loss_err, "max_param_diff": worst}
+
+
+def run_mesh(ds: MovieLens100K, data_dir: str) -> dict:
+    """Gloo ranks spawned on the one card (NCCL refuses two ranks on one GPU,
+    so the phase opens its groups with backend="gloo", whose collectives
+    stage CUDA tensors through host memory): the runs of MESH_RUNS on 2 ranks
+    and of MESH_RUNS_4 on 4, at the presets' full widths, each held against the
+    same run on one rank on the card; every rank's launches counted exactly."""
+    from deeplearningrecommendationsystem_tpu_torch.runtime.distributed import spawn
+
+    print("mesh: NCCL refuses a duplicate GPU in one communicator, so the ranks on the "
+          "one card run over gloo", flush=True)
+    plain = {}
+    for preset, mode in (("mf", "fullbatch"), ("deepfm", "fullbatch"), ("mf", "sparse")):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_experiment(mesh_cfg(preset, mode), data=ds, device=DEVICE)
+        torch.cuda.synchronize()
+        plain[preset if mode == "fullbatch" else f"{preset}_sparse"] = {
+            "res": res, "launches": counted(), "wall_s": time.perf_counter() - t0}
+    rows = int(split_batches(mesh_cfg("mf", "sparse"), ds, "cpu")["train"][1].shape[0])
+    sparse_steps = rows // SPARSE_BATCH
+    t0 = time.perf_counter()
+    got2 = spawn(mesh_rank, 2, args=(data_dir, MESH_RUNS), deadline_s=MESH_DEADLINE_S,
+                 threads=4)
+    got4 = spawn(mesh_rank, 4, args=(data_dir, MESH_RUNS_4), deadline_s=MESH_DEADLINE_S,
+                 threads=2)
+    spawn_s = time.perf_counter() - t0
+    out, total = {}, dict.fromkeys(COUNTED, 0)
+    for runs, got in ((MESH_RUNS, got2), (MESH_RUNS_4, got4)):
+        for label, preset, axes, strategy, unshard, mode in runs:
+            ref = plain[preset if mode == "fullbatch" else f"{preset}_sparse"]
+            want_counts = expected_mesh_counts(preset, mode, unshard, plain, sparse_steps)
+            held = []
+            for rank, r in enumerate(got):
+                row = r[label]
+                row["coord"] = rank % axes[1]
+                check_counts(f"mesh {label} rank {rank}", row["launches"], want_counts)
+                held.append(hold_mesh_run(f"{label} rank {rank}", row, ref["res"], axes, unshard))
+                for k in COUNTED:
+                    total[k] += row["launches"][k] + row.get("serve_launches", {}).get(k, 0)
+                if not unshard:
+                    check_counts(f"mesh {label} serve rank {rank}", row["serve_launches"],
+                                 expected_serve_counts(preset, ds))
+                    if not row["lists_equal"]:
+                        raise AssertionError(f"mesh {label} rank {rank}: the sharded top-"
+                                             f"{MESH_TOPK} differs from the dense Recommender's")
+                elif row["ranking"] != got[0][label]["ranking"]:
+                    raise AssertionError(f"mesh {label}: rank {rank}'s ranking differs")
+            r0 = got[0][label]
+            line = {"phase": "mesh_run", "run": label, "preset": preset, "mesh": list(axes),
+                    "strategy": strategy, "mode": mode, "ranks": len(got),
+                    "epochs": mesh_cfg(preset, mode).epochs, "wall_s": r0["wall_s"],
+                    "train_time_s": r0["train_time_s"],
+                    "one_rank_wall_s": ref["wall_s"], "one_rank_train_time_s": ref["res"].train_time_s,
+                    "gloo_bytes_by_rank": [r[label]["gloo"]["moved_bytes"] for r in got],
+                    "gloo_staged_bytes_by_rank": [r[label]["gloo"]["staged_bytes"] for r in got],
+                    "gloo_calls_by_rank": [r[label]["gloo"]["calls"] for r in got],
+                    "launches_by_rank": [r[label]["launches"] for r in got],
+                    "train_loss": np.asarray(r0["history"]["train_loss"]).tolist(),
+                    "one_rank_train_loss": ref["res"].history["train_loss"].tolist(),
+                    **{k: max(h[k] for h in held) for k in held[0]}}
+            if not unshard:
+                line.update(serve_s=r0["serve_s"], serve_launches=r0["serve_launches"],
+                            users_held=r0["users_held"], lists_equal=True)
+            emit(line)
+            out[label] = {k: line[k] for k in ("mesh", "strategy", "wall_s", "train_time_s",
+                                               "gloo_bytes_by_rank", "max_rel_loss_diff",
+                                               "max_param_diff")}
+    # the ranks' launches; the one-rank reference runs here are comparisons
+    counts = {name: 0 for name in launches()}
+    counts.update(total)
+    return {"phase": "mesh", "transport": "gloo", "runs": out, "spawn_s": spawn_s,
+            "launches": counts}
+
+
+def run_scaling_model(ds: MovieLens100K) -> dict:
+    """``program_costs`` of one DeepFM fullbatch step at the preset's width on
+    the card, ``predict_weak_scaling`` at 1, 2, 4 and 8 cards from it, and the
+    step's measured time beside the prediction."""
+    from deeplearningrecommendationsystem_tpu_torch.runtime import scaling_model
+
+    cfg = PRESETS["deepfm"]
+    trainer = Trainer(build_model(cfg, ds), TrainConfig(learning_rate=cfg.learning_rate,
+                                                        weight_decay=cfg.weight_decay),
+                      device=DEVICE)
+    b, y = split_batches(cfg, ds, DEVICE)["train"]
+    trainer.train_step(b, y)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    costs = scaling_model.program_costs(trainer.train_step, b, y)
+    counts = launches()
+    steps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_step(b, y)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    grad_bytes = scaling_model.grad_bytes_of(dict(trainer.model.named_parameters()))
+    predicted = [scaling_model.predict_weak_scaling(costs["flops"], costs["hbm_bytes"],
+                                                    grad_bytes, n) for n in (1, 2, 4, 8)]
+    if not (costs["flops"] > 0 and costs["hbm_bytes"] > 0 and step_ms > 0):
+        raise AssertionError(f"scaling_model: empty costs {costs}")
+    return {"phase": "scaling_model", "nvidia_smi": card_line(), "rows": int(y.shape[0]),
+            **costs, "grad_bytes": grad_bytes, "measured_step_ms": step_ms,
+            "predicted": predicted,
+            "note": "FLOPs and bytes count the torch ops; the gather kernels run outside "
+                    "the dispatcher", "launches": counts}
+
+
+def run_native(data_dir: str) -> dict:
+    """The native parser (``data/native.py``, built with c++ here) and the NumPy
+    path load the fixture's files to equal arrays; the native one must run."""
+    from deeplearningrecommendationsystem_tpu_torch.data import native
+
+    reset_launches()  # the phase launches no kernel
+    t0 = time.perf_counter()
+    got = MovieLens100K(data_dir, seed=0, use_native=True)
+    native_s = time.perf_counter() - t0
+    if got.parser != "native":
+        raise AssertionError(f"native: the NumPy path ran ({native.build_error()})")
+    t0 = time.perf_counter()
+    want = MovieLens100K(data_dir, seed=0)
+    numpy_s = time.perf_counter() - t0
+    for key in ("user_features", "item_features"):
+        if not np.array_equal(getattr(got, key), getattr(want, key)):
+            raise AssertionError(f"native: {key} differs from the NumPy path's")
+    for split in ("data", "train", "valid", "test"):
+        for key in ("user", "item"):
+            if not np.array_equal(getattr(got, split)[key], getattr(want, split)[key]):
+                raise AssertionError(f"native: {split}.{key} differs from the NumPy path's")
+    return {"phase": "native", "parser": got.parser, "library": native.library_path().name,
+            "load_s_native": native_s, "load_s_numpy": numpy_s, "launches": launches()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3030,6 +3477,9 @@ def main() -> int:
                           (ds.num_users, ds.num_users, CF_NEIGHBOURS)):
             rows["topk_scores"].append(check_topk("topk_scores", U_, I_, 0, k, mb_gen))
             emit({"phase": "kernel_check", "kernel": "topk_scores", **rows["topk_scores"][-1]})
+        # the mesh phase's EP blocks, from a generator of their own
+        check_ep_blocks(ds, {"mf": (EMBEDDING_DIM, uid, iid), "deepfm": (fm_D, fm_user, fm_item)},
+                        rows)
         del mf_u, fm_first, mf_first, mb_user, mb_item
         del lookups, table, din_hist, din_y, lr_user, lr_item, fm_x, fm_user, fm_item
         del pair_seq, dien_hist, dien_tgt, dien_users, ncf_user, ncf_item
@@ -3124,7 +3574,8 @@ def main() -> int:
                   run_dien(ds), run_dien_bf16_aux(ds), run_neuralcf(ds),
                   run_autorec(ds, "autorec"), run_autorec(ds, "i-autorec"),
                   run_serve_pair_matrix(ds, tmp), run_minibatch(ds), run_stream(ds),
-                  run_sparse(ds), run_checkpoint_serve(ds, tmp), run_cf(tmp), run_cli(ds, tmp)]
+                  run_sparse(ds), run_checkpoint_serve(ds, tmp), run_cf(tmp), run_cli(ds, tmp),
+                  run_mesh_nccl(ds), run_mesh(ds, tmp), run_scaling_model(ds), run_native(tmp)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for p in phases:

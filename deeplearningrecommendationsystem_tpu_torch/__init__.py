@@ -19,7 +19,11 @@ trainers, AFM's attention pool, DIN's fused head and attention pool, and
 DIEN's GRU in plain torch); the minibatch, stream and sparse training modes
 (``train/minibatch.py``, ``data/stream.py``, ``train/sparse.py``,
 ``train/sparse_trainer.py``), checkpoints (``runtime/checkpoint.py``) and
-classic CF (``cf/``, ``cli/cf.py``). Meshes are not ported yet.
+classic CF (``cf/``, ``cli/cf.py``); the parallel layer, one process a rank
+over ``torch.distributed`` (``parallel/``, ``runtime/distributed.py``: DP,
+row-sharded tables, sharded serving, ``--mesh`` on both CLIs), the scaling
+model (``runtime/scaling_model.py``) and the native parser
+(``data/native.py``).
 """
 
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device

@@ -13,9 +13,16 @@ The preset table carries each script's hyperparameters; flags override them.
 (the kernels' plain versions). ``--data`` defaults to ``$ML100K_PATH``, else
 ``dataset_example/ml-100k`` (the reference checkout's layout).
 ``--train-mode`` picks full-batch (the default), minibatch, stream or sparse
-training (``--batch-size``, ``--sparse-optimizer``); ``--mesh`` is not ported
-yet and exits with a message naming ``ROADMAP.md`` §1 item 13, and
-``--ep-strategy`` belongs to it and is accepted; ``--fast-gathers`` sets the
+training (``--batch-size``, ``--sparse-optimizer``). ``--mesh d,m`` trains over
+a ``(data, model)`` mesh of d * m ranks, one process each, under ``torchrun``:
+
+    torchrun --nproc-per-node=4 -m deeplearningrecommendationsystem_tpu_torch.cli.run \
+        --model deepfm --mesh 2,2 [--ep-strategy scatter]
+
+each rank on ``cuda:{LOCAL_RANK}`` over NCCL (``--backend gloo`` for the host
+transport, the only one for ``--device cpu``); d * m must equal the world
+size, or the CLI exits with a message. Rank 0 prints the report.
+``--fast-gathers`` sets the
 two ``TrainConfig`` gather fields, which have no effect here (one kernel
 pair). The JAX CLI's compilation cache is JAX's own and has no counterpart.
 """
@@ -25,15 +32,40 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+from typing import Optional, Tuple
+
+import torch.distributed as dist
 
 from deeplearningrecommendationsystem_tpu_torch.configs.presets import PRESETS
-from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
 from deeplearningrecommendationsystem_tpu_torch.experiments import DEFAULT_DATA, run_experiment
 from deeplearningrecommendationsystem_tpu_torch.runtime.plotting import (
     plot_history,
     require_matplotlib,
 )
+from deeplearningrecommendationsystem_tpu_torch.runtime import distributed
 from deeplearningrecommendationsystem_tpu_torch.runtime.profiler import debug_nans, trace
+
+
+def mesh_axes(flag: Optional[str], backend: str) -> Optional[Tuple[int, int]]:
+    """``--mesh d,m`` as (d, m), after opening the process group (from
+    ``torchrun``'s environment) if there is none yet; exits with a message
+    where d * m is not the number of ranks."""
+    if not flag:
+        return None
+    try:
+        data, model = (int(v) for v in flag.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh {flag!r}: give the axes as DATA,MODEL, e.g. 2,2")
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        distributed.initialize(backend=backend)
+    start = f"start it under torchrun --nproc-per-node={data * model}"
+    if not dist.is_initialized():
+        raise SystemExit(f"--mesh {data},{model}: no process group; {start}")
+    if data * model != dist.get_world_size():
+        raise SystemExit(f"--mesh {data},{model} needs {data * model} ranks and this run has "
+                         f"{dist.get_world_size()}: {start}")
+    return data, model
 
 
 def parser() -> argparse.ArgumentParser:
@@ -67,7 +99,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--mesh",
         metavar="DATA,MODEL",
-        help="device mesh axes (not ported yet, ROADMAP.md §1 item 13)",
+        help="device mesh axes: DP over DATA, the id tables row-sharded over MODEL "
+        "(EP); DATA * MODEL ranks under torchrun",
+    )
+    ap.add_argument(
+        "--backend", choices=["nccl", "gloo"], default="nccl",
+        help="the ranks' transport with --mesh (gloo for --device cpu)",
     )
     ap.add_argument(
         "--ep-strategy",
@@ -123,10 +160,11 @@ def main(argv=None) -> int:
         return 0
     if not args.model:
         ap.error("--model is required (or --list)")
-    if args.mesh:
-        raise SystemExit("--mesh: DP/EP meshes are not ported yet (ROADMAP.md §1 item 13)")
+    mesh = mesh_axes(args.mesh, args.backend)
 
     overrides = {"seed": args.seed}
+    if mesh is not None:
+        overrides.update(mesh_shape=mesh, ep_strategy=args.ep_strategy)
     if args.epochs is not None:
         overrides["epochs"] = args.epochs
     if args.lr is not None:
@@ -161,7 +199,7 @@ def main(argv=None) -> int:
             overrides["model_kwargs"] = kw
 
     cfg = PRESETS[args.model].replace(**overrides)
-    device = resolve_device(args.device)
+    device = distributed.local_device(None if args.device == "cuda" else args.device)
     if args.plot:
         require_matplotlib()  # before training, not after it
     stack = contextlib.ExitStack()
@@ -171,6 +209,8 @@ def main(argv=None) -> int:
         stack.enter_context(trace(args.profile))
     with stack:
         result = run_experiment(cfg, data_path=args.data, device=device, verbose=not args.json)
+    if not distributed.is_primary():
+        return 0  # rank 0 reports
     if args.plot:
         plot_history(result.history, args.plot, title=f"{result.model} training curves")
         if not args.json:

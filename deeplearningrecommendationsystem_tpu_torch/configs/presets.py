@@ -7,10 +7,9 @@ lr/weight-decay, epochs and eval K -- overridable from the CLI.
 
 The port's own copy of the JAX package's ``configs/presets.py`` (a pure-Python
 module), field for field, so the port imports nothing of the JAX package.
-The mesh fields (``mesh_shape``, ``ep_strategy``, ``unshard_params``) are
-kept so that a config means the same thing in both packages;
-``experiments.run_experiment`` rejects a ``mesh_shape`` (``ROADMAP.md`` §1
-item 13).
+The mesh fields (``mesh_shape``, ``ep_strategy``, ``unshard_params``) mean
+the same thing in both packages; on the port a ``mesh_shape`` is laid over
+the ranks of the process group (``parallel/mesh.py``).
 """
 
 from __future__ import annotations

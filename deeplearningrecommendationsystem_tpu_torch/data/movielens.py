@@ -12,6 +12,10 @@ path, and the same arrays bit for bit:
 * 45-column feature matrices ``[user_id, item_id, age, gender, occupation,
   genres]``, per-user item/history matrices and dense seen-item masks.
 
+``use_native=True`` parses the three files with the C++ loader
+(``data/native.py``, the same arrays bit for bit) where it builds, and the
+NumPy path otherwise; ``parser`` says which one ran ("native" or "numpy").
+
 This module emits NumPy; models and the ``Recommender`` own device placement.
 """
 
@@ -35,10 +39,12 @@ def _minmax(x: np.ndarray) -> np.ndarray:
 class MovieLens100K:
     """Loads ml-100k and exposes splits, feature blocks and masks as arrays."""
 
-    def __init__(self, dataset_path: str, seed: Optional[int] = 0):
+    def __init__(self, dataset_path: str, seed: Optional[int] = 0, use_native: bool = False):
         self.path = dataset_path
         rng = np.random.default_rng(seed)
-        self._load_numpy(dataset_path)
+        self.parser = "native" if use_native and self._load_native(dataset_path) else "numpy"
+        if self.parser == "numpy":
+            self._load_numpy(dataset_path)
 
         self.spec = FeatureSpec(
             num_users=self.num_users,
@@ -54,6 +60,38 @@ class MovieLens100K:
         self.train, self.valid, self.test = self._split_per_user(rng)
 
     # ------------------------------------------------------------------
+    def _load_native(self, dataset_path: str) -> bool:
+        """Parse with the C++ loader (native/ml100k_parser.cc); False where it
+        is not available, so the NumPy path takes over."""
+        from deeplearningrecommendationsystem_tpu_torch.data import native
+
+        ud = native.parse_u_data(os.path.join(dataset_path, "u.data"))
+        uu = native.parse_u_user(os.path.join(dataset_path, "u.user"))
+        ui = native.parse_u_item(os.path.join(dataset_path, "u.item"))
+        if ud is None or uu is None or ui is None:
+            return False
+        users, items, _ = ud
+        self._users, self._items = users, items
+        self.num_users = int(len(np.unique(users)))
+        self.num_items = int(len(np.unique(items)))
+
+        ids, ages, gidx, oidx, occ_cats = uu
+        order = np.argsort(ids)
+        ages, gidx, oidx = ages[order], gidx[order], oidx[order]
+        self.occupation_categories = occ_cats
+        self.gender_categories = ["F", "M"][: int(gidx.max()) + 1]
+        n_users = len(ids)
+        gender_oh = np.zeros((n_users, len(self.gender_categories)), dtype=np.float32)
+        gender_oh[np.arange(n_users), gidx] = 1.0
+        occ_oh = np.zeros((n_users, len(occ_cats)), dtype=np.float32)
+        occ_oh[np.arange(n_users), oidx] = 1.0
+        age_norm = _minmax(ages.astype(np.float64)).astype(np.float32)[:, None]
+        self.user_features = np.concatenate([age_norm, gender_oh, occ_oh], axis=1)
+
+        iids, genres = ui
+        self.item_features = genres[np.argsort(iids)]
+        return True
+
     def _load_numpy(self, dataset_path: str) -> None:
         # ---- interactions (u.data: user \t item \t rating \t ts) ----
         raw = np.loadtxt(os.path.join(dataset_path, "u.data"), dtype=np.int64)

@@ -18,8 +18,11 @@ consumer's stream (its memory is not reused while the consumer may still read
 it), and the pinned host batch is kept alive until its copy has completed. On
 the CPU the batch is the NumPy batch as a tensor, with no pinning and no copy.
 
-The JAX ``sharding`` argument places batches on a mesh; meshes are not ported
-yet (``ROADMAP.md`` §1 item 13), so a ``sharding`` raises.
+The JAX ``sharding`` argument places batches on a mesh. Here each rank runs
+its own loader, every rank drawing the same order from the same seed, and a
+``sharding`` (``parallel/mesh.py::data_sharding``) keeps this rank's block of
+the rows of every batch (the batch size a multiple of the block count), so
+only that block is copied to the device.
 """
 
 from __future__ import annotations
@@ -49,10 +52,10 @@ def tree_leaves(tree) -> list:
     return out
 
 
-def _no_sharding(sharding) -> None:
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharding (a DP mesh) is not ported yet; see ROADMAP.md §1 item 13")
+def _sharded(x, sharding):
+    """This rank's block of the rows of every leaf of ``x`` (all of it with no
+    ``sharding``)."""
+    return x if sharding is None else tree_map(sharding.take, x)
 
 
 def epoch_batches(
@@ -105,9 +108,9 @@ def prefetch_to_device(
     """Keep ``size`` batches in flight on ``device`` ahead of the consumer.
 
     Each batch is a tree (tuples, lists, dicts) of NumPy arrays; it comes out
-    as the same tree of tensors on ``device``.
+    as the same tree of tensors on ``device``; with ``sharding``, this rank's
+    block of its rows.
     """
-    _no_sharding(sharding)
     dev = resolve_device(device)
     if dev.type == "cuda":
         put = _CudaPut(dev)
@@ -117,12 +120,12 @@ def prefetch_to_device(
     queue: collections.deque = collections.deque()
     it = iter(iterator)
     for x in itertools.islice(it, size):
-        queue.append(put(x))
+        queue.append(put(_sharded(x, sharding)))
     while queue:
         yield hand_over(queue.popleft())
         nxt = next(it, None)
         if nxt is not None:
-            queue.append(put(nxt))
+            queue.append(put(_sharded(nxt, sharding)))
 
 
 class StreamingLoader:
@@ -137,11 +140,14 @@ class StreamingLoader:
         prefetch: int = 2,
         device: str | torch.device = "cuda",
     ):
-        _no_sharding(sharding)
         self.device = resolve_device(device)
         self.arrays = arrays
         self.n = tree_leaves(arrays)[0].shape[0]
         self.batch_size = batch_size
+        if sharding is not None and batch_size % sharding.parts:
+            raise ValueError(f"batch_size {batch_size} does not split into {sharding.parts} "
+                             "blocks")
+        self.sharding = sharding
         self._rng = np.random.default_rng(seed)
         self.prefetch = prefetch
 
@@ -153,4 +159,5 @@ class StreamingLoader:
             for idx in epoch_batches(self._rng, self.n, self.batch_size):
                 yield tree_map(lambda a: a[idx], self.arrays)
 
-        return prefetch_to_device(host_batches(), self.prefetch, device=self.device)
+        return prefetch_to_device(host_batches(), self.prefetch, self.sharding,
+                                  device=self.device)

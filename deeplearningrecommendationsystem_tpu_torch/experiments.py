@@ -22,8 +22,18 @@ data on the device or streamed from host memory (``train/minibatch.py``; not
 the matrix family); 'sparse', minibatch with row-sparse table updates
 (``train/sparse_trainer.py``; models with the sparse-row protocol, MF and
 DeepFM). The minibatch modes keep only ``history["train_loss"]``; the serving
-and ranking evaluation follow every mode. The mesh raises
-``NotImplementedError`` naming ``ROADMAP.md`` §1 item 13.
+and ranking evaluation follow every mode.
+
+``cfg.mesh_shape`` ``(d, m)`` lays a mesh over the ranks of the process group
+(``runtime/distributed.py::initialize``, or ``torchrun``), every rank calling
+``run_experiment`` with the same config and data: in 'fullbatch' mode each
+split is padded and cut into this rank's rows (``parallel/data.py``), and the
+Trainer shards the tables over the model axis; 'stream' streams each rank
+its slice of every batch (the data axis); 'sparse' row-shards the tables and
+keeps the batches whole on every rank, as the JAX package does; 'minibatch'
+runs the same batches on every rank. Every rank returns the same result.
+With ``cfg.unshard_params=False`` the tables stay row-sharded and the ranking
+evaluation is skipped (``serving.py::ShardedRecommender`` serves them).
 
 The initial weights and the negatives are drawn from CPU generators seeded
 from ``cfg.seed`` and then moved to ``device``, so a run on a card and the
@@ -69,6 +79,9 @@ from deeplearningrecommendationsystem_tpu_torch.models import (
     ServingContext,
     WideDeep,
 )
+from deeplearningrecommendationsystem_tpu_torch.parallel import make_mesh, pad_and_shard
+from deeplearningrecommendationsystem_tpu_torch.parallel.mesh import data_sharding, mesh_shape
+from deeplearningrecommendationsystem_tpu_torch.runtime.distributed import is_primary
 from deeplearningrecommendationsystem_tpu_torch.sampling import NegativeSampler
 from deeplearningrecommendationsystem_tpu_torch.train import (
     TrainConfig,
@@ -124,6 +137,8 @@ class ExperimentResult:
     train_time_s: float
     extras: Dict[str, float] = dataclasses.field(default_factory=dict)
     ctx: Any = None  # ServingContext used for the ranking eval (serving reuse)
+    # name -> vocabulary of each table left row-sharded (unshard_params=False)
+    ep_heights: Optional[Dict[str, int]] = None
 
     @property
     def examples_per_sec(self) -> float:
@@ -142,8 +157,6 @@ def _check_supported(cfg: ExperimentConfig) -> None:
         raise ValueError(f"unknown train_mode {cfg.train_mode!r}")
     if cfg.family == "matrix" and cfg.train_mode in ("minibatch", "stream"):
         raise ValueError(f"{cfg.train_mode} mode: masked-matrix family N/A")
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError("mesh_shape (DP/EP) is not ported yet; see ROADMAP.md §1 item 13")
     if cfg.aux_weight > 0 and cfg.model != "dien":
         raise ValueError("aux_weight is the DIEN auxiliary-loss hook")
 
@@ -250,6 +263,9 @@ def run_experiment(
     report (``runtime/logging.py::print_report``)."""
     dev = resolve_device(device)
     _check_supported(cfg)
+    mesh = None
+    if cfg.mesh_shape is not None:
+        mesh = make_mesh(data=cfg.mesh_shape[0], model=cfg.mesh_shape[1])
     if data is None:
         data = MovieLens100K(data_path, seed=cfg.seed)
     model = build_model(cfg, data).to(dev)
@@ -263,6 +279,9 @@ def run_experiment(
             compute_dtype=cfg.compute_dtype,
             matmul_gather_bwd=cfg.matmul_gather_bwd,
             onehot_gather=cfg.onehot_gather,
+            mesh=mesh,
+            ep_strategy=cfg.ep_strategy,
+            unshard_params=cfg.unshard_params,
         ),
         device=dev,
         # the fused path: logits and the auxiliary loss in one forward
@@ -288,12 +307,32 @@ def run_experiment(
         batches = split_batches(cfg, data, dev)
         train_examples = len(batches["train"][1])
 
+    if mesh is not None and cfg.train_mode == "fullbatch" and _cuts_batch(cfg, mesh):
+        # DP: pad each split to the block count, zero-weight the pad rows and
+        # keep this rank's block
+        sharded = {}
+        for name, (b, y) in batches.items():
+            b, y, sharded[name] = pad_and_shard(b, y, mesh, (weights or {}).get(name),
+                                                cfg.ep_strategy)
+            batches[name] = (b, y)
+        weights = sharded
+
     # ---- train ----
     _sync(dev)
     t0 = time.perf_counter()
-    result = _train(cfg, trainer, batches, weights)
+    result = _train(cfg, trainer, batches, weights, mesh)
     _sync(dev)
     train_time = time.perf_counter() - t0
+
+    if result.ep_heights:
+        # tables left row-sharded (unshard_params=False): the dense catalog
+        # scorer cannot run -- serve through ShardedRecommender; the ranking
+        # evaluation is skipped by design
+        return ExperimentResult(
+            model=cfg.model, params=result.params,
+            history={k: v.cpu().numpy() for k, v in result.history.items()}, ranking={},
+            train_examples=train_examples, epochs=cfg.epochs, train_time_s=train_time,
+            extras=result.extras, ctx=ctx, ep_heights=result.ep_heights)
 
     # ---- serving + ranking eval ----
     with torch.no_grad():
@@ -314,14 +353,21 @@ def run_experiment(
         extras=result.extras,
         ctx=ctx,
     )
-    if verbose:
+    if verbose and is_primary():
         from deeplearningrecommendationsystem_tpu_torch.runtime.logging import print_report
 
         print_report(out, k=cfg.k)
     return out
 
 
-def _train(cfg: ExperimentConfig, trainer: Trainer, batches, weights):
+def _cuts_batch(cfg: ExperimentConfig, mesh) -> bool:
+    """Whether the full batch is cut over more than one rank: the data axis,
+    or every rank under the ``scatter`` lookup into sharded tables."""
+    shape = mesh_shape(mesh)
+    return shape["data"] > 1 or (cfg.ep_strategy == "scatter" and shape["model"] > 1)
+
+
+def _train(cfg: ExperimentConfig, trainer: Trainer, batches, weights, mesh=None):
     """Train in ``cfg.train_mode``: 'fullbatch' (one Adam step an epoch),
     'minibatch' and 'stream' (shuffled minibatch Adam, the data on the device
     or streamed from host memory), 'sparse' (minibatch with row-sparse table
@@ -335,11 +381,14 @@ def _train(cfg: ExperimentConfig, trainer: Trainer, batches, weights):
         # the dataset stays in HOST memory; StreamingLoader shuffles + prefetches
         b, y = batches["train"]
         host_train = (tree_map(lambda t: t.cpu().numpy(), b), y.cpu().numpy())
+        sharding = None if mesh is None else data_sharding(mesh)
         return fit_stream(trainer, cfg.seed, host_train, batch_size=cfg.batch_size,
-                          seed=cfg.seed)
+                          sharding=sharding, seed=cfg.seed)
     if cfg.train_mode == "sparse":
         return fit_minibatch_sparse(trainer, cfg.seed, batches["train"],
-                                    batch_size=cfg.batch_size, optimizer=cfg.sparse_optimizer)
+                                    batch_size=cfg.batch_size, optimizer=cfg.sparse_optimizer,
+                                    mesh=mesh, ep_strategy=cfg.ep_strategy,
+                                    unshard=cfg.unshard_params)
     raise ValueError(cfg.train_mode)
 
 

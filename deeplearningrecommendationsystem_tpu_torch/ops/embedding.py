@@ -15,8 +15,12 @@ Out-of-range ids take ``table[ids]``'s semantics on every route (see
 ``ops/gather.py``); the JAX one-hot routes give a zero row instead, and no
 shipped caller passes such ids.
 
-Row-sharded (EP) tables over a mesh are not ported yet (``ROADMAP.md`` §1
-item 13): ``gather_rows(..., mesh=...)`` raises.
+An EP scope (``parallel/ep.py::embedding_partitioning``, which the Trainer
+opens over a mesh) registers its lookup with :func:`set_lookup_route`; while
+it is open every ``gather_rows`` call goes through it, and a lookup into a
+row-sharded table runs the same kernel pair on the rank's own row block and
+a collective over the model group. With no route registered every lookup is
+the dense one.
 
 ``init_field_tables`` and ``embed_fields`` embed the six ml-100k fields of a
 [B, 45] feature matrix: the user and item ids through ``gather_rows`` (the
@@ -51,13 +55,33 @@ class GatherRows(torch.autograd.Function):
         return onehot_grad(ids, g.contiguous(), ctx.vocab).to(ctx.dtype), None
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor, mesh=None) -> torch.Tensor:
-    """``table[ids]`` for ids of any shape -> ids.shape + (D,)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "row-sharded (EP) tables are not ported yet; see ROADMAP.md §1 item 13")
+# the lookup every gather_rows call takes instead of the dense one; None =
+# the dense lookup (parallel/ep.py::embedding_partitioning registers its own)
+_route = None
+
+
+def set_lookup_route(route):
+    """Make ``route(table, ids) -> rows`` the lookup of every
+    :func:`gather_rows` call (None: the dense one); returns the route it
+    replaces."""
+    global _route
+    prev, _route = _route, route
+    return prev
+
+
+def dense_gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for ids of any shape -> ids.shape + (D,), through the
+    kernel pair."""
     out = GatherRows.apply(table, ids.reshape(-1).contiguous())
     return out.reshape(*ids.shape, table.shape[1])
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for ids of any shape -> ids.shape + (D,), through the
+    registered route if there is one."""
+    if _route is not None:
+        return _route(table, ids)
+    return dense_gather_rows(table, ids)
 
 
 def init_field_tables(

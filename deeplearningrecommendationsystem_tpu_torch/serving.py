@@ -3,8 +3,9 @@
 The JAX package's ``serving.py::Recommender`` on PyTorch: score the catalog
 once (or per refresh), then answer per-user top-K queries, with seen-item
 exclusion; ``Recommender.from_checkpoint`` serves the params of a
-``runtime/checkpoint.py`` checkpoint. ``ShardedRecommender`` is not ported yet
-(``ROADMAP.md`` §1 item 13).
+``runtime/checkpoint.py`` checkpoint. ``ShardedRecommender`` serves from
+row-sharded tables (``parallel/serving.py``), every rank of the mesh calling
+it alike.
 """
 
 from __future__ import annotations
@@ -145,3 +146,87 @@ class Recommender:
     def score(self, user: int, items: Sequence[int]) -> np.ndarray:
         """Raw scores of specific items for one user."""
         return self.scores[user, self._index(items)].cpu().numpy()
+
+
+class ShardedRecommender:
+    """Serves top-K directly from EP-SHARDED params (``parallel/serving.py``).
+
+    For tables trained with ``unshard_params=False`` at vocabularies where a
+    replicated table does not fit on one device: item rows never leave their
+    block; each query is a local top-k on every model rank plus a small
+    ``[U, m * k]`` candidate exchange, list-identical to :class:`Recommender`
+    on the equivalent dense params. Every rank of the mesh makes the same
+    calls in the same order (they run collectives) and gets the same answer.
+    ``params``: name -> tensor, the sharded tables this rank's blocks (a
+    ``TrainResult``'s or ``ExperimentResult``'s params).
+    """
+
+    def __init__(self, model: nn.Module, params, ctx: ServingContext, mesh, seen=None,
+                 device: str | torch.device = "cuda"):
+        from deeplearningrecommendationsystem_tpu_torch.parallel.ep import (
+            EmbeddingPartitioning,
+            is_table_name,
+        )
+        from deeplearningrecommendationsystem_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
+
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.params = {k: torch.as_tensor(v, device=self.device) for k, v in params.items()}
+        self.ctx = ctx.to(self.device)
+        self.mesh = mesh
+        self.seen = torch.as_tensor(seen, device=self.device) if seen is not None else None
+        # EP routing for per-pair scoring (/v1/score): the padded heights of
+        # the row-sharded vocab tables, picked as training picks them; a
+        # query's ids are the same on every model rank, so the psum lookup
+        m = axis_size(mesh, MODEL_AXIS)
+        full = (self.ctx.num_users, self.ctx.num_items)
+        heights = {leaf.shape[0] * m for name, leaf in self.params.items()
+                   if leaf.dim() == 2 and is_table_name(name) and leaf.shape[0] not in full}
+        self._ep = EmbeddingPartitioning(mesh=mesh, strategy="psum",
+                                         sharded_heights=frozenset(heights))
+
+    @property
+    def shape(self):
+        return (self.ctx.num_users, self.ctx.num_items)
+
+    def refresh(self) -> None:
+        """No-op: queries run directly against the sharded tables (there is
+        no replicated score matrix to materialise -- that's the point)."""
+
+    def top_k(self, k: int, users: Optional[Sequence[int]] = None) -> np.ndarray:
+        return self.top_k_with_scores(k, users)[0]
+
+    def top_k_with_scores(self, k: int, users: Optional[Sequence[int]] = None):
+        from deeplearningrecommendationsystem_tpu_torch.parallel.serving import (
+            sharded_catalog_topk,
+        )
+
+        u = None if users is None else np.asarray(users, dtype=np.int64)
+        vals, idx = sharded_catalog_topk(self.model, self.params, self.ctx, self.mesh, k,
+                                         seen=self.seen, users=u)
+        return idx.cpu().numpy(), vals.cpu().numpy()
+
+    @torch.no_grad()
+    def score(self, user: int, items: Sequence[int]) -> np.ndarray:
+        """Scores of specific items for one user, from the sharded tables: the
+        model's own forward with every vocab-table lookup EP-routed through
+        the training collectives. Seen items return the dense server's mask
+        value, so /v1/score answers match between the dense and sharded
+        servers."""
+        from deeplearningrecommendationsystem_tpu_torch.parallel.ep import embedding_partitioning
+
+        items_t = torch.as_tensor(np.asarray(items, dtype=np.int64), device=self.device)
+        u = torch.full(items_t.shape, int(user), dtype=torch.int64, device=self.device)
+        with embedding_partitioning(self._ep):
+            if hasattr(self.model, "spec"):  # feature family: 45-column rows
+                n = items_t.shape[0]
+                uf = self.ctx.user_features.float()
+                x = torch.cat([u.float()[:, None], items_t.float()[:, None],
+                               uf[int(user)][None, :].expand(n, uf.shape[1]),
+                               self.ctx.item_features.float()[items_t]], dim=1)
+                logits = self.model.apply_params(self.params, x)
+            else:  # pair family (MF/NeuralCF shapes)
+                logits = self.model.apply_params(self.params, (u, items_t))
+        if self.seen is not None:
+            logits = mask_seen(logits, self.seen[int(user), items_t])
+        return logits.float().cpu().numpy()

@@ -103,15 +103,22 @@ def fit_stream(
     the dataset stays in host memory, shuffled there with ``seed``, and the
     device holds the model and ``prefetch`` batches. The same step as
     :func:`fit_minibatch`; only the batch source differs. ``rng`` is the JAX
-    signature's initialisation key: the model already holds its weights."""
+    signature's initialisation key: the model already holds its weights.
+
+    ``sharding`` (``parallel/mesh.py::data_sharding`` of the Trainer's mesh)
+    streams each rank its block of every batch; the step is then the
+    data-parallel one, the loss the mean over the whole batch."""
     del rng
     loader = StreamingLoader(train, batch_size, seed=seed, sharding=sharding,
                              prefetch=prefetch, device=trainer.device)
     if len(loader) == 0:
         raise ValueError(f"batch_size {batch_size} larger than the dataset ({loader.n} rows)")
     trainer._load(params, opt_state)
+    denom = None
+    if sharding is not None and sharding.parts > 1:
+        denom = torch.tensor(float(batch_size), device=trainer.device)
     epoch_losses = []
     for _ in range(trainer.config.epochs):
-        losses = [trainer.train_step(b, y)[0] for b, y in loader.epoch()]
+        losses = [trainer.train_step(b, y, denom=denom)[0] for b, y in loader.epoch()]
         epoch_losses.append(torch.stack(losses).mean())
     return _result(trainer, epoch_losses)

@@ -23,9 +23,18 @@ step loss, kept on the device until the end.
 does (``epoch_order``, on the host); ``fit_stream_sparse`` streams the host
 arrays through ``data/stream.py`` in the JAX package's NumPy order.
 
-Row-sharded tables (``mesh`` with a model axis > 1) are not ported yet
-(``ROADMAP.md`` §1 item 13) and raise; the JAX ``ep_strategy`` and ``unshard``
-arguments, which only mean something on such a mesh, come with it.
+With a ``mesh`` whose model axis is larger than 1 the tables are row-sharded
+(``parallel/embedding.py::shard_table``): each rank holds a row block of
+every table and its row-optimizer state, the minibatch is the whole batch on
+every rank (as in the JAX package, which shards no batch in this mode), the
+rows come through ``sharded_gather`` (the gather kernel on the rank's block
+and a sum over the model group, both ``ep_strategy`` values: the batch is
+the same on every model rank), and the lazy-Adam or AdaGrad update touches
+only the rank's own rows, the others' ids turned into the padding slot of
+``train/sparse.py``. The dense remainder sees the same batch on every rank
+and needs no collective. ``unshard`` (default) gathers the tables back whole
+at the end; ``unshard=False`` leaves the blocks in the model, with
+``TrainResult.ep_heights`` the tables' vocabularies.
 """
 
 from __future__ import annotations
@@ -33,9 +42,20 @@ from __future__ import annotations
 from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from deeplearningrecommendationsystem_tpu_torch.data.stream import StreamingLoader
 from deeplearningrecommendationsystem_tpu_torch.ops.embedding import gather_rows
+from deeplearningrecommendationsystem_tpu_torch.parallel.embedding import (
+    shard_table,
+    sharded_gather,
+)
+from deeplearningrecommendationsystem_tpu_torch.parallel.ep import (
+    STRATEGIES,
+    set_parameters,
+    unshard_table,
+)
+from deeplearningrecommendationsystem_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size, coordinate
 from deeplearningrecommendationsystem_tpu_torch.train import minibatch as _minibatch
 from deeplearningrecommendationsystem_tpu_torch.train.optim import torch_adam
 from deeplearningrecommendationsystem_tpu_torch.train.sparse import (
@@ -66,26 +86,34 @@ def merge_tables(params: Mapping[str, torch.Tensor], paths: Mapping[str, str],
     return out
 
 
-def _check(trainer: Trainer, mesh) -> None:
+def _check(trainer: Trainer, mesh, ep_strategy: str) -> None:
     if not hasattr(trainer.model, "sparse_tables"):
         raise TypeError(
             f"{type(trainer.model).__name__} does not implement the sparse-table protocol")
-    if mesh is not None and dict(getattr(mesh, "shape", {})).get("model", 1) > 1:
-        raise NotImplementedError(
-            "row-sharded (EP) tables are not ported yet; see ROADMAP.md §1 item 13")
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh: a parallel/mesh.py::make_mesh DeviceMesh, got "
+                        f"{type(mesh).__name__}")
+    if ep_strategy not in STRATEGIES:
+        raise ValueError(f"ep_strategy {ep_strategy!r}: one of {STRATEGIES}")
 
 
 class _SparseRun:
-    """The model's tables (its parameters' storage, updated in place), their
-    row-optimizer states and the dense remainder's Adam."""
+    """The model's tables (its parameters' storage, updated in place; this
+    rank's row blocks of them on a mesh), their row-optimizer states and the
+    dense remainder's Adam."""
 
-    def __init__(self, trainer: Trainer, optimizer: str, params: Optional[dict]):
+    def __init__(self, trainer: Trainer, optimizer: str, params: Optional[dict], mesh=None):
         model = trainer.model
         trainer._load(params, None)
         named = dict(model.named_parameters())
         self.model, self.lr = model, trainer.config.learning_rate
         self.dense, tables = pop_tables(named, model.sparse_tables)
         self.tables = {k: t.detach() for k, t in tables.items()}
+        self.mesh = mesh if mesh is not None and axis_size(mesh, MODEL_AXIS) > 1 else None
+        self.heights: Dict[str, int] = {}
+        if self.mesh is not None:
+            self.heights = {k: t.shape[0] for k, t in self.tables.items()}
+            self.tables = {k: shard_table(t, self.mesh) for k, t in self.tables.items()}
         dev = trainer.device
         if optimizer == "lazy_adam":
             self.states = {k: LazyAdamState.init(t.shape[0], t.shape[1], device=dev)
@@ -98,10 +126,21 @@ class _SparseRun:
         self.dense_opt = (torch_adam(self.dense.values(), self.lr, trainer.config.weight_decay)
                           if self.dense else None)
 
+    def _local_ids(self, k: str, ids: torch.Tensor) -> torch.Tensor:
+        """``ids`` into table ``k``'s block: another rank's id becomes the
+        block's height, the padding sentinel of ``train/sparse.py``."""
+        if self.mesh is None:
+            return ids
+        rows = self.tables[k].shape[0]
+        local = ids.long() - coordinate(self.mesh, MODEL_AXIS) * rows
+        return torch.where((local >= 0) & (local < rows), local, rows)
+
     def step(self, b, y) -> torch.Tensor:
         ids = self.model.table_ids(b)
         with torch.no_grad():
-            rows = {k: gather_rows(t, ids[k]) for k, t in self.tables.items()}
+            rows = {k: (gather_rows(t, ids[k]) if self.mesh is None
+                        else sharded_gather(t, ids[k].reshape(-1), self.mesh))
+                    for k, t in self.tables.items()}
         for r in rows.values():
             r.requires_grad_(True)
         if self.dense_opt is not None:
@@ -112,10 +151,22 @@ class _SparseRun:
             self.dense_opt.step()
         with torch.no_grad():
             for k, table in self.tables.items():
-                sparse_table_update(table, self.states[k], ids[k], rows[k].grad, self.lr)
+                sparse_table_update(table, self.states[k], self._local_ids(k, ids[k]),
+                                    rows[k].grad, self.lr)
         return loss.detach()
 
-    def result(self, epoch_losses: Iterable[torch.Tensor]) -> TrainResult:
+    def result(self, epoch_losses: Iterable[torch.Tensor], unshard: bool = True) -> TrainResult:
+        ep_heights = None
+        if self.mesh is not None:
+            paths = self.model.sparse_tables
+            if unshard:
+                named = dict(self.model.named_parameters())
+                with torch.no_grad():
+                    for k, t in self.tables.items():
+                        named[paths[k]].copy_(unshard_table(t, self.heights[k], self.mesh))
+            else:
+                set_parameters(self.model, {paths[k]: t for k, t in self.tables.items()})
+                ep_heights = {paths[k]: h for k, h in self.heights.items()}
         params = {k: v.detach().clone() for k, v in self.model.named_parameters()}
         dense_state = {}
         if self.dense_opt is not None:
@@ -123,7 +174,8 @@ class _SparseRun:
                 dense_state[name] = {k: v.detach().clone()
                                      for k, v in self.dense_opt.state[p].items()}
         return TrainResult(params=params, history={"train_loss": torch.stack(list(epoch_losses))},
-                           opt_state={"dense": dense_state, "sparse": self.states})
+                           opt_state={"dense": dense_state, "sparse": self.states},
+                           ep_heights=ep_heights)
 
 
 def fit_minibatch_sparse(
@@ -133,23 +185,25 @@ def fit_minibatch_sparse(
     batch_size: int,
     optimizer: str = "lazy_adam",  # 'lazy_adam' | 'rowwise_adagrad'
     mesh: Any = None,
+    ep_strategy: str = "psum",
     params: Any = None,
+    unshard: bool = True,  # False: keep tables row-sharded for sharded serving
 ) -> TrainResult:
     """Shuffled minibatch epochs with sparse row updates on the id tables.
 
     The model implements the sparse protocol (``sparse_tables``,
     ``table_ids``, ``apply_rows``: see ``models/mf.py``). ``rng`` seeds the
     host order (``train/minibatch.py::epoch_order``); ``params`` resumes the
-    weights."""
-    _check(trainer, mesh)
+    weights. With ``mesh`` (model axis > 1) the tables are row-sharded."""
+    _check(trainer, mesh, ep_strategy)
     batch, labels = _to_device(train, trainer.device)
-    run = _SparseRun(trainer, optimizer, params)
+    run = _SparseRun(trainer, optimizer, params, mesh)
     order = _minibatch.epoch_order(rng, labels.shape[0], trainer.config.epochs, batch_size)
     epoch_losses = []
     for perm in order.to(trainer.device):
         losses = [run.step(_minibatch.take_rows(batch, idx), labels[idx]) for idx in perm]
         epoch_losses.append(torch.stack(losses).mean())
-    return run.result(epoch_losses)
+    return run.result(epoch_losses, unshard)
 
 
 def fit_stream_sparse(
@@ -159,9 +213,11 @@ def fit_stream_sparse(
     batch_size: int,
     optimizer: str = "lazy_adam",
     mesh: Any = None,
+    ep_strategy: str = "psum",
     params: Any = None,
     prefetch: int = 2,
     seed: int = 0,
+    unshard: bool = True,
 ) -> TrainResult:
     """Row-sparse minibatch training fed by the host-streaming loader: the
     dataset stays in host memory (shuffled there with ``seed``) while the
@@ -169,14 +225,14 @@ def fit_stream_sparse(
     only the batch source differs. ``rng`` is the JAX signature's
     initialisation key: the model already holds its weights."""
     del rng
-    _check(trainer, mesh)
+    _check(trainer, mesh, ep_strategy)
     loader = StreamingLoader(train, batch_size, seed=seed, prefetch=prefetch,
                              device=trainer.device)
     if len(loader) == 0:
         raise ValueError(f"batch_size {batch_size} larger than the dataset ({loader.n} rows)")
-    run = _SparseRun(trainer, optimizer, params)
+    run = _SparseRun(trainer, optimizer, params, mesh)
     epoch_losses = []
     for _ in range(trainer.config.epochs):
         losses = [run.step(b, y) for b, y in loader.epoch()]
         epoch_losses.append(torch.stack(losses).mean())
-    return run.result(epoch_losses)
+    return run.result(epoch_losses, unshard)

@@ -35,9 +35,29 @@ initial weights when it is built. ``fit(params=..., opt_state=...)`` resumes
 from a ``TrainResult``'s ``params`` and ``opt_state`` (or from the JAX
 package's, through ``weights.py``).
 
-Row-sharded tables (``mesh``, with the JAX config's ``ep_strategy`` and
-``unshard_params``) are not ported yet (``ROADMAP.md`` §1 item 13). The JAX
-config's gather-route flags (``matmul_gather_bwd``, ``pallas_gather``,
+A ``mesh`` (``parallel/mesh.py::make_mesh``; one process per rank, every
+rank calling ``fit`` with its own rows of each split, as
+``parallel/data.py::pad_and_shard`` cuts them) trains data-parallel over its
+'data' axis and, where its 'model' axis is larger than 1, with the user/item
+tables row-sharded over that axis (EP, ``parallel/ep.py``): ``fit`` replaces
+each table by this rank's row block, and every lookup into it runs the
+``ep_strategy`` collective (``psum`` or ``scatter``). After the backward each
+gradient is summed over the right group: a table block's over the data
+group; a replicated parameter's over the data group under ``psum`` (each
+model rank of a data group holds the same rows) and over every rank under
+``scatter`` (each model rank holds other rows). The loss stays the JAX
+trainer's ``sum(w * l) / max(sum(w), 1)`` over the global batch, the global
+``sum(w)`` summed once a split, and the metrics (AUC included) are taken on
+the gathered global predictions. Every rank runs the same Adam on the same
+summed gradients, so the replicated parameters stay replicated, bit for bit;
+``history["_param_checksum"]`` sums the whole tables, so it is the same on
+every rank. ``unshard_params`` (default) gathers the tables back whole and
+unpadded at the end; ``unshard_params=False`` leaves the blocks in the model
+and in ``TrainResult.params`` for ``serving.py::ShardedRecommender``, with
+``TrainResult.ep_heights`` the tables' vocabularies. A group of one rank runs
+no collective: a ``(1, 1)`` mesh gives the run without one, bit for bit.
+
+The JAX config's gather-route flags (``matmul_gather_bwd``, ``pallas_gather``,
 ``onehot_gather``) are accepted and have no effect: they chose among TPU
 routes for the id lookup, and every route is the same kernel pair here (the
 gather and ``onehot_grad`` of ``ops/embedding.py``).
@@ -51,9 +71,26 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
 from deeplearningrecommendationsystem_tpu_torch.eval.pointwise import pointwise_metrics, true_auc
+from deeplearningrecommendationsystem_tpu_torch.parallel import collectives
+from deeplearningrecommendationsystem_tpu_torch.parallel.ep import (
+    STRATEGIES,
+    EmbeddingPartitioning,
+    embedding_partitioning,
+    set_parameters,
+    shard_model_tables,
+    unshard_table,
+)
+from deeplearningrecommendationsystem_tpu_torch.parallel.embedding import shard_table
+from deeplearningrecommendationsystem_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    axis_group,
+    axis_size,
+)
 from deeplearningrecommendationsystem_tpu_torch.train.optim import torch_adam
 
 Batch = Any  # model-specific: (users, items) for the pair family
@@ -69,7 +106,14 @@ class TrainConfig:
     # mixed precision: float params cast to this dtype for the forward and
     # backward (f32 master weights, f32 loss). None = pure f32 (parity mode).
     compute_dtype: Optional[str] = None
-    mesh: Any = None  # row-sharded tables: not ported yet, must stay None
+    # a ('data', 'model') DeviceMesh: DP over 'data', the user/item tables
+    # row-sharded over 'model' (EP) where it is larger than 1. None = one rank.
+    mesh: Any = None
+    ep_strategy: str = "psum"  # 'psum' | 'scatter' (parallel/ep.py)
+    # False = leave the tables row-sharded (vocab-padded) after fit for
+    # serving.py::ShardedRecommender; TrainResult.ep_heights then holds their
+    # vocabularies.
+    unshard_params: bool = True
     # the JAX gather routes, accepted with no effect (one kernel pair here)
     matmul_gather_bwd: bool = False
     pallas_gather: bool = False
@@ -82,6 +126,8 @@ class TrainResult:
     history: Dict[str, torch.Tensor]  # each entry [epochs], on the device
     extras: Dict[str, float] = dataclasses.field(default_factory=dict)
     opt_state: Optional[OptState] = None  # for resume
+    # name -> vocabulary of each table left row-sharded (unshard_params=False)
+    ep_heights: Optional[Dict[str, int]] = None
 
     def last(self) -> Dict[str, float]:
         out = {k: float(v[-1]) for k, v in self.history.items() if not k.startswith("_")}
@@ -89,8 +135,12 @@ class TrainResult:
         return out
 
 
-def _bce_with_logits(logits, labels, weights=None):
+def _bce_with_logits(logits, labels, weights=None, denom=None):
+    """The weighted mean BCE; with ``denom`` (the global ``max(sum(w), 1)`` of
+    a data-parallel batch) this rank's part of it, ``sum(w * l) / denom``."""
     losses = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
+    if denom is not None:
+        return torch.sum(losses if weights is None else losses * weights.to(losses.dtype)) / denom
     if weights is None:
         return losses.mean()
     w = weights.to(losses.dtype)
@@ -118,9 +168,11 @@ class Trainer:
 
     def __init__(self, model: nn.Module, config: TrainConfig, device: str | torch.device = "cuda",
                  aux_loss_fn=None, aux_weight: float = 1.0):
-        if config.mesh is not None:
-            raise NotImplementedError(
-                "row-sharded (EP) training is not ported yet; see ROADMAP.md §1 item 13")
+        if config.mesh is not None and not isinstance(config.mesh, DeviceMesh):
+            raise TypeError(f"mesh: a parallel/mesh.py::make_mesh DeviceMesh, got "
+                            f"{type(config.mesh).__name__}")
+        if config.ep_strategy not in STRATEGIES:
+            raise ValueError(f"ep_strategy {config.ep_strategy!r}: one of {STRATEGIES}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config
@@ -131,36 +183,116 @@ class Trainer:
             raise ValueError(f"aux_loss_fn {aux_loss_fn!r}: 'model', a callable or None")
         self.aux_loss_fn = None if self.fused_aux else aux_loss_fn
         self.aux_weight = aux_weight
+        # the EP policy while the model holds row blocks of its tables, and
+        # the tables' vocabularies by parameter name
+        self.ep: Optional[EmbeddingPartitioning] = None
+        self.ep_table_heights: Dict[str, int] = {}
 
     def _params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
 
+    # -- the parallel layer -------------------------------------------------
+    def batch_group(self):
+        """The ranks a data-parallel batch is cut over: the data group, or
+        every rank under the ``scatter`` lookup into sharded tables; None
+        without a mesh."""
+        mesh = self.config.mesh
+        if mesh is None:
+            return None
+        if self.ep is not None and self.ep.strategy == "scatter":
+            return collectives.world_group()
+        return axis_group(mesh, DATA_AXIS)
+
+    def _replace_params(self, new: Dict[str, torch.Tensor], moment) -> None:
+        """Replace the parameters named in ``new`` (a block for a table, or
+        back) and rebuild the optimizer, each replaced parameter's Adam
+        moments mapped by ``moment(name, tensor)``."""
+        old_state = {n: self.optimizer.state.get(p) for n, p in self._params().items()}
+        set_parameters(self.model, new)
+        self.optimizer = torch_adam(self.model.parameters(), self.config.learning_rate,
+                                    self.config.weight_decay)
+        for name, p in self._params().items():
+            st = old_state.get(name)
+            if st:
+                self.optimizer.state[p] = {
+                    k: moment(name, v) if name in new and v.dim() else v for k, v in st.items()}
+
+    def _shard_tables(self) -> None:
+        mesh = self.config.mesh
+        blocks, self.ep, self.ep_table_heights = shard_model_tables(
+            self._params(), mesh, self.config.ep_strategy)
+        self._replace_params({n: blocks[n] for n in self.ep_table_heights},
+                             lambda n, v: shard_table(v, mesh))
+
+    def _unshard_tables(self) -> None:
+        mesh, heights = self.config.mesh, self.ep_table_heights
+        full = lambda n, v: unshard_table(v, heights[n], mesh)  # noqa: E731
+        named = self._params()
+        self._replace_params({n: full(n, named[n]) for n in heights}, full)
+        self.ep, self.ep_table_heights = None, {}
+
+    def _sum_grads(self) -> None:
+        """Sum every gradient over its group: a table block's over the data
+        group, any other over the batch group."""
+        tables, rest = [], []
+        for name, p in self._params().items():
+            if p.grad is not None:
+                (tables if name in self.ep_table_heights else rest).append(p.grad)
+        collectives.sum_tensors_(tables, axis_group(self.config.mesh, DATA_AXIS))
+        collectives.sum_tensors_(rest, self.batch_group())
+
     # -- single step ------------------------------------------------------
-    def loss_fn(self, params: Dict[str, torch.Tensor], batch: Batch, labels, weights=None):
-        """(loss, logits): both float32, under the ``compute_dtype`` policy."""
+    def loss_fn(self, params: Dict[str, torch.Tensor], batch: Batch, labels, weights=None,
+                denom=None):
+        """(loss, logits): both float32, under the ``compute_dtype`` policy;
+        with ``denom`` the loss is this rank's part of a data-parallel one.
+        There the auxiliary term, a mean over this rank's block, is divided
+        by the batch group's size: every rank holds an equal block of the
+        global batch (``pad_and_shard``, ``StreamingLoader``), so the terms
+        sum to the JAX trainer's one mean over the global batch, its pad rows
+        included as there."""
         dt = self.config.compute_dtype
         p = _cast_floats(params, getattr(torch, dt)) if dt else params
         aux = None
-        if self.fused_aux:
-            logits, aux = self.model.apply_with_aux(p, batch)
-        else:
-            logits = self.model.apply_params(p, batch)
+        with embedding_partitioning(self.ep):
+            if self.fused_aux:
+                logits, aux = self.model.apply_with_aux(p, batch)
+            else:
+                logits = self.model.apply_params(p, batch)
         logits = logits.float()
-        loss = _bce_with_logits(logits, labels, weights)
-        if aux is not None:
-            loss = loss + self.aux_weight * aux.float()
+        loss = _bce_with_logits(logits, labels, weights, denom)
         if self.aux_loss_fn is not None:
-            loss = loss + self.aux_weight * self.aux_loss_fn(params, batch)
+            aux = self.aux_loss_fn(params, batch)
+        if aux is not None:
+            aux = aux.float()
+            if denom is not None:  # this rank's part of the global batch's mean
+                aux = aux / collectives.group_size(self.batch_group())
+            loss = loss + self.aux_weight * aux
         return loss, logits
 
-    def train_step(self, batch: Batch, labels, weights=None):
+    def train_step(self, batch: Batch, labels, weights=None, denom=None):
         """One Adam step on the model's parameters; returns the pre-update
-        (loss, logits), detached."""
+        (loss, logits), detached.
+
+        ``denom`` marks ``batch`` as this rank's block of a data-parallel
+        batch (the global ``max(sum(w), 1)``): the gradients are then summed
+        over their groups before the step, and the loss over the batch group."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, logits = self.loss_fn(self._params(), batch, labels, weights)
+        loss, logits = self.loss_fn(self._params(), batch, labels, weights, denom)
         loss.backward()
+        if denom is not None:
+            self._sum_grads()
         self.optimizer.step()
-        return loss.detach(), logits.detach()
+        loss = loss.detach()
+        if denom is not None:
+            loss = collectives.sum_over(loss, self.batch_group())
+        return loss, logits.detach()
+
+    def apply(self, batch: Batch) -> torch.Tensor:
+        """Float32 logits of ``batch`` under the current parameters (through
+        the sharded lookups while the model holds table blocks)."""
+        with embedding_partitioning(self.ep):
+            return self.model.apply_params(self._params(), batch).float()
 
     # -- state ------------------------------------------------------------
     @torch.no_grad()
@@ -189,13 +321,21 @@ class Trainer:
 
     def _checksum(self) -> torch.Tensor:
         """[1]: the sum of every param and Adam moment, leaf by leaf in the
-        JAX pytree's order (params by name, then first moments, then second)."""
+        JAX pytree's order (params by name, then first moments, then second);
+        a table block's sums are summed over the model group first."""
         named = sorted(self._params().items())
         leaves = [p.detach().float().sum() for _, p in named]
+        sharded = [name in self.ep_table_heights for name, _ in named]
         for key in ("exp_avg", "exp_avg_sq"):
-            leaves += [self.optimizer.state[p][key].float().sum()
-                       for _, p in named if p in self.optimizer.state]
-        return torch.stack(leaves).sum()[None]
+            for name, p in named:
+                if p in self.optimizer.state:
+                    leaves.append(self.optimizer.state[p][key].float().sum())
+                    sharded.append(name in self.ep_table_heights)
+        sums = torch.stack(leaves)
+        if any(sharded):
+            mask = torch.tensor(sharded, device=sums.device)
+            sums[mask] = collectives.sum_over(sums[mask], axis_group(self.config.mesh, MODEL_AXIS))
+        return sums.sum()[None]
 
     # -- full training run -------------------------------------------------
     def fit(
@@ -211,15 +351,34 @@ class Trainer:
 
         ``weights`` maps split name ('train'/'valid'/'test') to a mask array
         for the masked-matrix mode; None = every sample counts.
-        ``params``/``opt_state`` resume from a checkpoint.
+        ``params``/``opt_state`` resume from a checkpoint (whole tables).
+        Under a mesh each split is this rank's rows of it.
         """
         cfg = self.config
         dev = self.device
-        train, valid, test = (_to_device(s, dev) for s in (train, valid, test))
+        splits = {"train": train, "valid": valid, "test": test}
+        splits = {k: _to_device(s, dev) for k, s in splits.items() if s is not None}
         weights = {k: _to_device(v, dev) for k, v in (weights or {}).items()}
         self._load(params, opt_state)
+        if cfg.mesh is not None and axis_size(cfg.mesh, MODEL_AXIS) > 1:
+            self._shard_tables()
+        group = self.batch_group()
+        dp = group is not None and collectives.group_size(group) > 1
         track = cfg.track_metrics
-        apply = self.model.apply_params
+
+        def gathered(x):  # the global batch's values, on every rank
+            return collectives.all_gather_tiled(x, group) if dp and x is not None else x
+
+        # per split: the loss's global denominator, and the global labels and
+        # weights of the metrics
+        denom, glob = {}, {}
+        for name, (_, y) in splits.items():
+            w = weights.get(name)
+            if dp:
+                total = (w.float().sum() if w is not None
+                         else torch.tensor(float(y.shape[0]), device=y.device))
+                denom[name] = torch.clamp(collectives.sum_over(total, group), min=1.0)
+            glob[name] = (gathered(y), gathered(w))
 
         def split_metrics(prefix, logits, labels, w):
             m = pointwise_metrics(labels, torch.sigmoid(logits), w, include_auc_raw=False)
@@ -227,33 +386,37 @@ class Trainer:
             m[f"{prefix}_loss"] = _bce_with_logits(logits, labels, w)
             return m
 
-        train_batch, train_y = train
+        train_batch, train_y = splits["train"]
         rows = []
         for _ in range(cfg.epochs):
-            loss, logits = self.train_step(train_batch, train_y, weights.get("train"))
+            loss, logits = self.train_step(train_batch, train_y, weights.get("train"),
+                                           denom.get("train"))
             metrics = {"train_loss": loss}
             if track:
                 with torch.no_grad():
-                    m = split_metrics("train", logits, train_y, weights.get("train"))
+                    m = split_metrics("train", gathered(logits), *glob["train"])
                     metrics.update({k: v for k, v in m.items() if k != "train_loss"})
-                    for name, split in (("valid", valid), ("test", test)):
-                        if split is not None:
-                            b, y = split
-                            lg = apply(self._params(), b).float()
-                            metrics.update(split_metrics(name, lg, y, weights.get(name)))
+                    for name in ("valid", "test"):
+                        if name in splits:
+                            lg = gathered(self.apply(splits[name][0]))
+                            metrics.update(split_metrics(name, lg, *glob[name]))
             rows.append(metrics)
         history = {k: torch.stack([r[k] for r in rows]) for k in (rows[0] if rows else {})}
-        history["_param_checksum"] = self._checksum()
 
         extras: Dict[str, float] = {}
         if track:
             with torch.no_grad():
-                for name, split in (("train", train), ("valid", valid), ("test", test)):
-                    if split is None:
-                        continue
-                    b, y = split
-                    probs = torch.sigmoid(apply(self._params(), b).float())
-                    extras[f"{name}_auc_raw"] = float(true_auc(y, probs, weights.get(name)))
+                for name, (b, _) in splits.items():
+                    probs = torch.sigmoid(gathered(self.apply(b)))
+                    extras[f"{name}_auc_raw"] = float(true_auc(glob[name][0], probs,
+                                                               glob[name][1]))
+        ep_heights = None
+        if self.ep is not None:
+            if cfg.unshard_params:
+                self._unshard_tables()
+            else:
+                ep_heights = dict(self.ep_table_heights)
+        history["_param_checksum"] = self._checksum()
         final = {k: v.detach().clone() for k, v in self._params().items()}
         return TrainResult(params=final, history=history, extras=extras,
-                           opt_state=self.opt_state())
+                           opt_state=self.opt_state(), ep_heights=ep_heights)

@@ -1,7 +1,8 @@
 """The port's ``cli/run.py``, as ``tests/test_cli.py`` drives the JAX one, on
 a small synthetic ml-100k-format dataset (60 users, 300 items) on the CPU:
 ``--list``; a one-epoch ``--json`` run of every preset; bf16 with ``--plot``;
-the minibatch, stream and sparse training modes; ``--mesh``, not ported yet;
+the minibatch, stream and sparse training modes; ``--mesh`` outside
+``torchrun``;
 ``--plot`` without matplotlib; and
 ``runtime/logging.py::print_report``'s text against the JAX package's for
 the same result.
@@ -111,15 +112,17 @@ def test_plot_without_matplotlib_fails_before_training(data_dir, tmp_path, monke
               "--plot", str(tmp_path / "x.png")])
 
 
-@pytest.mark.parametrize("flags, item", [(["--train-mode", "sparse", "--mesh", "1,2"], "item 13"),
+@pytest.mark.parametrize("flags, item", [(["--train-mode", "sparse", "--mesh", "1,2"],
+                                          "no process group"),
                                          (["--train-mode", "minibatch", "--mesh", "1,2"],
-                                          "item 13"),
-                                         (["--mesh", "1,2"], "item 13")],
+                                          "no process group"),
+                                         (["--mesh", "1,2"], "no process group")],
                          ids=["sparse", "minibatch", "mesh"])
 def test_unported_flags_exit_naming_their_item(data_dir, flags, item):
     """Every training mode runs (``test_train_modes``); ``--mesh``, in any
-    mode, exits naming its item."""
-    with pytest.raises(SystemExit, match=f"ROADMAP.md §1 {item}"):
+    mode, runs only under ``torchrun`` (its ranks: ``tests/test_torch_runtime.py``)
+    and exits with a message in one process."""
+    with pytest.raises(SystemExit, match=item):
         main(["--model", "mf", "--epochs", "1", "--device", "cpu", "--data", data_dir] + flags)
 
 

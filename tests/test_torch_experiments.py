@@ -245,9 +245,11 @@ def test_other_presets_name_their_roadmap_item(dataset_dir):
                                   {"train_mode": "stream"}, {}],
                          ids=["minibatch", "sparse", "stream", "mesh"])
 def test_unported_modes_name_their_roadmap_item(dataset_dir, over):
-    """Every training mode is ported; a mesh, in any mode, still names its item."""
+    """Every training mode is ported; a mesh, in any mode, is laid over the
+    ranks of a process group (``tests/test_torch_parallel.py``), and without
+    one raises, naming the call that makes it."""
     pt = MovieLens100K(dataset_dir, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13"):
+    with pytest.raises(RuntimeError, match="no process group.*initialize"):
         experiments.run_experiment(PRESETS["mf"].replace(epochs=1, mesh_shape=(1, 2), **over),
                                    data=pt, device="cpu")
 
@@ -472,11 +474,12 @@ def test_build_server_trains_and_serves(dataset_dir):
 
 @pytest.mark.parametrize("flag", ["checkpoint", "mesh"])
 def test_build_server_unported_flags_exit(dataset_dir, flag):
-    """``--mesh`` exits naming its item, alone or with ``--checkpoint`` (a
-    checkpoint served from row-sharded tables is item 13's too; a checkpoint
-    alone is served, ``tests/test_torch_checkpoint.py``)."""
+    """``--mesh``, alone or with ``--checkpoint``, runs only under ``torchrun``
+    and exits with a message in one process, before training (the sharded
+    server on its ranks: ``tests/test_torch_runtime.py``; a checkpoint alone is
+    served, ``tests/test_torch_checkpoint.py``)."""
     flags = {"mesh": "1,2", **({"checkpoint": "x"} if flag == "checkpoint" else {})}
-    with pytest.raises(SystemExit, match="ROADMAP.md §1 item 13"):
+    with pytest.raises(SystemExit, match="no process group"):
         serve.build_server(_args(dataset_dir, **flags))
 
 

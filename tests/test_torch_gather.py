@@ -167,5 +167,18 @@ def test_out_of_range_ids_follow_the_jax_default_route():
 
 
 def test_gather_rows_rejects_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """``gather_rows`` takes no mesh: a lookup reaches one only through the
+    route that ``parallel/ep.py::embedding_partitioning`` registers (the
+    sharded lookups on a mesh: ``tests/test_torch_parallel.py``), and with
+    the scope closed it is the dense lookup again."""
+    with pytest.raises(TypeError, match="mesh"):
         gather_rows(torch.zeros(3, 2), torch.zeros(2, dtype=torch.int64), mesh=object())
+    from deeplearningrecommendationsystem_tpu_torch.ops import embedding as ops_embedding
+    from deeplearningrecommendationsystem_tpu_torch.parallel.ep import embedding_partitioning
+
+    assert ops_embedding.set_lookup_route(None) is None
+    with embedding_partitioning(None):
+        assert ops_embedding._route is None
+    table = torch.arange(6, dtype=torch.float32).reshape(3, 2)
+    ids = torch.tensor([[2, 0]])
+    assert torch.equal(gather_rows(table, ids), table[ids])

@@ -24,6 +24,13 @@
   top-k; on a CUDA tensor that is the kernel.
 * The streaming loader's pinned, side-stream copy delivers every batch whole
   on the card (a CUDA test).
+* The parallel layer: its modules (and ``tests/torch_ranks.py``, which the
+  multi-rank tests spawn) import no JAX; ``runtime/distributed.py``'s
+  ``local_device`` and ``initialize`` follow the device rule; a pair of
+  transport and device with no transport raises in ``parallel/collectives.py``
+  instead of switching transports; on 2 Gloo ranks every EP lookup goes
+  through the gather and onehot_grad wrappers, and every sharded top-k
+  through the two top-k wrappers.
 
 This file imports neither JAX nor the JAX package, so its CUDA test also runs
 on a machine that has only the port (``-m cuda --noconftest``).
@@ -76,6 +83,8 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_g
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lr_epoch
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mf_epoch
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as cuda_topk
+from deeplearningrecommendationsystem_tpu_torch.parallel import collectives
+from deeplearningrecommendationsystem_tpu_torch.runtime import distributed
 from deeplearningrecommendationsystem_tpu_torch.runtime.checkpoint import CheckpointManager
 from deeplearningrecommendationsystem_tpu_torch.sampling import NegativeSampler
 from deeplearningrecommendationsystem_tpu_torch.serving import Recommender
@@ -92,7 +101,8 @@ from deeplearningrecommendationsystem_tpu_torch.train import (
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "deeplearningrecommendationsystem_tpu_torch"
-PORT_FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                              ROOT / "tests" / "torch_ranks.py"]
 FORBIDDEN = {"jax", "jaxlib", "deeplearningrecommendationsystem_tpu"}
 WRAPPERS = ["topk_serve_matmul", "topk_scores"]
 
@@ -149,7 +159,18 @@ def test_port_files_are_found():
             "deeplearningrecommendationsystem_tpu_torch/train/sparse_trainer.py",
             "deeplearningrecommendationsystem_tpu_torch/cf/neighborhood.py",
             "deeplearningrecommendationsystem_tpu_torch/cf/gdcf.py",
-            "deeplearningrecommendationsystem_tpu_torch/cli/cf.py"} <= names
+            "deeplearningrecommendationsystem_tpu_torch/cli/cf.py",
+            "deeplearningrecommendationsystem_tpu_torch/parallel/__init__.py",
+            "deeplearningrecommendationsystem_tpu_torch/parallel/mesh.py",
+            "deeplearningrecommendationsystem_tpu_torch/parallel/collectives.py",
+            "deeplearningrecommendationsystem_tpu_torch/parallel/data.py",
+            "deeplearningrecommendationsystem_tpu_torch/parallel/embedding.py",
+            "deeplearningrecommendationsystem_tpu_torch/parallel/ep.py",
+            "deeplearningrecommendationsystem_tpu_torch/parallel/serving.py",
+            "deeplearningrecommendationsystem_tpu_torch/runtime/distributed.py",
+            "deeplearningrecommendationsystem_tpu_torch/runtime/scaling_model.py",
+            "deeplearningrecommendationsystem_tpu_torch/data/native.py",
+            "tests/torch_ranks.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -215,6 +236,8 @@ ENTRY_POINTS = {
     "fit_stream_sparse": lambda: fit_stream_sparse(_cpu_trainer_on_cuda(), 0, _pairs(np), 2),
     "LazyAdamState.init": lambda: LazyAdamState.init(6, 8),
     "RowwiseAdagradState.init": lambda: RowwiseAdagradState.init(6),
+    "local_device": lambda: distributed.local_device(),
+    "initialize": lambda: distributed.initialize(),
 }
 
 
@@ -750,3 +773,71 @@ def test_cf_launches_the_topk_kernel(cuda):
     assert cuda_topk.topk_scores.launches == before + 2
     want = cf.user_cf_recommend(m, k_neighbors=5, top_n=10, device="cpu")
     assert rec.shape == want.shape == (40, 10)
+
+
+# ---- the parallel layer
+
+def test_local_device_follows_the_device_rule(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert distributed.local_device() == torch.device("cuda:3")
+    monkeypatch.delenv("LOCAL_RANK")
+    assert distributed.local_device() == torch.device("cuda:0")
+    assert distributed.local_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distributed.local_device()
+    assert distributed.local_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("backend, device, stages", [
+    ("nccl", "cuda", False), ("gloo", "cpu", False), ("gloo", "cuda", True),
+    ("nccl", "cpu", None), ("mpi", "cpu", None), ("gloo", "meta", None)])
+def test_collectives_never_switch_transport(monkeypatch, backend, device, stages):
+    """NCCL moves CUDA tensors, Gloo CPU tensors and (staged through the host)
+    CUDA tensors; every other pair raises, and a sum over more than one rank
+    with such a pair raises before any transport is touched."""
+    monkeypatch.setattr(collectives.dist, "get_backend", lambda group=None: backend)
+    t = types.SimpleNamespace(device=torch.device(device))
+    if stages is None:
+        with pytest.raises(RuntimeError, match="no transport"):
+            collectives._stages(None, t)
+        monkeypatch.setattr(collectives, "group_size", lambda group: 2)
+        monkeypatch.setattr(collectives.dist, "all_reduce", _never)
+        with pytest.raises(RuntimeError, match="no transport"):
+            collectives.sum_over(torch.ones(3, device=device if device != "cuda" else "cpu"),
+                                 None)
+    else:
+        assert collectives._stages(None, t) is stages
+
+
+def test_collectives_source_has_no_switch():
+    """The transport is the group's: the module never picks a backend, never
+    opens a group, and never moves a tensor to another device but the
+    staging copy of Gloo."""
+    src = (PACKAGE / "parallel" / "collectives.py").read_text()
+    for banned in ("init_process_group(", "new_group(", "set_device(", ".to(\"cpu", "cuda()"):
+        assert banned not in src, banned
+    assert src.count(".cpu()") == 1  # the staging copy
+
+
+def test_ep_lookups_and_sharded_topk_go_through_the_wrappers():
+    import torch_ranks
+
+    rng = np.random.default_rng(0)
+    table = rng.standard_normal((13, 4)).astype(np.float32)
+    ids = rng.integers(0, 13, 8)
+    out = distributed.spawn(torch_ranks.lookup_rank, 2,
+                            args=(table, ids, np.ones((8, 4), np.float32), (7,)),
+                            deadline_s=120.0)
+    for o in out:
+        for strategy in ("psum", "scatter"):
+            assert o[strategy]["calls"] == {"gather_rows": 1, "onehot_grad": 1,
+                                            "topk_serve_matmul": 0, "topk_scores": 0}
+    P, Q = rng.standard_normal((5, 4)).astype(np.float32), table
+    out = distributed.spawn(torch_ranks.serving_rank, 2,
+                            args=([dict(name="topk", op="topk", P=P, Q=Q, k=3)],),
+                            deadline_s=120.0)
+    for o in out:
+        assert o["topk"]["calls"] == {"gather_rows": 0, "onehot_grad": 0,
+                                      "topk_serve_matmul": 1, "topk_scores": 1}

@@ -12,7 +12,7 @@ inputs.
   ``tests/test_torch_minibatch.py`` does) and ``fit_stream_sparse`` (the NumPy
   order is the JAX package's) on MF and a narrow DeepFM, with both
   optimizers: losses rtol 1e-5, tables, dense params and states atol 1e-5.
-* A mesh with a model axis raises naming ``ROADMAP.md`` §1 item 13; a model
+* A mesh that is no DeviceMesh, or an unknown strategy, raises; a model
   without the protocol raises.
 """
 
@@ -262,12 +262,16 @@ def test_mesh_raises():
     trainer = Trainer(MatrixFactorization(U, I, 8, device="cpu"), TrainConfig(epochs=1),
                       device="cpu")
     (batch, y) = _pair(np.random.default_rng(0))
+    """A mesh is a ``parallel/mesh.py::make_mesh`` DeviceMesh (the mesh runs
+    are ``tests/test_torch_parallel.py``'s), and the lookup strategy one of two."""
     mesh = types.SimpleNamespace(shape={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fit_minibatch_sparse(trainer, 0, (_tree(batch, torch.from_numpy), torch.from_numpy(y)),
                              BS, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fit_stream_sparse(trainer, 0, (batch, y), BS, mesh=mesh)
+    with pytest.raises(ValueError, match="ep_strategy"):
+        fit_stream_sparse(trainer, 0, (batch, y), BS, ep_strategy="gather")
 
 
 def test_model_without_the_protocol_raises():

@@ -6,7 +6,7 @@ the JAX package's.
   both), on the CPU as tensors;
 * ``fit_stream`` on MF and a narrow DeepFM from the same weights: losses rtol
   1e-5, params atol 1e-5 (as ``tests/test_torch_minibatch.py``);
-* a ``sharding`` raises naming ``ROADMAP.md`` §1 item 13, and the loader
+* a ``sharding`` keeps this rank's block of each batch, and the loader
   defaults to CUDA, raising where there is none.
 
 The pinned, side-stream copy is the CUDA route; ``chip_smoke.py``'s ``stream``
@@ -16,6 +16,8 @@ that imports no JAX) drive it on the card.
 
 import jax
 import jax.numpy as jnp
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -82,10 +84,18 @@ def test_streaming_loader_equals_jax():
 
 
 def test_sharding_raises_and_cuda_is_the_default(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13"):
-        stream.StreamingLoader(np.zeros(4), 2, sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13"):
-        list(stream.prefetch_to_device(iter([np.zeros(2)]), sharding=object(), device="cpu"))
+    """A ``sharding`` keeps this rank's block of every batch's rows (a
+    ``parallel/mesh.py::RowSharding``; here a stand-in holding the second of
+    two blocks), and raises where the batch does not split into its blocks."""
+    second_half = types.SimpleNamespace(parts=2, take=lambda a: a[len(a) // 2:])
+    with pytest.raises(ValueError, match="does not split into 2 blocks"):
+        stream.StreamingLoader(np.zeros(8), 3, sharding=second_half, device="cpu")
+    rows = np.arange(8)
+    got = list(stream.StreamingLoader(rows, 4, seed=1, sharding=second_half, device="cpu").epoch())
+    want = list(stream.StreamingLoader(rows, 4, seed=1, device="cpu").epoch())
+    assert [g.tolist() for g in got] == [w[2:].tolist() for w in want]
+    (block,) = stream.prefetch_to_device(iter([np.arange(6)]), sharding=second_half, device="cpu")
+    assert block.tolist() == [3, 4, 5]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         stream.StreamingLoader(np.zeros(4), 2)

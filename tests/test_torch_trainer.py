@@ -155,21 +155,26 @@ def test_checksum_leaves_out_the_step_count(data):
 
 
 def test_trainer_rejects_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """A mesh is a ``parallel/mesh.py::make_mesh`` DeviceMesh (the mesh runs
+    are ``tests/test_torch_parallel.py``'s), and the lookup strategy one of
+    the two."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(MatrixFactorization(U, I, D, device="cpu"), TrainConfig(mesh=object()),
+                device="cpu")
+    with pytest.raises(ValueError, match="ep_strategy"):
+        Trainer(MatrixFactorization(U, I, D, device="cpu"), TrainConfig(ep_strategy="gather"),
                 device="cpu")
 
 
 def test_config_takes_the_jax_fields():
-    """Every field of the JAX ``TrainConfig`` but the row-sharding pair
-    (``ep_strategy``, ``unshard_params``: they come with ``mesh``) builds the
-    port's, with the JAX defaults."""
+    """Every field of the JAX ``TrainConfig`` builds the port's, with the JAX
+    defaults."""
     import dataclasses
 
-    jax_fields = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
-    shared = {k: v for k, v in jax_fields.items() if k not in ("ep_strategy", "unshard_params")}
+    shared = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
     cfg = TrainConfig(**shared)
     assert {f.name for f in dataclasses.fields(TrainConfig)} == set(shared)
+    assert (cfg.ep_strategy, cfg.unshard_params) == ("psum", True)
     for name in ("matmul_gather_bwd", "pallas_gather", "onehot_gather"):
         assert getattr(cfg, name) is False
         assert TrainConfig(**{name: True}).mesh is None
