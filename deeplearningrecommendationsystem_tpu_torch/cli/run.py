@@ -139,7 +139,8 @@ def parser() -> argparse.ArgumentParser:
         "accepted, no effect: every lookup is the gather kernel pair",
     )
     ap.add_argument("--profile", metavar="DIR",
-                    help="capture a torch.profiler trace to DIR/trace.json")
+                    help="capture a torch.profiler trace to DIR/trace.json and the "
+                    "program's spans and counters to DIR/spans.json")
     ap.add_argument(
         "--debug-nans", action="store_true",
         help="fail on a NaN gradient (autograd anomaly mode; checks the backward)",

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
+from deeplearningrecommendationsystem_tpu_torch.runtime import profiler
 
 
 def init_generator(generator: Optional[torch.Generator],
@@ -81,7 +82,7 @@ def catalog_scores_from_features(apply_fn: Callable, params: Any, ctx: ServingCo
     tile of ``tile`` users builds its [tile * I, 45] feature block on the
     device (user id, item id, user block, item block broadcast together) and
     scores it in one call, so the all-pairs matrix never exists at once. The
-    last tile is shorter instead of padded.
+    last tile is shorter instead of padded. Span: ``serve.tile``, a tile.
     """
     U, I = ctx.num_users, ctx.num_items
     dev = ctx.user_features.device
@@ -91,13 +92,14 @@ def catalog_scores_from_features(apply_fn: Callable, params: Any, ctx: ServingCo
     )  # [I, 20]
     scores = torch.empty((U, I), dtype=torch.float32, device=dev)
     for u0 in range(0, U, tile):
-        ids = torch.arange(u0, min(U, u0 + tile), device=dev)
-        T = ids.shape[0]
-        u_col = ids.float()[:, None, None].expand(T, I, 1)
-        u_feat = uf[ids][:, None, :].expand(T, I, uf.shape[1])
-        i_blk = item_block[None].expand(T, I, item_block.shape[1])
-        x = torch.cat([u_col, i_blk[..., :1], u_feat, i_blk[..., 1:]], dim=-1)
-        scores[u0:u0 + T] = apply_fn(params, x.reshape(T * I, -1)).reshape(T, I)
+        with profiler.span("serve.tile"):
+            ids = torch.arange(u0, min(U, u0 + tile), device=dev)
+            T = ids.shape[0]
+            u_col = ids.float()[:, None, None].expand(T, I, 1)
+            u_feat = uf[ids][:, None, :].expand(T, I, uf.shape[1])
+            i_blk = item_block[None].expand(T, I, item_block.shape[1])
+            x = torch.cat([u_col, i_blk[..., :1], u_feat, i_blk[..., 1:]], dim=-1)
+            scores[u0:u0 + T] = apply_fn(params, x.reshape(T * I, -1)).reshape(T, I)
     return scores
 
 
@@ -174,6 +176,14 @@ def catalog_scores_full_history(
     and ``apply_embedded_fn(params, (hist_e [B, Lb, D], target [B], length
     [B])) -> [B]``, each user tile's history is embedded once and broadcast
     across the item chunks; the scores are the same.
+
+    Spans: ``serve.buckets`` around building each bucket's padded histories
+    and lengths and copying them to the device, ``serve.tile`` around each
+    user tile. While recording, the counters ``serve.positions_real`` (each
+    user's history length times the items) and ``serve.positions_scored``
+    (each bucket's users times its length times the items padded to whole
+    chunks): their ratio is the share of the scored (user, item, position)
+    work that is not padding.
     """
     dev = torch.device(device)
     U = len(histories)
@@ -190,6 +200,8 @@ def catalog_scores_full_history(
     targets = torch.zeros(i_pad, dtype=torch.int64, device=dev)
     targets[:num_items] = torch.arange(num_items, device=dev)
     targets = targets.reshape(-1, chunk)
+    if profiler.is_recording():
+        profiler.count("serve.positions_real", int(lengths.sum()) * num_items)
     lo = 0
     for Lb in bucket_list:
         sel = np.where((lengths > lo) & (lengths <= Lb))[0]
@@ -197,28 +209,31 @@ def catalog_scores_full_history(
         if sel.size == 0:
             continue
         tile = max(1, min(64, elem_budget // (chunk * Lb * 64)))
-        hist_b = np.zeros((sel.size, Lb), dtype=np.int64)  # right-pad with 0
-        len_b = np.ones((sel.size,), dtype=np.int64)
-        for j, u in enumerate(sel):
-            h = np.asarray(histories[u], dtype=np.int64)
-            hist_b[j, :len(h)] = h
-            len_b[j] = max(len(h), 1)
-        hist_d, len_d = torch.from_numpy(hist_b).to(dev), torch.from_numpy(len_b).to(dev)
-        sel_d = torch.from_numpy(sel).to(dev)
+        with profiler.span("serve.buckets"):
+            hist_b = np.zeros((sel.size, Lb), dtype=np.int64)  # right-pad with 0
+            len_b = np.ones((sel.size,), dtype=np.int64)
+            for j, u in enumerate(sel):
+                h = np.asarray(histories[u], dtype=np.int64)
+                hist_b[j, :len(h)] = h
+                len_b[j] = max(len(h), 1)
+            hist_d, len_d = torch.from_numpy(hist_b).to(dev), torch.from_numpy(len_b).to(dev)
+            sel_d = torch.from_numpy(sel).to(dev)
+        profiler.count("serve.positions_scored", sel.size * Lb * i_pad)
         for u0 in range(0, sel.size, tile):
-            hist_t, len_t = hist_d[u0:u0 + tile], len_d[u0:u0 + tile]
-            T = hist_t.shape[0]
-            he_t = embed_fn(params, hist_t) if embed_once else None  # [T, Lb, D]
-            lens = len_t.repeat_interleave(chunk)
-            out = []
-            for tgt in targets:
-                t = tgt.repeat(T)
-                if embed_once:
-                    D = he_t.shape[-1]
-                    he = he_t[:, None].expand(T, chunk, Lb, D).reshape(-1, Lb, D)
-                    out.append(apply_embedded_fn(params, (he, t, lens)).reshape(T, chunk))
-                else:
-                    h = hist_t[:, None, :].expand(T, chunk, Lb).reshape(-1, Lb)
-                    out.append(apply_len_fn(params, (h, t, lens)).reshape(T, chunk))
-            scores[sel_d[u0:u0 + T]] = torch.cat(out, dim=1)[:, :num_items].float()
+            with profiler.span("serve.tile"):
+                hist_t, len_t = hist_d[u0:u0 + tile], len_d[u0:u0 + tile]
+                T = hist_t.shape[0]
+                he_t = embed_fn(params, hist_t) if embed_once else None  # [T, Lb, D]
+                lens = len_t.repeat_interleave(chunk)
+                out = []
+                for tgt in targets:
+                    t = tgt.repeat(T)
+                    if embed_once:
+                        D = he_t.shape[-1]
+                        he = he_t[:, None].expand(T, chunk, Lb, D).reshape(-1, Lb, D)
+                        out.append(apply_embedded_fn(params, (he, t, lens)).reshape(T, chunk))
+                    else:
+                        h = hist_t[:, None, :].expand(T, chunk, Lb).reshape(-1, Lb)
+                        out.append(apply_len_fn(params, (h, t, lens)).reshape(T, chunk))
+                scores[sel_d[u0:u0 + T]] = torch.cat(out, dim=1)[:, :num_items].float()
     return scores

@@ -26,6 +26,7 @@ from deeplearningrecommendationsystem_tpu_torch.ops.serving_topk import (
     topk_serve_matmul,
     topk_two_stage,
 )
+from deeplearningrecommendationsystem_tpu_torch.runtime.profiler import span
 
 # above this many items the factored path takes the two-stage top-k
 TWO_STAGE_MIN_ITEMS = 8192
@@ -70,11 +71,13 @@ class Recommender:
 
     @torch.no_grad()
     def refresh(self) -> None:
-        """(Re)score the full catalog -- call after a params update."""
-        scores = self.model.score_catalog(self.ctx)
-        if self.seen is not None:
-            scores = mask_seen(scores, self.seen)
-        self._scores = scores
+        """(Re)score the full catalog -- call after a params update. Span:
+        ``serve.refresh``."""
+        with span("serve.refresh"):
+            scores = self.model.score_catalog(self.ctx)
+            if self.seen is not None:
+                scores = mask_seen(scores, self.seen)
+            self._scores = scores
 
     @property
     def scores(self) -> torch.Tensor:
@@ -93,15 +96,19 @@ class Recommender:
         return torch.as_tensor(np.asarray(ids, dtype=np.int64), device=self.device)
 
     def top_k_with_scores(self, k: int, users: Optional[Sequence[int]] = None):
-        """(ids [n, k], scores [n, k]) as NumPy -- the HTTP server's query surface."""
-        idx = self._top_k(k, users)
-        u = self._index(users)
-        rows = self.scores if u is None else self.scores[u]
-        return idx.cpu().numpy(), torch.gather(rows, 1, idx.long()).cpu().numpy()
+        """(ids [n, k], scores [n, k]) as NumPy -- the HTTP server's query
+        surface. Span: ``serve.top_k``."""
+        with span("serve.top_k"):
+            idx = self._top_k(k, users)
+            u = self._index(users)
+            rows = self.scores if u is None else self.scores[u]
+            return idx.cpu().numpy(), torch.gather(rows, 1, idx.long()).cpu().numpy()
 
     def top_k(self, k: int, users: Optional[Sequence[int]] = None) -> np.ndarray:
-        """[len(users), k] recommended item ids (all users by default), as NumPy."""
-        return self._top_k(k, users).cpu().numpy()
+        """[len(users), k] recommended item ids (all users by default), as
+        NumPy. Span: ``serve.top_k``."""
+        with span("serve.top_k"):
+            return self._top_k(k, users).cpu().numpy()
 
     @torch.no_grad()
     def _top_k(self, k: int, users: Optional[Sequence[int]]) -> torch.Tensor:

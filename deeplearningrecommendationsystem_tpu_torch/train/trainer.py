@@ -91,6 +91,7 @@ from deeplearningrecommendationsystem_tpu_torch.parallel.mesh import (
     axis_group,
     axis_size,
 )
+from deeplearningrecommendationsystem_tpu_torch.runtime.profiler import span
 from deeplearningrecommendationsystem_tpu_torch.train.optim import torch_adam
 
 Batch = Any  # model-specific: (users, items) for the pair family
@@ -276,13 +277,21 @@ class Trainer:
 
         ``denom`` marks ``batch`` as this rank's block of a data-parallel
         batch (the global ``max(sum(w), 1)``): the gradients are then summed
-        over their groups before the step, and the loss over the batch group."""
+        over their groups before the step, and the loss over the batch group.
+
+        Spans (``runtime/profiler.py``): ``train.forward``, ``train.backward``
+        (with the gradients' sums) and ``train.optimizer`` (the Adam step);
+        ``zero_grad``, which sets the gradients to None and does no device
+        work, runs before them."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, logits = self.loss_fn(self._params(), batch, labels, weights, denom)
-        loss.backward()
-        if denom is not None:
-            self._sum_grads()
-        self.optimizer.step()
+        with span("train.forward"):
+            loss, logits = self.loss_fn(self._params(), batch, labels, weights, denom)
+        with span("train.backward"):
+            loss.backward()
+            if denom is not None:
+                self._sum_grads()
+        with span("train.optimizer"):
+            self.optimizer.step()
         loss = loss.detach()
         if denom is not None:
             loss = collectives.sum_over(loss, self.batch_group())
@@ -352,71 +361,74 @@ class Trainer:
         ``weights`` maps split name ('train'/'valid'/'test') to a mask array
         for the masked-matrix mode; None = every sample counts.
         ``params``/``opt_state`` resume from a checkpoint (whole tables).
-        Under a mesh each split is this rank's rows of it.
+        Under a mesh each split is this rank's rows of it. Spans: ``train.fit``
+        around the whole call, ``train.epoch`` around each epoch.
         """
-        cfg = self.config
-        dev = self.device
-        splits = {"train": train, "valid": valid, "test": test}
-        splits = {k: _to_device(s, dev) for k, s in splits.items() if s is not None}
-        weights = {k: _to_device(v, dev) for k, v in (weights or {}).items()}
-        self._load(params, opt_state)
-        if cfg.mesh is not None and axis_size(cfg.mesh, MODEL_AXIS) > 1:
-            self._shard_tables()
-        group = self.batch_group()
-        dp = group is not None and collectives.group_size(group) > 1
-        track = cfg.track_metrics
+        with span("train.fit"):
+            cfg = self.config
+            dev = self.device
+            splits = {"train": train, "valid": valid, "test": test}
+            splits = {k: _to_device(s, dev) for k, s in splits.items() if s is not None}
+            weights = {k: _to_device(v, dev) for k, v in (weights or {}).items()}
+            self._load(params, opt_state)
+            if cfg.mesh is not None and axis_size(cfg.mesh, MODEL_AXIS) > 1:
+                self._shard_tables()
+            group = self.batch_group()
+            dp = group is not None and collectives.group_size(group) > 1
+            track = cfg.track_metrics
 
-        def gathered(x):  # the global batch's values, on every rank
-            return collectives.all_gather_tiled(x, group) if dp and x is not None else x
+            def gathered(x):  # the global batch's values, on every rank
+                return collectives.all_gather_tiled(x, group) if dp and x is not None else x
 
-        # per split: the loss's global denominator, and the global labels and
-        # weights of the metrics
-        denom, glob = {}, {}
-        for name, (_, y) in splits.items():
-            w = weights.get(name)
-            if dp:
-                total = (w.float().sum() if w is not None
-                         else torch.tensor(float(y.shape[0]), device=y.device))
-                denom[name] = torch.clamp(collectives.sum_over(total, group), min=1.0)
-            glob[name] = (gathered(y), gathered(w))
+            # per split: the loss's global denominator, and the global labels and
+            # weights of the metrics
+            denom, glob = {}, {}
+            for name, (_, y) in splits.items():
+                w = weights.get(name)
+                if dp:
+                    total = (w.float().sum() if w is not None
+                             else torch.tensor(float(y.shape[0]), device=y.device))
+                    denom[name] = torch.clamp(collectives.sum_over(total, group), min=1.0)
+                glob[name] = (gathered(y), gathered(w))
 
-        def split_metrics(prefix, logits, labels, w):
-            m = pointwise_metrics(labels, torch.sigmoid(logits), w, include_auc_raw=False)
-            m = {f"{prefix}_{k}": v for k, v in m.items()}
-            m[f"{prefix}_loss"] = _bce_with_logits(logits, labels, w)
-            return m
+            def split_metrics(prefix, logits, labels, w):
+                m = pointwise_metrics(labels, torch.sigmoid(logits), w, include_auc_raw=False)
+                m = {f"{prefix}_{k}": v for k, v in m.items()}
+                m[f"{prefix}_loss"] = _bce_with_logits(logits, labels, w)
+                return m
 
-        train_batch, train_y = splits["train"]
-        rows = []
-        for _ in range(cfg.epochs):
-            loss, logits = self.train_step(train_batch, train_y, weights.get("train"),
-                                           denom.get("train"))
-            metrics = {"train_loss": loss}
+            train_batch, train_y = splits["train"]
+            rows = []
+            for _ in range(cfg.epochs):
+                with span("train.epoch"):
+                    loss, logits = self.train_step(train_batch, train_y, weights.get("train"),
+                                                   denom.get("train"))
+                    metrics = {"train_loss": loss}
+                    if track:
+                        with torch.no_grad():
+                            m = split_metrics("train", gathered(logits), *glob["train"])
+                            metrics.update({k: v for k, v in m.items() if k != "train_loss"})
+                            for name in ("valid", "test"):
+                                if name in splits:
+                                    lg = gathered(self.apply(splits[name][0]))
+                                    metrics.update(split_metrics(name, lg, *glob[name]))
+                    rows.append(metrics)
+            history = {k: torch.stack([r[k] for r in rows]) for k in (rows[0] if rows else {})}
+
+            extras: Dict[str, float] = {}
             if track:
                 with torch.no_grad():
-                    m = split_metrics("train", gathered(logits), *glob["train"])
-                    metrics.update({k: v for k, v in m.items() if k != "train_loss"})
-                    for name in ("valid", "test"):
-                        if name in splits:
-                            lg = gathered(self.apply(splits[name][0]))
-                            metrics.update(split_metrics(name, lg, *glob[name]))
-            rows.append(metrics)
-        history = {k: torch.stack([r[k] for r in rows]) for k in (rows[0] if rows else {})}
-
-        extras: Dict[str, float] = {}
-        if track:
-            with torch.no_grad():
-                for name, (b, _) in splits.items():
-                    probs = torch.sigmoid(gathered(self.apply(b)))
-                    extras[f"{name}_auc_raw"] = float(true_auc(glob[name][0], probs,
-                                                               glob[name][1]))
-        ep_heights = None
-        if self.ep is not None:
-            if cfg.unshard_params:
-                self._unshard_tables()
-            else:
-                ep_heights = dict(self.ep_table_heights)
-        history["_param_checksum"] = self._checksum()
-        final = {k: v.detach().clone() for k, v in self._params().items()}
-        return TrainResult(params=final, history=history, extras=extras,
-                           opt_state=self.opt_state(), ep_heights=ep_heights)
+                    for name, (b, _) in splits.items():
+                        probs = torch.sigmoid(gathered(self.apply(b)))
+                        extras[f"{name}_auc_raw"] = float(true_auc(glob[name][0], probs,
+                                                                   glob[name][1]))
+            ep_heights = None
+            if self.ep is not None:
+                if cfg.unshard_params:
+                    self._unshard_tables()
+                else:
+                    ep_heights = dict(self.ep_table_heights)
+            history["_param_checksum"] = self._checksum()
+            final = {k: v.detach().clone() for k, v in self._params().items()}
+            return TrainResult(params=final, history=history, extras=extras,
+                               opt_state=self.opt_state(), ep_heights=ep_heights)
