@@ -43,7 +43,14 @@ no result line.
    (check_din_bf16_bwd, a limit in proportion to the relu inputs near a kink,
    and a fixed excess over the plain version's rows off the float64 sums);
    the bf16 forward at the train batch on the inputs of each of
-   DIN_BF16_FWD_SEEDS;
+   DIN_BF16_FWD_SEEDS. DIN's full-history catalog scorer
+   (``din_full_history``: the ragged attention kernel, then the float32 head's
+   fc head) at the din-refresh cell's shapes: the fixture's complete histories
+   of every user against every item, held against its plain version (the
+   bucketed, masked scorer) and timed beside it, its bound from the products
+   it needs (``ops/din_full_history.py::products_needed``: the first
+   attention layer once per item; 3xTF32, three TF32 products each), no
+   library call computing it;
 4. train   -- the MF training path (slice 2) through the entry points a user
    calls: ``run_experiment(PRESETS["mf"])`` for 20 epochs at full width on a
    synthetic ml-100k-format dataset, then ``MatrixFactorization.fast_fit`` on
@@ -82,7 +89,8 @@ no result line.
    the DIN head kernels' bf16 path, held against a CPU ``Trainer.fit`` in bf16;
 12. serve_din -- ``cli/serve.py::build_server --model din``: the preset's
    full-history serving (trained through the DIN head kernels, scored through
-   the masked plain-torch route), answers held against the stable top-k of the
+   the full-history kernel and its fc head, a pair of launches for each chunk
+   of users, in the ranking evaluation and in the server's refresh), answers held against the stable top-k of the
    served scores, and the full-history scores of a few users (the longest
    history among them) against the CPU's;
 13. din_depth -- DIN with an attention net of one hidden layer, which
@@ -234,6 +242,7 @@ from deeplearningrecommendationsystem_tpu_torch.models import MatrixFactorizatio
 from deeplearningrecommendationsystem_tpu_torch.models.base import catalog_scores_from_pairs
 from deeplearningrecommendationsystem_tpu_torch.ops import afm_attention as afm
 from deeplearningrecommendationsystem_tpu_torch.ops import din_attention as dinatt
+from deeplearningrecommendationsystem_tpu_torch.ops import din_full_history as dfh
 from deeplearningrecommendationsystem_tpu_torch.ops import din_head as dh
 from deeplearningrecommendationsystem_tpu_torch.ops import gather as gat
 from deeplearningrecommendationsystem_tpu_torch.ops import lr_epoch as lre
@@ -242,6 +251,7 @@ from deeplearningrecommendationsystem_tpu_torch.ops import serving_topk as topk
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import afm_attention as cuda_afm
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import build
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_attention as cuda_dinatt
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_full_history as cuda_dfh
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import din_head as cuda_dh
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_gather
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lre
@@ -341,6 +351,7 @@ FEATURE_TILE_RTOL = 1e-5
 FEATURE_ROWS_SEED = 4  # the lookup pair's rows at the feature presets' widths draw from their own generator
 EP_ROWS_SEED = 7  # ... and the lookup pair's and top-k rows at the mesh phase's EP blocks
 PAIR_SEQ_ROWS_SEED = 5  # ... and at DIEN's and NeuralCF's
+FULL_HISTORY_ROWS_SEED = 8  # ... and DIN's full-history scorer's weights
 # the DIN head and pool kernels against their plain versions: largest error
 # within this share of the tensor's largest |value| (float32 sums over D, the
 # widths, the L positions and, for the weight gradients, all rows, in another
@@ -496,6 +507,9 @@ KERNELS = {
                            "replaces": f"{PALLAS}/din_head.py:346 (backward, pallas_call :300)"},
     "din_attention_pool": {"route": "cuda", "source": f"{CSRC}/din_attention.cu",
                            "replaces": f"{PALLAS}/din_attention.py:82"},
+    "din_full_history": {"route": "cuda", "source": f"{CSRC}/din_full_history.cu",
+                         "replaces": "none: the JAX package scores full histories through XLA "
+                                     "(models/base.py::catalog_scores_full_history)"},
 }
 # kernel launches of one call of the DIN head's launchers at the preset's widths,
 # by dtype: the float32 forward is the attention stage and the fc head, the
@@ -515,7 +529,8 @@ LAUNCHERS = {"topk_serve_matmul": cuda_topk.topk_serve_matmul,
              "afm_attention_pool_bwd": cuda_afm.afm_attention_pool_bwd,
              "din_head_fused": cuda_dh.din_head_fused,
              "din_head_fused_bwd": cuda_dh.din_head_fused_bwd,
-             "din_attention_pool": cuda_dinatt.din_attention_pool}
+             "din_attention_pool": cuda_dinatt.din_attention_pool,
+             "din_full_history": cuda_dfh.din_full_history_scores}
 
 
 def emit(obj) -> None:
@@ -1521,6 +1536,48 @@ def check_din(part: str, B: int, L: int, D: int, A: tuple, F: tuple, gen: torch.
     return row
 
 
+def check_din_full_history(ds: MovieLens100K, gen: torch.Generator) -> dict:
+    """DIN's full-history catalog scorer at the din-refresh cell's shapes: the
+    fixture's complete histories of every user (one position a rating) against
+    every item, the preset's nets, the item table Xavier-normal as DIN draws
+    it. The kernels against the plain version (the bucketed scorer on the
+    card) within DIN_FWD_RTOL, and the same bits twice. Its bound: the products
+    the scorer needs (``dfh.products_needed``: the first attention layer once
+    per item, the second a position, the fc head a pair), in 3xTF32 (three
+    TF32 products each); bytes: the item table, the histories and the
+    logits."""
+    cfg = PRESETS["din"]
+    D = cfg.model_kwargs["embed_size"]
+    histories = [row[row >= 0] for row in ds.itemid_matrix(ds.data)]
+    U, I = len(histories), ds.num_items
+    _, _, att, fc = din_inputs(1, 1, D, DIN_ATTENTION, DIN_FC, gen)[:4]
+    item = torch.randn((I, D), generator=gen, device=DEVICE) * (2.0 / (I + D)) ** 0.5
+    args = (item, att, fc, histories)
+    got = dfh.din_full_history_scores(*args)
+    err = normwise_err("din_full_history", got, dfh.din_full_history_scores_plain(*args),
+                       DIN_FWD_RTOL)
+    if not torch.equal(dfh.din_full_history_scores(*args), got):
+        raise AssertionError("din_full_history: two calls differ")
+    del got
+    lengths = dfh.history_lengths(histories)
+    positions = int(lengths.sum())
+    products = dfh.products_needed(lengths, I, D, DIN_ATTENTION, DIN_FC)
+    t_bound, bound_by = bound_of(0.0, 4 * (I * D + positions + U * I), 3 * products)
+    row = {"shape": {"users": U, "items": I, "positions": positions,
+                     "longest": max(len(h) for h in histories), "dim": D,
+                     "attention": list(DIN_ATTENTION), "fc": list(DIN_FC),
+                     "batch": "din-refresh: every user's complete history, every item"},
+           "max_abs_err": err,
+           "kernel_ms": time_ms(lambda: dfh.din_full_history_scores(*args)),
+           "plain_ms": time_ms(lambda: dfh.din_full_history_scores_plain(*args)),
+           "library_ms": None, "library": "none: no PyTorch call computes it",
+           "bound_ms": t_bound, "bound_by": bound_by,
+           "launches_a_call": 2 * -(-U // cuda_dfh.users_per_launch(U, I, D))}
+    del item, att, fc
+    torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------- data
 
 def make_dataset(path: str, seed: int = 0) -> MovieLens100K:
@@ -2155,8 +2212,11 @@ def run_serve_din(ds: MovieLens100K, data_dir: str, epochs: int, seed: int = 0) 
         server.shutdown()
     if rec.ctx.full_histories is None:
         raise AssertionError("serve_din: the preset did not serve full histories")
+    U, D = len(rec.ctx.full_histories), PRESETS["din"].model_kwargs["embed_size"]
+    chunks = -(-U // cuda_dfh.users_per_launch(U, ds.num_items, D))  # two launches each
     check_counts("serve_din", counts, {**din_head_counts({"float32": epochs}, {"float32": epochs}),
-                                       "din_attention_pool": 0, "onehot_grad": 2 * epochs})
+                                       "din_attention_pool": 0, "onehot_grad": 2 * epochs,
+                                       "din_full_history": 2 * 2 * chunks})
     if counts["gather_rows"] < 1:
         raise AssertionError("serve_din: no item lookup went through the gather kernel")
 
@@ -2174,7 +2234,7 @@ def run_serve_din(ds: MovieLens100K, data_dir: str, epochs: int, seed: int = 0) 
     full_err = normwise_err("din full-history scores", scores[users].cpu(), want, DIN_FWD_RTOL)
     return {"phase": "serve_din",
             "entry_point": f"cli/serve.py::build_server --model din --epochs {epochs}",
-            "serving": "full histories (masked plain-torch route)",
+            "serving": "full histories (the full-history kernel)",
             "longest_history": len(full[longest]), "wall_s": wall_s,
             "full_history_max_abs_err_vs_cpu": full_err,
             "requests": requests, "launches": counts, "stats": stats}
@@ -3563,6 +3623,10 @@ def main() -> int:
                  torch.bfloat16, wide_fc_gen, ())):
             rows[name].append(check_din(part, B, *dims, draw, label, dtype, seeds))
             emit({"phase": "kernel_check", "kernel": name, **rows[name][-1]})
+        # DIN's full-history scorer, from a generator of its own
+        rows["din_full_history"].append(check_din_full_history(
+            ds, torch.Generator(device=DEVICE).manual_seed(FULL_HISTORY_ROWS_SEED)))
+        emit({"phase": "kernel_check", "kernel": "din_full_history", **rows["din_full_history"][-1]})
         torch.cuda.empty_cache()
         emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0})
 

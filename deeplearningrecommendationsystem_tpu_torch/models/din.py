@@ -26,11 +26,18 @@ Routes:
   widths): plain torch ``attention_pool`` then ``mlp``, the composition that
   the JAX DIN's default route takes (``fused_head=False``), on training,
   evaluation and the window scorer alike;
+* full-history serving (``ctx.full_histories``), where
+  ``ops/din_full_history.py::full_history_route`` takes the weights (float32,
+  two hidden layers in each net, D at most 64, widths multiples of 4): the
+  full-history kernel, which scores each user's true-length history with no
+  bucket or padding (``din_full_history_scores``; its plain version is the
+  next route);
 * masked (``mask_padding=True``, and ``apply_full`` / ``apply_full_embedded``,
-  which full-history serving uses): plain torch ``attention_pool`` with the
-  mask, then ``mlp``. This is a route in its own right, not a kernel's plain
-  version: no kernel takes a mask, and the JAX package sends these through
-  XLA as well.
+  which full-history serving uses at every other shape, bf16 weights
+  included): plain torch ``attention_pool`` with the mask, then ``mlp``
+  (``ops/din_full_history.py::masked_logits``), in the length buckets of
+  ``catalog_scores_full_history``. No kernel takes a mask, and the JAX
+  package sends these through XLA as well.
 
 The item lookups are ``gather_rows`` (the gather and ``onehot_grad`` kernel
 pair); ``fused_gather`` and ``matmul_gather_bwd`` were TPU gather policies and
@@ -55,6 +62,11 @@ from deeplearningrecommendationsystem_tpu_torch.models.base import (
 from deeplearningrecommendationsystem_tpu_torch.models.common import layer_list, nest, params_module
 from deeplearningrecommendationsystem_tpu_torch.ops.attention import attention_pool
 from deeplearningrecommendationsystem_tpu_torch.ops.din_attention import din_attention_pool
+from deeplearningrecommendationsystem_tpu_torch.ops.din_full_history import (
+    din_full_history_scores,
+    full_history_route,
+    masked_logits,
+)
 from deeplearningrecommendationsystem_tpu_torch.ops.din_head import din_head, kernel_route
 from deeplearningrecommendationsystem_tpu_torch.ops.embedding import gather_rows
 from deeplearningrecommendationsystem_tpu_torch.ops.linear import embedding_init, mlp, mlp_init
@@ -149,17 +161,18 @@ class DIN(nn.Module):
     def apply_full_embedded(self, params: Mapping[str, Any], batch) -> torch.Tensor:
         """``apply_full`` from embedded histories (hist_e [B, L, D], target [B],
         length [B]): the full-history scorer embeds each user's history once."""
-        hist_e, target, length = batch
         p = nest(params)
-        target_e = gather_rows(p["item"], target)
-        mask = torch.arange(hist_e.shape[1], device=hist_e.device)[None, :] < length[:, None]
-        pooled = attention_pool(layer_list(p["att"]), hist_e, target_e, mask)
-        return mlp(layer_list(p["fc"]), torch.cat([pooled, target_e], dim=-1))[:, 0]
+        return masked_logits(p["item"], layer_list(p["att"]), layer_list(p["fc"]), *batch)
 
     def score_catalog(self, ctx: ServingContext) -> torch.Tensor:
         params = self.params()
         if ctx.full_histories is not None:
-            # the reference's serving: each user's complete history
+            # the reference's serving: each user's complete history, through the
+            # full-history kernel where its route takes the weights
+            p = nest(params)
+            att, fc = layer_list(p["att"]), layer_list(p["fc"])
+            if full_history_route(p["item"], att, fc):
+                return din_full_history_scores(p["item"], att, fc, ctx.full_histories)
             return catalog_scores_full_history(
                 self.apply_full, params, ctx.full_histories, self.num_items, self.item.device,
                 embed_fn=lambda p, h: gather_rows(p["item"], h),

@@ -35,12 +35,16 @@ The spans and counters the port has, and what each covers:
 * ``serve.refresh``: ``Recommender.refresh``; ``serve.top_k``:
   ``Recommender.top_k`` / ``top_k_with_scores`` to the lists on the host;
 * ``serve.tile``: each user tile of ``models/base.py``'s feature and
-  full-history catalog scorers; ``serve.buckets``: building one length
-  bucket's padded histories and lengths and copying them to the device;
+  full-history catalog scorers, and the launches of DIN's full-history
+  kernel (``ops/din_full_history.py``); ``serve.buckets``: building one
+  length bucket's padded histories and lengths and copying them to the
+  device, or, on the kernel's route, packing every history as CSR and its
+  one non-blocking copy;
 * counters ``serve.positions_real`` (each user's history length times the
-  items) and ``serve.positions_scored`` (each bucket's users times its
-  length times the items padded to whole chunks), of the full-history
-  scorer.
+  items) and ``serve.positions_scored`` (the bucketed scorer: each bucket's
+  users times its length times the items padded to whole chunks; the
+  kernel: each user's length rounded up to its step of two positions times
+  the items rounded up to its tile of 16), of the full-history scorers.
 
 The profiler:
 

@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with the CUDA toolkit:
     python3 tools/kernel_sass.py [--against OTHER_CSRC_DIR]
 
 It builds ``csrc/din_head.cu``, ``din_attention.cu``, ``afm_attention.cu``,
-``serving_topk.cu``, ``mf_epoch.cu`` and ``lr_epoch.cu`` (as the launchers do,
-into ``build/kernels/``),
+``serving_topk.cu``, ``mf_epoch.cu``, ``lr_epoch.cu`` and ``din_full_history.cu``
+(as the launchers do, into ``build/kernels/``),
 disassembles them with ``cuobjdump -sass`` and prints one JSON line per
 kernel: its source, its name (demangled) and how many ``HMMA`` (warp-level
 tensor-core multiply) instructions its SASS holds. With ``--against`` it also
@@ -27,7 +27,8 @@ against its plain version on the card. A kernel the other tree has and this
 one does not (``din_head_bwd_kernel<bf16>``: bf16 takes the split at every
 width; the two-launch MF and compact LR epoch kernels, which became
 ``mf_train_kernel`` and ``lr_compact_train_kernel``, one cooperative launch a
-run) is not compared. Branch labels
+run) is not compared, nor a source the other tree lacks (``din_full_history.cu``
+before DIN's full-history kernel): its kernels count as new. Branch labels
 are renumbered within each kernel, since the disassembler numbers them across
 the file. ``din_head_bwd_att_kernel`` became a template on the storage type:
 the other tree's float32 kernel is matched to ``din_head_bwd_att_kernel<float>``
@@ -58,7 +59,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import build  # noqa: E402
 
 SOURCES = ("din_head.cu", "din_attention.cu", "afm_attention.cu", "serving_topk.cu", "mf_epoch.cu",
-           "lr_epoch.cu")
+           "lr_epoch.cu", "din_full_history.cu")
 UNCHANGED = ("din_head.cu", "serving_topk.cu", "lr_epoch.cu")
 MAY_CHANGE = ("din_head_bwd_fc_kernel<__nv_bfloat16>",)
 
@@ -123,7 +124,9 @@ def main() -> int:
     for source in SOURCES:
         ours = kernels(built[source])
         theirs = None
-        if args.against is not None:
+        if args.against is not None and not (args.against / source).exists():
+            theirs = {}
+        elif args.against is not None:
             with tempfile.TemporaryDirectory() as tmp:
                 lib = Path(tmp) / "lib.so"
                 subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
