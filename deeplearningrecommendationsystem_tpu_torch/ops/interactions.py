@@ -1,8 +1,11 @@
-"""Feature-interaction ops (FM / NFM / AFM / PNN building blocks).
+"""Feature-interaction ops (FM / NFM / AFM / PNN building blocks, and
+DCNv2's low-rank cross).
 
 The JAX package's ``ops/interactions.py``: each takes a stacked field tensor
 ``e`` [B, F, D] (F embedded fields of width D) and is plain PyTorch. Pairs are
 ordered (0,1), (0,2), ..., (F-2, F-1), the reference's double-loop order.
+``low_rank_cross`` is not in the JAX package: it is DLRM-DCNv2's interaction
+(``models/dlrm.py``), over the concatenated fields [B, F D].
 """
 
 from __future__ import annotations
@@ -42,3 +45,15 @@ def pairwise_inner_products(e: torch.Tensor) -> torch.Tensor:
     gram = torch.einsum("bfd,bgd->bfg", e, e)
     idx_i, idx_j = _pair_indices(e.shape[1], e.device)
     return gram[:, idx_i, idx_j]
+
+
+def low_rank_cross(layers, x0: torch.Tensor) -> torch.Tensor:
+    """DCNv2's low-rank cross network (Wang et al., arXiv:2008.13535, eq. 2 with
+    W = U V; torchrec's ``LowRankCrossNet``) over x0 [B, d]: for each layer
+    ``{"v": [d, r], "w": [r, d], "b": [d]}``,
+    x_{l+1} = x0 * ((x_l v) w + b) + x_l, the bias inside the product with x0
+    (DCN's ``models/dcn.py`` adds its bias outside it)."""
+    x = x0
+    for p in layers:
+        x = x0 * ((x @ p["v"]) @ p["w"] + p["b"]) + x
+    return x

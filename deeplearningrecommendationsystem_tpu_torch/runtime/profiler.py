@@ -3,7 +3,9 @@
 The recorder: spans and counters inside the program.
 
 * ``span(name)``: a context manager around one piece of the program's work.
-  ``count(name, n)`` adds ``n`` to a named counter.
+  ``count(name, n)`` adds ``n`` to a named counter; ``n`` may be a 0-d
+  device tensor, summed on the device and read only at export, so that a
+  count made on the device never makes a step wait.
 * ``recording()`` turns both on for the enclosed block and yields the
   ``Record``: the spans and counters stay in memory until the caller asks
   for them (``Record.export``, ``Record.summary``).
@@ -44,7 +46,16 @@ The spans and counters the port has, and what each covers:
   items) and ``serve.positions_scored`` (the bucketed scorer: each bucket's
   users times its length times the items padded to whole chunks; the
   kernel: each user's length rounded up to its step of two positions times
-  the items rounded up to its tile of 16), of the full-history scorers.
+  the items rounded up to its tile of 16), of the full-history scorers;
+* the row-sparse step (``train/sparse_trainer.py``): ``train.forward`` (the
+  lookups and the loss), inside it ``train.lookup`` (every table's gather),
+  ``train.backward``, ``train.optimizer`` (the dense remainder's Adam) and
+  ``train.sparse_update`` (every table's dedup and row update); counters
+  ``train.ids`` (the ids looked up) and ``train.rows_touched`` (the distinct
+  rows updated, a device count, only while recording: ``train/sparse.py``);
+* ``dlrm.bags`` (DLRM's 26 bags pooled and concatenated with the dense
+  embedding, with their gathers in a forward over full parameters) and
+  ``dlrm.cross`` (its three low-rank cross layers): ``models/dlrm.py``.
 
 The profiler:
 
@@ -132,24 +143,25 @@ class Record:
     def export(self) -> Dict:
         """``{"spans": [{name, parent, start_ns, end_ns, device_ms}],
         "counters": {name: n}}``; ``device_ms`` is None without CUDA. Reads
-        the spans' timing events, so it waits for the device to reach the
-        last span's end."""
+        the spans' timing events and the device counters, so it waits for
+        the device to reach the last span's end."""
         return {"spans": [{"name": s.name, "parent": s.parent, "start_ns": s.start_ns,
                            "end_ns": s.end_ns, "device_ms": s.device_ms()} for s in self.spans],
-                "counters": dict(self.counters)}
+                "counters": {k: int(v) for k, v in self.counters.items()}}
 
     def summary(self) -> Dict:
         """``{"spans": {name: {calls, host_ms, device_ms}}, "counters"}``:
         each span name's calls and summed milliseconds (``device_ms`` None
         without CUDA)."""
         out: Dict[str, Dict] = {}
-        for s in self.export()["spans"]:
+        exported = self.export()
+        for s in exported["spans"]:
             row = out.setdefault(s["name"], {"calls": 0, "host_ms": 0.0, "device_ms": None})
             row["calls"] += 1
             row["host_ms"] += (s["end_ns"] - s["start_ns"]) / 1e6
             if s["device_ms"] is not None:
                 row["device_ms"] = (row["device_ms"] or 0.0) + s["device_ms"]
-        return {"spans": out, "counters": dict(self.counters)}
+        return {"spans": out, "counters": exported["counters"]}
 
 
 def span(name: str):
@@ -163,8 +175,9 @@ def span(name: str):
     return _OFF
 
 
-def count(name: str, n: int) -> None:
-    """Adds ``n`` to the counter ``name`` while recording."""
+def count(name: str, n) -> None:
+    """Adds ``n`` (an int, or a 0-d integer tensor) to the counter ``name``
+    while recording."""
     record = _active
     if record is not None:
         record.counters[name] += n

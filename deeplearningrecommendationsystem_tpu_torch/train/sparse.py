@@ -45,6 +45,7 @@ from typing import Tuple
 import torch
 
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
+from deeplearningrecommendationsystem_tpu_torch.runtime.profiler import count, is_recording
 
 
 def dedup_rows(
@@ -212,8 +213,12 @@ def sparse_table_update(
     **kw,
 ):
     """Dedup a batch's per-example row gradients, then apply the optimizer of
-    ``state``'s type (in place). ``ids`` may repeat."""
+    ``state``'s type (in place). ``ids`` may repeat. While recording, the
+    counter ``train.rows_touched`` adds the distinct rows updated (on the
+    device: no step waits for it)."""
     uids, ugrads = dedup_rows(ids, row_grads, table.shape[0])
+    if is_recording():
+        count("train.rows_touched", (uids < table.shape[0]).sum())
     if isinstance(state, RowwiseAdagradState):
         return rowwise_adagrad(table, state, uids, ugrads, lr, **kw)
     if isinstance(state, LazyAdamState):

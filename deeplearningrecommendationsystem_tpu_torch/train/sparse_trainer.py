@@ -19,6 +19,13 @@ The sparse step ignores ``compute_dtype``, as the JAX one does: the model's
 trained in place; ``history["train_loss"]`` [epochs] holds each epoch's mean
 step loss, kept on the device until the end.
 
+Spans and counters (``runtime/profiler.py``), each step: ``train.forward``
+(the lookups, ``train.lookup`` inside it, and the loss), ``train.backward``,
+``train.optimizer`` (the dense Adam) and ``train.sparse_update`` (every
+table's dedup and row update); ``train.ids`` counts the ids looked up and,
+while recording, ``train.rows_touched`` the distinct rows updated
+(``train/sparse.py``).
+
 ``fit_minibatch_sparse`` draws each epoch's order as ``train/minibatch.py``
 does (``epoch_order``, on the host); ``fit_stream_sparse`` streams the host
 arrays through ``data/stream.py`` in the JAX package's NumPy order.
@@ -39,7 +46,7 @@ at the end; ``unshard=False`` leaves the blocks in the model, with
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -56,6 +63,7 @@ from deeplearningrecommendationsystem_tpu_torch.parallel.ep import (
     unshard_table,
 )
 from deeplearningrecommendationsystem_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size, coordinate
+from deeplearningrecommendationsystem_tpu_torch.runtime.profiler import count, span
 from deeplearningrecommendationsystem_tpu_torch.train import minibatch as _minibatch
 from deeplearningrecommendationsystem_tpu_torch.train.optim import torch_adam
 from deeplearningrecommendationsystem_tpu_torch.train.sparse import (
@@ -136,26 +144,32 @@ class _SparseRun:
         return torch.where((local >= 0) & (local < rows), local, rows)
 
     def step(self, b, y) -> torch.Tensor:
-        ids = self.model.table_ids(b)
-        with torch.no_grad():
-            rows = {k: (gather_rows(t, ids[k]) if self.mesh is None
-                        else sharded_gather(t, ids[k].reshape(-1), self.mesh))
-                    for k, t in self.tables.items()}
-        for r in rows.values():
-            r.requires_grad_(True)
         if self.dense_opt is not None:
             self.dense_opt.zero_grad(set_to_none=True)
-        loss = _bce_with_logits(self.model.apply_rows(self.dense, rows, b), y)
-        loss.backward()
-        if self.dense_opt is not None:
-            self.dense_opt.step()
-        with torch.no_grad():
+        with span("train.forward"):
+            ids = self.model.table_ids(b)
+            with span("train.lookup"), torch.no_grad():
+                rows = {k: (gather_rows(t, ids[k]) if self.mesh is None
+                            else sharded_gather(t, ids[k].reshape(-1), self.mesh))
+                        for k, t in self.tables.items()}
+            count("train.ids", sum(i.numel() for i in ids.values()))
+            for r in rows.values():
+                r.requires_grad_(True)
+            loss = _bce_with_logits(self.model.apply_rows(self.dense, rows, b), y)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            if self.dense_opt is not None:
+                self.dense_opt.step()
+        with span("train.sparse_update"), torch.no_grad():
             for k, table in self.tables.items():
                 sparse_table_update(table, self.states[k], self._local_ids(k, ids[k]),
                                     rows[k].grad, self.lr)
         return loss.detach()
 
-    def result(self, epoch_losses: Iterable[torch.Tensor], unshard: bool = True) -> TrainResult:
+    def result(self, step_losses: Sequence[torch.Tensor], unshard: bool = True,
+               keep_steps: bool = False) -> TrainResult:
+        """The run's ``TrainResult``; ``step_losses``: each epoch's [steps] losses."""
         ep_heights = None
         if self.mesh is not None:
             paths = self.model.sparse_tables
@@ -173,7 +187,10 @@ class _SparseRun:
             for name, p in self.dense.items():
                 dense_state[name] = {k: v.detach().clone()
                                      for k, v in self.dense_opt.state[p].items()}
-        return TrainResult(params=params, history={"train_loss": torch.stack(list(epoch_losses))},
+        history = {"train_loss": torch.stack([s.mean() for s in step_losses])}
+        if keep_steps:
+            history["step_loss"] = torch.cat(list(step_losses))
+        return TrainResult(params=params, history=history,
                            opt_state={"dense": dense_state, "sparse": self.states},
                            ep_heights=ep_heights)
 
@@ -188,22 +205,22 @@ def fit_minibatch_sparse(
     ep_strategy: str = "psum",
     params: Any = None,
     unshard: bool = True,  # False: keep tables row-sharded for sharded serving
+    step_losses: bool = False,  # True: history["step_loss"], every step's loss
 ) -> TrainResult:
     """Shuffled minibatch epochs with sparse row updates on the id tables.
 
     The model implements the sparse protocol (``sparse_tables``,
     ``table_ids``, ``apply_rows``: see ``models/mf.py``). ``rng`` seeds the
     host order (``train/minibatch.py::epoch_order``); ``params`` resumes the
-    weights. With ``mesh`` (model axis > 1) the tables are row-sharded."""
+    weights. With ``mesh`` (model axis > 1) the tables are row-sharded. With
+    ``step_losses`` the history also holds ``step_loss`` [epochs * steps]."""
     _check(trainer, mesh, ep_strategy)
     batch, labels = _to_device(train, trainer.device)
     run = _SparseRun(trainer, optimizer, params, mesh)
     order = _minibatch.epoch_order(rng, labels.shape[0], trainer.config.epochs, batch_size)
-    epoch_losses = []
-    for perm in order.to(trainer.device):
-        losses = [run.step(_minibatch.take_rows(batch, idx), labels[idx]) for idx in perm]
-        epoch_losses.append(torch.stack(losses).mean())
-    return run.result(epoch_losses, unshard)
+    losses = [torch.stack([run.step(_minibatch.take_rows(batch, idx), labels[idx])
+                           for idx in perm]) for perm in order.to(trainer.device)]
+    return run.result(losses, unshard, step_losses)
 
 
 def fit_stream_sparse(
@@ -231,8 +248,6 @@ def fit_stream_sparse(
     if len(loader) == 0:
         raise ValueError(f"batch_size {batch_size} larger than the dataset ({loader.n} rows)")
     run = _SparseRun(trainer, optimizer, params, mesh)
-    epoch_losses = []
-    for _ in range(trainer.config.epochs):
-        losses = [run.step(b, y) for b, y in loader.epoch()]
-        epoch_losses.append(torch.stack(losses).mean())
-    return run.result(epoch_losses, unshard)
+    losses = [torch.stack([run.step(b, y) for b, y in loader.epoch()])
+              for _ in range(trainer.config.epochs)]
+    return run.result(losses, unshard)

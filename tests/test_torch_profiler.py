@@ -1,6 +1,7 @@
 """The port's recorder (``runtime/profiler.py``): spans and counters, off by
 default and free when off, on ``torch.profiler``'s clock when on; the spans
-of ``Trainer.fit`` and the full-history scorer, whose outputs recording
+of ``Trainer.fit``, of the row-sparse step with DLRM's, and of the
+full-history scorer, whose outputs recording
 leaves bit for bit as they are; the scorer's counters against a hand count
 and on the benchmark's fixture; and ``trace()``'s ``spans.json``."""
 
@@ -18,6 +19,7 @@ from deeplearningrecommendationsystem_tpu_torch.models.base import catalog_score
 from deeplearningrecommendationsystem_tpu_torch.runtime import profiler
 from deeplearningrecommendationsystem_tpu_torch.serving import Recommender
 from deeplearningrecommendationsystem_tpu_torch.train import TrainConfig, Trainer
+from deeplearningrecommendationsystem_tpu_torch.train.minibatch import epoch_order
 
 STEP_SPANS = ("train.forward", "train.backward", "train.optimizer")
 
@@ -187,3 +189,51 @@ def test_trace_writes_the_spans_summary_beside_the_trace(tmp_path):
     assert summary["spans"]["inner"]["calls"] == 2
     assert summary["spans"]["outer"]["host_ms"] >= summary["spans"]["inner"]["host_ms"]
     assert not profiler.is_recording()
+
+
+def _sparse_dlrm_fit(record_on: bool):
+    """Two row-sparse steps of a small DLRM (three bags of 2, 1 and 3 ids)."""
+    from deeplearningrecommendationsystem_tpu_torch.models.dlrm import DLRM, BagSpec
+    from deeplearningrecommendationsystem_tpu_torch.train.sparse_trainer import (
+        fit_minibatch_sparse,
+    )
+
+    spec = BagSpec((5, 7, 3), (2, 1, 3))
+    net = DLRM(spec, embedding_dim=8, bottom_units=(16, 8), top_units=(16, 1), cross_layers=2,
+               cross_rank=4, generator=torch.Generator().manual_seed(0), device="cpu")
+    ids = torch.tensor([[0, 0, 6, 2, 2, 1], [4, 1, 6, 0, 2, 2],
+                        [3, 3, 0, 1, 1, 1], [4, 0, 5, 0, 0, 0]])
+    x = {"dense": torch.linspace(0.0, 1.0, 4 * 13).reshape(4, 13), "ids": ids}
+    trainer = Trainer(net, TrainConfig(learning_rate=0.01, epochs=1), device="cpu")
+    train = (x, torch.tensor([1.0, 0.0, 0.0, 1.0]))
+    if not record_on:
+        return fit_minibatch_sparse(trainer, 3, train, 2, optimizer="rowwise_adagrad"), None, ids
+    with profiler.recording() as record:
+        res = fit_minibatch_sparse(trainer, 3, train, 2, optimizer="rowwise_adagrad")
+    return res, record.export(), ids
+
+
+def test_the_sparse_step_and_dlrm_record_their_spans_and_counters(monkeypatch):
+    res_on, out, ids = _sparse_dlrm_fit(True)
+    names = [s["name"] for s in out["spans"]]
+    step = ["train.lookup", "dlrm.bags", "dlrm.cross", "train.forward", "train.backward",
+            "train.optimizer", "train.sparse_update"]
+    assert names == step * 2  # in the order they end
+    parents = {s["name"]: s["parent"] for s in out["spans"]}
+    assert parents["train.lookup"] == parents["dlrm.bags"] == parents["dlrm.cross"] == \
+        "train.forward"
+    assert all(parents[n] is None for n in step[3:])
+    order = epoch_order(3, 4, 1, 2)[0]  # the fit's two batches of two rows
+    touched = sum(int(ids[rows][:, cols].unique().numel())
+                  for rows in order for cols in (slice(0, 2), slice(2, 3), slice(3, 6)))
+    assert out["counters"] == {"train.ids": 4 * 6, "train.rows_touched": touched}
+
+    def called(*args, **kwargs):
+        raise AssertionError("the off path called a torch API")
+
+    monkeypatch.setattr(torch.profiler, "record_function", called)
+    monkeypatch.setattr(torch.cuda, "Event", called)
+    res_off, _, _ = _sparse_dlrm_fit(False)
+    monkeypatch.undo()
+    for k in res_on.params:
+        assert torch.equal(res_on.params[k], res_off.params[k]), k
