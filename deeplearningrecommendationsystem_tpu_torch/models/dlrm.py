@@ -10,18 +10,22 @@ table:
   embeds the dense features to D;
 * each bag is looked up through ``ops/embedding.py::gather_rows`` (the gather
   kernel on the card) and sum-pooled to D; the hotness is fixed, so pooling
-  is a reshape and a sum (``pool_bags``);
+  is a slice and a sum (``pool_bags``);
 * the dense embedding and the 26 bags, concatenated in that order, give
   x0 [B, 27 D]; three low-rank cross layers (``ops/interactions.py::
   low_rank_cross``, rank 512, bias inside the product) follow;
 * the top MLP (27 D-1024-1024-512-256-1, ReLU after all layers but the last,
   ``mlp``) gives the logit.
 
-Parameters, by name: ``tables.{f}`` [V_f, D] for features f = 0..25,
-``bottom.{i}.{w,b}``, ``cross.{i}.{v,w,b}`` (v [27 D, r], w [r, 27 D],
-b [27 D]) and ``top.{i}.{w,b}``. Initial weights as torchrec draws them:
-tables U(-sqrt(1/V), sqrt(1/V)), the cross's v and w Xavier-normal and its
-bias zero, the MLPs ``linear_init``. Every table is drawn in place on the
+Parameters, by name: ``tables`` [sum(V_f), D], the 26 tables one after
+another (feature f's rows from ``BagSpec.row_offsets[f]``: the table-batched
+layout of torchrec's fused embeddings), so that a step looks up, dedups and
+updates every table's rows in one call each and the host launches a few
+kernels a step, not a few for each table; ``bottom.{i}.{w,b}``,
+``cross.{i}.{v,w,b}`` (v [27 D, r], w [r, 27 D], b [27 D]) and
+``top.{i}.{w,b}``. Initial weights as torchrec draws them: table f
+U(-sqrt(1/V_f), sqrt(1/V_f)), the cross's v and w Xavier-normal and its bias
+zero, the MLPs ``linear_init``. The tables are drawn in place on the
 ``device`` the model is built on, so a card's tables are never made on the
 host.
 
@@ -31,15 +35,16 @@ float layout such as ``features.py``'s [B, 45] holds ids exactly only up to
 2^24, and these tables pass that).
 
 The sparse-row protocol of ``train/sparse_trainer.py`` (``models/mf.py``):
-``sparse_tables`` names the 26 tables, ``table_ids`` gives each table's
-flattened [B * hotness] ids and ``apply_rows`` pools the gathered rows, so
-``fit_minibatch_sparse(..., optimizer="rowwise_adagrad")`` trains the tables
-row-wise and the MLPs and the cross with the dense Adam.
+``sparse_tables`` names ``tables``, ``table_ids`` gives a batch's [B * 214]
+row numbers in it (each id plus its table's first row) and ``apply_rows``
+pools the gathered rows, so ``fit_minibatch_sparse(...,
+optimizer="rowwise_adagrad")`` trains every table row-wise and the MLPs and
+the cross with the dense Adam.
 
 Spans (``runtime/profiler.py``): ``dlrm.bags``, the 26 bags (in a forward
-over full parameters their gathers and sums; in the sparse step, whose
-gathers are the trainer's ``train.lookup``, the sums) with the concatenation,
-and ``dlrm.cross``, the three cross layers.
+over full parameters their lookup and sums; in the sparse step, whose lookup
+is the trainer's ``train.lookup``, the sums) with the concatenation, and
+``dlrm.cross``, the three cross layers.
 
 ``DLRM`` is not a preset of ``configs/presets.py``: the presets are the
 ml-100k models, and DLRM trains on Criteo-shaped data (the benchmark's
@@ -90,22 +95,34 @@ class BagSpec:
     @property
     def offsets(self) -> Tuple[int, ...]:
         """Where each feature's ids start in a row of ``ids``."""
-        out, at = [], 0
-        for h in self.hotness:
-            out.append(at)
-            at += h
-        return tuple(out)
+        return _starts(self.hotness)
+
+    @property
+    def row_offsets(self) -> Tuple[int, ...]:
+        """Where each feature's table starts in the model's ``tables``."""
+        return _starts(self.heights)
 
 
-def pool_bags(rows: torch.Tensor, hotness: int) -> torch.Tensor:
-    """Sum-pool [B * hotness, D] gathered rows, each row's bag consecutive, to [B, D]."""
-    return rows.reshape(-1, hotness, rows.shape[-1]).sum(dim=1)
+def _starts(sizes: Sequence[int]) -> Tuple[int, ...]:
+    out, at = [], 0
+    for n in sizes:
+        out.append(at)
+        at += n
+    return tuple(out)
 
 
-def _uniform_table(generator: torch.Generator, rows: int, dim: int) -> torch.Tensor:
-    bound = (1.0 / rows) ** 0.5
-    t = torch.empty((rows, dim), dtype=torch.float32, device=generator.device)
-    return t.uniform_(-bound, bound, generator=generator)
+def pool_bags(rows: torch.Tensor) -> torch.Tensor:
+    """Sum-pool a feature's gathered rows [B, hotness, D] to [B, D]."""
+    return rows.sum(dim=1)
+
+
+def _tables(generator: torch.Generator, bags: BagSpec, dim: int) -> torch.Tensor:
+    """The 26 tables one after another, each U(-sqrt(1/V), sqrt(1/V)), drawn in place."""
+    t = torch.empty((sum(bags.heights), dim), dtype=torch.float32, device=generator.device)
+    for o, v in zip(bags.row_offsets, bags.heights):
+        bound = (1.0 / v) ** 0.5
+        t[o:o + v].uniform_(-bound, bound, generator=generator)
+    return t
 
 
 def _xavier_normal(generator: torch.Generator, d_in: int, d_out: int) -> torch.Tensor:
@@ -134,10 +151,12 @@ class DLRM(nn.Module):
         generator = init_generator(generator, device)
         self.bags = bags
         d = (len(bags.heights) + 1) * embedding_dim
-        self.sparse_tables = {str(f): f"tables.{f}" for f in range(len(bags.heights))}
+        # each column of ``ids``: the first row of its feature's table
+        base = [o for o, h in zip(bags.row_offsets, bags.hotness) for _ in range(h)]
+        self.register_buffer("id_base", torch.tensor(base, device=generator.device),
+                             persistent=False)
         register_tree(self, {
-            "tables": {str(f): _uniform_table(generator, v, embedding_dim)
-                       for f, v in enumerate(bags.heights)},
+            "tables": _tables(generator, bags, embedding_dim),
             "bottom": mlp_init(generator, (num_dense,) + tuple(bottom_units)),
             "cross": [{"v": _xavier_normal(generator, d, cross_rank),
                        "w": _xavier_normal(generator, cross_rank, d),
@@ -152,34 +171,38 @@ class DLRM(nn.Module):
             x = low_rank_cross(layer_list(p["cross"]), x0)
         return mlp(layer_list(p["top"]), x)[:, 0]
 
+    def _bags(self, dense: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """x0 [B, 27 D]: the dense embedding and every feature's bag of the
+        gathered rows [B * 214, D], concatenated."""
+        # one split, whose backward writes the rows' gradient once (a slice a
+        # feature would fill and add a whole [B, 214, D] gradient for each)
+        bags = torch.split(rows.reshape(dense.shape[0], -1, rows.shape[-1]), self.bags.hotness, 1)
+        return torch.cat([dense] + [pool_bags(b) for b in bags], dim=-1)
+
     def apply_params(self, params: Mapping[str, Any], batch: Mapping[str, torch.Tensor]):
         """Logits [B] of ``{"dense": [B, 13], "ids": [B, sum(hotness)]}``."""
         p = nest(params)
         dense = relu_stack(layer_list(p["bottom"]), batch["dense"])
         with span("dlrm.bags"):
-            ids = self.table_ids(batch)
-            x0 = torch.cat([dense] + [pool_bags(gather_rows(p["tables"][k], ids[k]), h)
-                                      for k, h in zip(self.sparse_tables, self.bags.hotness)],
-                           dim=-1)
+            x0 = self._bags(dense, gather_rows(p["tables"], self.table_ids(batch)["tables"]))
         return self._interact(p, x0)
 
     def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         return self.apply_params(dict(self.named_parameters()), batch)
 
     # -- sparse-row protocol (train/sparse_trainer.py) ----------------------
+    sparse_tables = {"tables": "tables"}
+
     def table_ids(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Each table's ids, [B * hotness], each row's bag consecutive."""
-        ids = batch["ids"]
-        return {k: ids[:, o:o + h].reshape(-1)
-                for k, o, h in zip(self.sparse_tables, self.bags.offsets, self.bags.hotness)}
+        """The batch's rows of ``tables``, [B * 214]: each id plus its table's first row."""
+        return {"tables": (batch["ids"] + self.id_base).reshape(-1)}
 
     def apply_rows(self, dense: Mapping[str, Any], rows: Mapping[str, torch.Tensor],
                    batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """``apply_params`` with every table's lookup given as ``rows``;
-        ``dense`` is the params without the tables."""
+        """``apply_params`` with the lookup given as ``rows``; ``dense`` is the
+        params without the tables."""
         p = nest(dense)
         x = relu_stack(layer_list(p["bottom"]), batch["dense"])
         with span("dlrm.bags"):
-            x0 = torch.cat([x] + [pool_bags(rows[k], h)
-                                  for k, h in zip(self.sparse_tables, self.bags.hotness)], dim=-1)
+            x0 = self._bags(x, rows["tables"])
         return self._interact(p, x0)

@@ -48,13 +48,13 @@ The spans and counters the port has, and what each covers:
   kernel: each user's length rounded up to its step of two positions times
   the items rounded up to its tile of 16), of the full-history scorers;
 * the row-sparse step (``train/sparse_trainer.py``): ``train.forward`` (the
-  lookups and the loss), inside it ``train.lookup`` (every table's gather),
+  lookups and the loss), inside it ``train.lookup`` (the tables' gathers),
   ``train.backward``, ``train.optimizer`` (the dense remainder's Adam) and
   ``train.sparse_update`` (every table's dedup and row update); counters
   ``train.ids`` (the ids looked up) and ``train.rows_touched`` (the distinct
   rows updated, a device count, only while recording: ``train/sparse.py``);
 * ``dlrm.bags`` (DLRM's 26 bags pooled and concatenated with the dense
-  embedding, with their gathers in a forward over full parameters) and
+  embedding, with their lookup in a forward over full parameters) and
   ``dlrm.cross`` (its three low-rank cross layers): ``models/dlrm.py``.
 
 The profiler:

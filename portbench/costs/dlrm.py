@@ -9,9 +9,11 @@ bottom MLP's first layer, whose input is data with no gradient: 96,169,472 a
 row trained, 787.8 GFLOP a step of 8,192 rows. A bag's sum, the cross's
 elementwise terms and the biases are not products.
 
-Lookups: the 26 gathers of a step (``gather_rows``, ``costs/lookup.py``),
-each of B * hotness int64 ids into [V, D] float32, the rows its ids touch
-read once. The row-sparse step forms no table gradient: no ``onehot_grad``.
+Lookups: a step's gathers (``gather_rows``, ``costs/lookup.py``), each of
+its int64 ids into [V, D] float32 rows, the rows its ids touch read once: one
+a step, of B * 214 ids into the 26 tables held as one parameter
+(``models/dlrm.py``). The row-sparse step forms no table gradient: no
+``onehot_grad``.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ def train_row_products(config: Dict) -> int:
 
 def train_unit(config: Dict, rows: int, lookups: Sequence[Sequence[tuple]]) -> Dict:
     """Products and the lookups' bound of one unit: ``rows`` rows trained,
-    and for each step of it each table's (ids, distinct ids) looked up."""
+    and for each step of it each gather's (ids, distinct ids)."""
     D = config["embedding_dim"]
     return {"products": rows * train_row_products(config),
             "bounds": {"lookup": sum(lookup.gather_s(n, D, touched, 8)

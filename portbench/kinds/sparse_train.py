@@ -18,7 +18,7 @@ labels Bernoulli(``positive_rate``).
 
 Set-up (its own, with ``phases``: no ml-100k fixture): the model built on the
 card (its tables drawn there) and the benchmark's weights filled in; the
-batches; the rows each table's batches touch, and their copies; from the
+batches; the rows the batches touch, and their copies; from the
 seed's weights, one step on the unit's first batch (its loss and dense
 gradient are checked) and the unit's first ``checked_steps`` steps (their
 losses, touched rows and dense leaves are checked); one whole unit as
@@ -88,9 +88,8 @@ def cross_bias_outside():
 def bag_last_id_dropped():
     """Every bag of more than one id leaves its last id out of its sum."""
     def wrap(orig):
-        def pool(rows, hotness):
-            kept = max(hotness - 1, 1)
-            return rows.reshape(-1, hotness, rows.shape[-1])[:, :kept].sum(dim=1)
+        def pool(rows):
+            return rows[:, :max(rows.shape[1] - 1, 1)].sum(dim=1)
         return pool
     return replaced(dlrm, "pool_bags", wrap)
 
@@ -173,9 +172,11 @@ class Cell:
                 cfg["dcn_num_layers"], cfg["dcn_low_rank_dim"],
                 generator=torch.Generator(device=dev).manual_seed(env.seed), device=dev)
             named = dict(self.model.named_parameters())
-            self.tables = [named[p] for p in self.model.sparse_tables.values()]
-            self.reference.fill_tables(cfg, env.seed, [t.data for t in self.tables])
-            self.dense = {k: v for k, v in named.items() if not k.startswith("tables.")}
+            self.table = named.pop("tables")
+            self.offsets = torch.tensor(bags.row_offsets, device=dev)
+            self.reference.fill_tables(cfg, env.seed, [self.table.data[o:o + v] for o, v in
+                                                       zip(bags.row_offsets, self.heights)])
+            self.dense = named
             self.w0 = weights.draw(self.reference.dense_specs(cfg), env.seed, dev)
             shapes = {k: tuple(v.shape) for k, v in self.dense.items()}
             if shapes != {k: tuple(v.shape) for k, v in self.w0.items()}:
@@ -184,16 +185,19 @@ class Cell:
             self.batch, self.labels = draw_batches(cfg, tr, self.heights, self.rows, env.seed, dev)
             self.order = epoch_order(env.seed, self.rows, 1, self.batch_size)[0].to(dev)
         with s.phase("touched"):
-            ids = self.model.table_ids(self.batch)
-            self.touched = [torch.unique(ids[k]) for k in self.model.sparse_tables]
-            self.saved = [t.detach()[i] for t, i in zip(self.tables, self.touched)]
-            self.feed_mismatch = self.reference.ids_mismatch(cfg, ids, self.batch["ids"])
+            rows = self.model.table_ids(self.batch)["tables"]
+            self.feed_mismatch = self.reference.ids_mismatch(cfg, rows, self.batch["ids"])
+            self.touched = torch.unique(rows)  # every row a unit updates, of every table
+            self.saved = self.table.detach()[self.touched]
+            # the same rows by table, each table's own row numbers
+            table_of = torch.bucketize(self.touched, self.offsets, right=True) - 1
+            self.touched_by_table = [self.touched[table_of == f] - o
+                                     for f, o in enumerate(bags.row_offsets)]
             lookups = []
             for idx in self.order:
-                step = self.model.table_ids({"ids": self.batch["ids"][idx]})
-                lookups.append([(int(i.numel()), int(torch.unique(i).numel()))
-                                for i in step.values()])
-            del ids, step
+                step = self.model.table_ids({"ids": self.batch["ids"][idx]})["tables"]
+                lookups.append([(int(step.numel()), int(torch.unique(step).numel()))])
+            del rows, step
         with s.phase("costs"):
             self.costs = spec.costs(cfg["model"]).train_unit(cfg, self.rows, lookups)
         self.trainer = Trainer(self.model, TrainConfig(learning_rate=cfg["learning_rate"],
@@ -209,8 +213,7 @@ class Cell:
 
     def _restore(self) -> None:
         with torch.no_grad():
-            for t, i, rows in zip(self.tables, self.touched, self.saved):
-                t.index_copy_(0, i, rows)
+            self.table.index_copy_(0, self.touched, self.saved)
             for k, p in self.dense.items():
                 p.copy_(self.w0[k])
 
@@ -247,7 +250,8 @@ class Cell:
         res = self._fit(self._steps_of(self.order[:k]))
         out["losses"] = res.history["step_loss"].tolist()
         with torch.no_grad():  # kept on the host: the card holds what training holds
-            out["rows"] = [t.detach()[i].cpu() for t, i in zip(self.tables, self.touched)]
+            out["rows"] = [self.table.detach()[i + o].cpu() for i, o in
+                           zip(self.touched_by_table, self.model.bags.row_offsets)]
             out["dense"] = {n: v.detach().cpu() for n, v in self.dense.items()}
         self._restore()
         return out
@@ -274,7 +278,7 @@ class Cell:
         """Keep the window's step losses on the host; free the program's state."""
         self.program["histories"] = [h.detach().float().cpu() for h in self.histories]
         self.histories = []
-        self.trainer = self.model = self.tables = self.dense = self.saved = None
+        self.trainer = self.model = self.table = self.dense = self.saved = None
         if self.env.device.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -284,7 +288,7 @@ class Cell:
         steps = [({n: v[i] for n, v in self.batch.items()}, self.labels[i]) for i in self.order[:k]]
         with refcommon.precision(precision, self.env.device) as mm:
             out = self.reference.train(mm, self.config, self.w0, self.env.seed, steps,
-                                       self.config["learning_rate"], self.touched)
+                                       self.config["learning_rate"], self.touched_by_table)
         out["first_grad"] = {n: g.float().cpu() for n, g in out["first_grad"].items()}
         if self.env.device.type == "cuda":
             torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 """bags_ms.train: the device milliseconds a step of DLRM's 26 bags: the
-row-sparse step's gathers (the program's span ``train.lookup``) and their
-sums and concatenation (``dlrm.bags``), each unit's steps summed over its
-steps, the median over a traced run's unprofiled units, whose recorder is on."""
+row-sparse step's lookup (the program's span ``train.lookup``) and the bags'
+sums and concatenation (``dlrm.bags``), each unit's summed over its steps,
+the median over a traced run's unprofiled units, whose recorder is on."""
 
 from portbench import readers
 

@@ -111,20 +111,19 @@ def train_loss(mm: Callable, config: Dict, p: Dict[str, torch.Tensor], batch: Di
     return bce_with_logits(logits(mm, config, p, batch["dense"], batch["ids"]), labels)
 
 
-def ids_mismatch(config: Dict, table_ids: Dict[str, torch.Tensor], ids: torch.Tensor) -> int:
-    """The ids in the program's per-table lists (``{str(f): [B * h]}``) that
-    differ from the reference's own slicing of ``ids``; a list of the wrong
-    length counts whole."""
-    out, at = 0, 0
-    for f, h in enumerate(hotness(config)):
-        want = ids[:, at:at + h].reshape(-1)
-        got = table_ids.get(str(f))
-        at += h
-        if got is None or got.shape != want.shape:
-            out += want.numel()
-        else:
-            out += int((got != want).sum())
-    return out
+def ids_mismatch(config: Dict, rows: torch.Tensor, ids: torch.Tensor) -> int:
+    """The row numbers of the program's lookup (``rows``, [N * 214]: the 26
+    tables one after another, in feature order) that differ from each id of
+    ``ids`` [N, 214] plus its table's first row, as the reference places
+    them; a lookup of another length counts whole."""
+    base, at = [], 0
+    for v, h in zip(heights(config), hotness(config)):
+        base += [at] * h
+        at += v
+    want = (ids + torch.tensor(base, device=ids.device)).reshape(-1)
+    if rows.shape != want.shape:
+        return want.numel()
+    return int((rows != want).sum())
 
 
 def train(mm: Callable, config: Dict, dense_params: Dict[str, torch.Tensor], seed: int,

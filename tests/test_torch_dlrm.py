@@ -65,7 +65,17 @@ def _batch(n, seed=0):
 
 
 def _params(net):
-    return {k: v.detach().clone() for k, v in net.named_parameters()}
+    """The model's parameters under the reference's names: ``tables`` split
+    into ``tables.{f}``."""
+    p = {k: v.detach().clone() for k, v in net.named_parameters()}
+    return _split(p)
+
+
+def _split(p):
+    out = {k: v for k, v in p.items() if k != "tables"}
+    out.update({f"tables.{f}": p["tables"][o:o + v]
+                for f, (o, v) in enumerate(zip(SPEC.row_offsets, SPEC.heights))})
+    return out
 
 
 def test_the_published_layout():
@@ -73,11 +83,17 @@ def test_the_published_layout():
     full = BagSpec(CRITEO_1TB_ROWS, CRITEO_1TB_HOTNESS)
     assert sum(full.hotness) == 214 and full.offsets[:3] == (0, 3, 5)
     assert sum(CRITEO_1TB_ROWS) == 204_184_588
+    assert full.row_offsets[:3] == (0, 40_000_000, 40_039_060)
     net = _model()
     shapes = {k: tuple(v.shape) for k, v in net.named_parameters()}
+    assert shapes["tables"] == (sum(HEIGHTS), 128)
     assert shapes["cross.0.v"] == (3456, 512) and shapes["cross.2.w"] == (512, 3456)
     assert shapes["bottom.0.w"] == (13, 512) and shapes["top.0.w"] == (3456, 1024)
-    assert shapes["top.4.w"] == (256, 1) and len(net.sparse_tables) == 26
+    assert shapes["top.4.w"] == (256, 1)
+    x, _ = _batch(2)
+    ids = net.table_ids(x)["tables"].reshape(2, 214)
+    for f, (o, h) in enumerate(zip(SPEC.offsets, SPEC.hotness)):  # each id into its own table
+        assert torch.equal(ids[:, o:o + h], x["ids"][:, o:o + h] + SPEC.row_offsets[f])
 
 
 def test_logits_loss_and_gradients_match_the_reference():
@@ -93,8 +109,9 @@ def test_logits_loss_and_gradients_match_the_reference():
     ref_loss = ref.bce(ref.logits(leaves, x["dense"], x["ids"], SPEC.hotness), y)
     ref_loss.backward()
     torch.testing.assert_close(loss, ref_loss, **TOL)
-    for name, param in net.named_parameters():
-        torch.testing.assert_close(param.grad, leaves[name].grad, **TOL, msg=name)
+    grads = _split({n: q.grad for n, q in net.named_parameters()})
+    for name, g in grads.items():
+        torch.testing.assert_close(g, leaves[name].grad, **TOL, msg=name)
 
 
 def test_the_cross_bias_is_inside_the_product():
@@ -126,17 +143,18 @@ def test_three_rowwise_adagrad_steps_match_the_reference():
     assert res.history["step_loss"].shape == (3,)
     np.testing.assert_allclose(res.history["step_loss"].numpy(), losses, rtol=1e-5)
     torch.testing.assert_close(res.history["train_loss"][0], res.history["step_loss"].mean())
-    got = res.params
-    for f, k in enumerate(net.sparse_tables):
-        name = f"tables.{k}"
+    got = _split(res.params)
+    got_accum = res.opt_state["sparse"]["tables"].accum
+    for f, (o, h) in enumerate(zip(SPEC.offsets, SPEC.hotness)):
+        name = f"tables.{f}"
         touched = torch.zeros(HEIGHTS[f], dtype=torch.bool)
-        o, h = SPEC.offsets[f], SPEC.hotness[f]
         touched[x["ids"][:, o:o + h].reshape(-1)] = True
         assert torch.equal(got[name][~touched], w0[name][~touched]), name
         assert bool((got[name][touched] != w0[name][touched]).all(dim=1).any()), name
         assert _change_gap(got[name][touched], want[name][touched],
                            w0[name][touched]) < CHANGE_GAP, name
-        torch.testing.assert_close(res.opt_state["sparse"][k].accum, accum[name], **TOL)
+        row = SPEC.row_offsets[f]
+        torch.testing.assert_close(got_accum[row:row + HEIGHTS[f]], accum[name], **TOL)
     for name in w0:
         if not name.startswith("tables."):
             assert _change_gap(got[name], want[name], w0[name]) < CHANGE_GAP, name
@@ -151,24 +169,23 @@ def test_bags_pooled_over_eight_row_blocks_sum_to_the_whole():
     net = _model()
     x, _ = _batch(B)
     p = _params(net)
-    ids = net.table_ids(x)
-    partial = {k: torch.zeros(B, 128) for k in net.sparse_tables}
-    for k, v in zip(net.sparse_tables, HEIGHTS):
-        rows = -(-v // 8)
+    partial = []
+    for f, (o, h, v) in enumerate(zip(SPEC.offsets, SPEC.hotness, HEIGHTS)):
+        ids, rows, bag = x["ids"][:, o:o + h].reshape(-1), -(-v // 8), torch.zeros(B, 128)
         for r in range(8):
-            block = p[f"tables.{k}"][r * rows:(r + 1) * rows]
+            block = p[f"tables.{f}"][r * rows:(r + 1) * rows]
             padded = torch.cat([block, torch.zeros(1, 128)])
-            local = ids[k] - r * rows
+            local = ids - r * rows
             local = torch.where((local >= 0) & (local < block.shape[0]), local, block.shape[0])
-            partial[k] += pool_bags(embedding.gather_rows(padded, local), SPEC.hotness[int(k)])
+            bag += pool_bags(embedding.gather_rows(padded, local).reshape(B, h, 128))
+        partial.append(bag)
     whole = ref.bags(p, x["ids"], SPEC.hotness)
-    for f, k in enumerate(net.sparse_tables):
-        torch.testing.assert_close(partial[k], whole[f], **TOL)
-    dense = {n: t for n, t in p.items() if not n.startswith("tables.")}
-    rows = {k: embedding.gather_rows(p[f"tables.{k}"], ids[k]) for k in net.sparse_tables}
+    for f in range(len(HEIGHTS)):
+        torch.testing.assert_close(partial[f], whole[f], **TOL)
+    dense = {n: t for n, t in net.named_parameters() if n != "tables"}
+    rows = {"tables": embedding.gather_rows(net.tables.detach(), net.table_ids(x)["tables"])}
     got = net.apply_rows(dense, rows, x)
-    want = ref.head(p, x["dense"], [partial[k] for k in net.sparse_tables])
-    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(got, ref.head(p, x["dense"], partial), **TOL)
     torch.testing.assert_close(got, ref.logits(p, x["dense"], x["ids"], SPEC.hotness), **TOL)
 
 
@@ -188,5 +205,5 @@ def test_every_lookup_goes_through_the_gather_wrapper_and_no_table_gradient_form
     x, y = _batch(2 * B)
     trainer = Trainer(net, TrainConfig(learning_rate=0.01, epochs=1), device="cpu")
     fit_minibatch_sparse(trainer, 0, (x, y), B, optimizer="rowwise_adagrad")
-    assert seen == list(HEIGHTS) * 2  # 26 lookups a step, two steps
-    assert all(p.grad is None for n, p in net.named_parameters() if n.startswith("tables."))
+    assert seen == [sum(HEIGHTS)] * 2  # one lookup into every table a step, two steps
+    assert net.tables.grad is None
