@@ -10,7 +10,7 @@ table:
   embeds the dense features to D;
 * each bag is looked up through ``ops/embedding.py::gather_rows`` (the gather
   kernel on the card) and sum-pooled to D; the hotness is fixed, so pooling
-  is a slice and a sum (``pool_bags``);
+  is a split and a sum (``pool_bags``);
 * the dense embedding and the 26 bags, concatenated in that order, give
   x0 [B, 27 D]; three low-rank cross layers (``ops/interactions.py::
   low_rank_cross``, rank 512, bias inside the product) follow;

@@ -206,3 +206,14 @@ def test_matrix_family_is_refused(tmp_path, mode):
     with pytest.raises(ValueError, match="masked-matrix family N/A"):
         experiments.run_experiment(PRESETS["autorec"].replace(epochs=1, train_mode=mode),
                                    data=data, device="cpu")
+
+
+def test_order_is_randperm_s_on_one_thread_and_leaves_the_thread_count():
+    """``epoch_order`` draws on one thread the permutations ``torch.randperm``
+    draws on many, and gives the caller back its thread count."""
+    before = torch.get_num_threads()
+    got = minibatch.epoch_order(11, 1000, 2, 100)
+    assert torch.get_num_threads() == before
+    gen = torch.Generator().manual_seed(11)
+    want = torch.stack([torch.randperm(1000, generator=gen).view(10, 100) for _ in range(2)])
+    assert torch.equal(got, want)
