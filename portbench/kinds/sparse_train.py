@@ -173,7 +173,6 @@ class Cell:
                 generator=torch.Generator(device=dev).manual_seed(env.seed), device=dev)
             named = dict(self.model.named_parameters())
             self.table = named.pop("tables")
-            self.offsets = torch.tensor(bags.row_offsets, device=dev)
             self.reference.fill_tables(cfg, env.seed, [self.table.data[o:o + v] for o, v in
                                                        zip(bags.row_offsets, self.heights)])
             self.dense = named
@@ -190,7 +189,8 @@ class Cell:
             self.touched = torch.unique(rows)  # every row a unit updates, of every table
             self.saved = self.table.detach()[self.touched]
             # the same rows by table, each table's own row numbers
-            table_of = torch.bucketize(self.touched, self.offsets, right=True) - 1
+            starts = torch.tensor(bags.row_offsets, device=dev)
+            table_of = torch.bucketize(self.touched, starts, right=True) - 1
             self.touched_by_table = [self.touched[table_of == f] - o
                                      for f, o in enumerate(bags.row_offsets)]
             lookups = []
