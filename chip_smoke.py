@@ -239,6 +239,7 @@ from deeplearningrecommendationsystem_tpu_torch.experiments import (
     split_batches,
 )
 from deeplearningrecommendationsystem_tpu_torch.models import MatrixFactorization, ServingContext
+from deeplearningrecommendationsystem_tpu_torch.models import dlrm
 from deeplearningrecommendationsystem_tpu_torch.models.base import catalog_scores_from_pairs
 from deeplearningrecommendationsystem_tpu_torch.ops import afm_attention as afm
 from deeplearningrecommendationsystem_tpu_torch.ops import din_attention as dinatt
@@ -352,6 +353,7 @@ FEATURE_ROWS_SEED = 4  # the lookup pair's rows at the feature presets' widths d
 EP_ROWS_SEED = 7  # ... and the lookup pair's and top-k rows at the mesh phase's EP blocks
 PAIR_SEQ_ROWS_SEED = 5  # ... and at DIEN's and NeuralCF's
 FULL_HISTORY_ROWS_SEED = 8  # ... and DIN's full-history scorer's weights
+DLRM_ROWS_SEED = 9  # ... and DLRM's tables and one step's ids
 # the DIN head and pool kernels against their plain versions: largest error
 # within this share of the tensor's largest |value| (float32 sums over D, the
 # widths, the L positions and, for the weight gradients, all rows, in another
@@ -775,6 +777,35 @@ def check_gather(table_name: str, table: torch.Tensor, ids: torch.Tensor) -> dic
                        lambda: cuda_gather.gather_rows(table, ids)),
         "bound_ms": t_bound, "bound_by": bound_by,
     }
+
+
+def check_dlrm_gather() -> dict:
+    """gather_rows at the dlrm-dcnv2-train cell's lookup: one step of 8,192
+    rows, 1,753,088 int64 ids into DLRM's 26 tables held as one
+    26,500,127 x 128 float32 parameter (13.57 GB, past 2^31 elements), the
+    ids drawn as the cell draws them (``portbench/kinds/sparse_train.py``:
+    Zipf first ids, uniform offsets), from a generator of their own."""
+    from portbench import spec as bench
+    from portbench.kinds.sparse_train import draw_batches
+
+    cell = bench.workload(bench.benchmark(), "dlrm-dcnv2-train")
+    cfg, traffic = bench.config(cell["config"]), bench.traffic(cell["traffic"])
+    heights = bench.reference(cfg["model"]).heights(cfg)
+    model = dlrm.DLRM(dlrm.BagSpec(tuple(heights), tuple(cfg["multi_hot_sizes"])),
+                      cfg["embedding_dim"], cfg["num_dense_features"],
+                      cfg["dense_arch_layer_sizes"], cfg["over_arch_layer_sizes"],
+                      cfg["dcn_num_layers"], cfg["dcn_low_rank_dim"],
+                      generator=torch.Generator(device=DEVICE).manual_seed(DLRM_ROWS_SEED),
+                      device=DEVICE)
+    batch, _ = draw_batches(cfg, traffic, heights, int(cfg["batch_size"]), DLRM_ROWS_SEED, DEVICE)
+    ids = model.table_ids(batch)["tables"]
+    table = model.get_parameter("tables").detach()
+    del batch
+    try:
+        return check_gather("dlrm tables", table, ids)
+    finally:
+        del model, table, ids
+        torch.cuda.empty_cache()
 
 
 def check_sum_order(name: str, got: torch.Tensor, ids: torch.Tensor, g: torch.Tensor, V: int):
@@ -3531,6 +3562,9 @@ def main() -> int:
             emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
             rows["onehot_grad"].append(check_grad(tname, ids, V, D, torch.float32, mb_gen))
             emit({"phase": "kernel_check", "kernel": "onehot_grad", **rows["onehot_grad"][-1]})
+        # the lookup at the dlrm-dcnv2-train cell's shape: its tables in HBM
+        rows["gather_rows"].append(check_dlrm_gather())
+        emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
         # classic CF's top-k: the top 20 unrated items of every user, and
         # UserCF's 10 neighbours of every user
         for U_, I_, k in ((ds.num_users, ds.num_items, CF_TOP_N),

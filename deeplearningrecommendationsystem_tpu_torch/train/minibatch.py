@@ -47,24 +47,13 @@ def host_generator(rng) -> torch.Generator:
 def epoch_order(rng, n: int, epochs: int, batch_size: int) -> torch.Tensor:
     """[epochs, n // batch_size, batch_size] int64 row indices on the CPU: each
     epoch a permutation of ``range(n)`` from ``host_generator(rng)``, its
-    trailing partial batch dropped.
-
-    Drawn on one thread, the same permutation as on many: ``torch.randperm``
-    fills its ``range(n)`` in a parallel region, which on a loaded host can
-    hold the call for tens of milliseconds while the card waits for the
-    epoch's first batch (a DLRM unit of 131,072 rows on an 8-core host: 2 to
-    17 ms against 1.3 ms on one thread)."""
+    trailing partial batch dropped."""
     gen = host_generator(rng)
     nb = n // batch_size
     if nb == 0:
         raise ValueError(f"batch_size {batch_size} larger than the dataset ({n} rows)")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return torch.stack([torch.randperm(n, generator=gen)[: nb * batch_size]
-                            .view(nb, batch_size) for _ in range(epochs)])
-    finally:
-        torch.set_num_threads(threads)
+    return torch.stack([torch.randperm(n, generator=gen)[: nb * batch_size].view(nb, batch_size)
+                        for _ in range(epochs)])
 
 
 def take_rows(batch: Any, idx: torch.Tensor) -> Any:

@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import time
 from typing import Dict, List
 
 import torch
@@ -64,7 +63,7 @@ from deeplearningrecommendationsystem_tpu_torch.train.minibatch import epoch_ord
 from deeplearningrecommendationsystem_tpu_torch.train.sparse_trainer import fit_minibatch_sparse
 
 from portbench import refcommon, spec, weights
-from portbench.program import replaced, synchronize
+from portbench.program import Setup, replaced, synchronize
 
 NUMBERS = ("loss_gap", "grad_gap", "rows_gap", "dense_change_gap", "feed_mismatch")
 # the program's spans whose device time a recorded unit reports, a step
@@ -111,21 +110,13 @@ FAULTS = {"cross_bias_outside": cross_bias_outside, "bag_last_id_dropped": bag_l
           "accumulator_unchanged": accumulator_unchanged}
 
 
-class Phases:
-    """The seconds of each step of the set-up, each to a synchronise."""
+class Phases(Setup):
+    """``Setup``'s timer of the set-up's steps (``phases``, ``phase``),
+    without its ml-100k fixture, model and weights."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.phases: Dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            synchronize(self.device)
-            self.phases[name] = time.perf_counter() - t0
 
 
 def draw_batches(config: Dict, traffic: Dict, heights: List[int], rows: int, seed: int,
@@ -153,6 +144,11 @@ class Cell:
     def __init__(self, env):
         self.env = env
         cfg, tr, dev = env.config, env.traffic, env.device
+        if dev.type == "cuda":
+            # one intra-op thread, as torchrun gives each worker of a node
+            # (OMP_NUM_THREADS=1): on a loaded host a parallel region, such as
+            # the epoch order's randperm fill, stalls while the card waits
+            torch.set_num_threads(1)
         self.reference = spec.reference(cfg["model"])
         self.setup = s = Phases(dev)
         self.batch_size, self.steps = int(cfg["batch_size"]), int(tr["steps"])

@@ -208,9 +208,9 @@ def test_matrix_family_is_refused(tmp_path, mode):
                                    data=data, device="cpu")
 
 
-def test_order_is_randperm_s_on_one_thread_and_leaves_the_thread_count():
-    """``epoch_order`` draws on one thread the permutations ``torch.randperm``
-    draws on many, and gives the caller back its thread count."""
+def test_order_is_randperm_s_and_leaves_the_thread_count():
+    """``epoch_order`` gives each epoch ``torch.randperm``'s permutation from
+    the rng's generator, and leaves the process's thread count as it was."""
     before = torch.get_num_threads()
     got = minibatch.epoch_order(11, 1000, 2, 100)
     assert torch.get_num_threads() == before
