@@ -50,7 +50,10 @@ no result line.
    bucketed, masked scorer) and timed beside it, its bound from the products
    it needs (``ops/din_full_history.py::products_needed``: the first
    attention layer once per item; 3xTF32, three TF32 products each), no
-   library call computing it;
+   library call computing it. The gather and the row-sparse update's two
+   kernels (``dedup_rows``, bit for bit, and ``rowwise_adagrad``, within 4
+   ulps, both twice the same bits) at the dlrm-dcnv2-train cell's step, in its
+   13.57 GB of tables;
 4. train   -- the MF training path (slice 2) through the entry points a user
    calls: ``run_experiment(PRESETS["mf"])`` for 20 epochs at full width on a
    synthetic ml-100k-format dataset, then ``MatrixFactorization.fast_fit`` on
@@ -137,7 +140,9 @@ no result line.
    held the same way;
 24. sparse -- ``run_experiment`` in sparse mode (``train/sparse_trainer.py``):
    MF and DeepFM with lazy Adam, MF with row-wise AdaGrad; the table rows
-   through the gather kernel, no ``onehot_grad``; held the same way, and every
+   through the gather kernel, no ``onehot_grad``, each table's update through
+   the row kernels (``dedup_rows``, and ``rowwise_adagrad`` where it is the
+   optimizer), their launches counted; held the same way, and every
    table row the CPU run never touched keeps its bits, in the table and in
    its row-optimizer state; then both row optimizers on DeepFM's first
    item-id batch, row V - 1 in the first step only: it, and every row no step
@@ -258,6 +263,7 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_g
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lre
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mfe
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as cuda_topk
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import sparse_rows as cuda_sparse
 from deeplearningrecommendationsystem_tpu_torch.ops.attention import attention_pool
 from deeplearningrecommendationsystem_tpu_torch.ops.interactions import pairwise_products
 from deeplearningrecommendationsystem_tpu_torch.ops.linear import mlp, mlp_init
@@ -278,6 +284,7 @@ from deeplearningrecommendationsystem_tpu_torch.train import (
     sparse_table_update,
 )
 from deeplearningrecommendationsystem_tpu_torch.train.minibatch import epoch_order
+from deeplearningrecommendationsystem_tpu_torch.train import sparse
 
 DEVICE = torch.device("cuda")
 NEG_INF = topk.NEG_INF
@@ -353,7 +360,7 @@ FEATURE_ROWS_SEED = 4  # the lookup pair's rows at the feature presets' widths d
 EP_ROWS_SEED = 7  # ... and the lookup pair's and top-k rows at the mesh phase's EP blocks
 PAIR_SEQ_ROWS_SEED = 5  # ... and at DIEN's and NeuralCF's
 FULL_HISTORY_ROWS_SEED = 8  # ... and DIN's full-history scorer's weights
-DLRM_ROWS_SEED = 9  # ... and DLRM's tables and one step's ids
+DLRM_ROWS_SEED = 9  # ... and DLRM's tables, one step's ids and its row gradients
 # the DIN head and pool kernels against their plain versions: largest error
 # within this share of the tensor's largest |value| (float32 sums over D, the
 # widths, the L positions and, for the weight gradients, all rows, in another
@@ -512,6 +519,11 @@ KERNELS = {
     "din_full_history": {"route": "cuda", "source": f"{CSRC}/din_full_history.cu",
                          "replaces": "none: the JAX package scores full histories through XLA "
                                      "(models/base.py::catalog_scores_full_history)"},
+    "dedup_rows": {"route": "cuda", "source": f"{CSRC}/sparse_rows.cu",
+                   "replaces": "none: the JAX package leaves train/sparse.py::dedup_rows to XLA"},
+    "rowwise_adagrad": {"route": "cuda", "source": f"{CSRC}/sparse_rows.cu",
+                        "replaces": "none: the JAX package leaves "
+                                    "train/sparse.py::rowwise_adagrad to XLA"},
 }
 # kernel launches of one call of the DIN head's launchers at the preset's widths,
 # by dtype: the float32 forward is the attention stage and the fc head, the
@@ -532,7 +544,9 @@ LAUNCHERS = {"topk_serve_matmul": cuda_topk.topk_serve_matmul,
              "din_head_fused": cuda_dh.din_head_fused,
              "din_head_fused_bwd": cuda_dh.din_head_fused_bwd,
              "din_attention_pool": cuda_dinatt.din_attention_pool,
-             "din_full_history": cuda_dfh.din_full_history_scores}
+             "din_full_history": cuda_dfh.din_full_history_scores,
+             "dedup_rows": cuda_sparse.dedup_rows,
+             "rowwise_adagrad": cuda_sparse.rowwise_adagrad}
 
 
 def emit(obj) -> None:
@@ -779,12 +793,12 @@ def check_gather(table_name: str, table: torch.Tensor, ids: torch.Tensor) -> dic
     }
 
 
-def check_dlrm_gather() -> dict:
-    """gather_rows at the dlrm-dcnv2-train cell's lookup: one step of 8,192
-    rows, 1,753,088 int64 ids into DLRM's 26 tables held as one
-    26,500,127 x 128 float32 parameter (13.57 GB, past 2^31 elements), the
-    ids drawn as the cell draws them (``portbench/kinds/sparse_train.py``:
-    Zipf first ids, uniform offsets), from a generator of their own."""
+def dlrm_table_and_ids():
+    """DLRM's 26 tables as one 26,500,127 x 128 float32 parameter (13.57 GB,
+    past 2^31 elements) and one 8,192-row step's 1,753,088 int64 ids into it,
+    drawn as the dlrm-dcnv2-train cell draws them
+    (``portbench/kinds/sparse_train.py``: Zipf first ids, uniform offsets),
+    from a generator of their own; and the cell's configuration."""
     from portbench import spec as bench
     from portbench.kinds.sparse_train import draw_batches
 
@@ -799,13 +813,100 @@ def check_dlrm_gather() -> dict:
                       device=DEVICE)
     batch, _ = draw_batches(cfg, traffic, heights, int(cfg["batch_size"]), DLRM_ROWS_SEED, DEVICE)
     ids = model.table_ids(batch)["tables"]
-    table = model.get_parameter("tables").detach()
-    del batch
+    return model.get_parameter("tables").detach(), ids, cfg
+
+
+def check_dlrm_gather() -> dict:
+    """gather_rows at the dlrm-dcnv2-train cell's lookup (``dlrm_table_and_ids``)."""
+    table, ids, _ = dlrm_table_and_ids()
     try:
         return check_gather("dlrm tables", table, ids)
     finally:
-        del model, table, ids
+        del table, ids
         torch.cuda.empty_cache()
+
+
+def check_dlrm_row_update() -> tuple:
+    """train/sparse.py's row update at the dlrm-dcnv2-train cell's step
+    (``dlrm_table_and_ids``; normal row gradients and accumulators in [0, 1)
+    from the same seed): the dedup kernel against ``dedup_rows_plain``
+    (index_put_ on the card) bit for bit, twice; row-wise AdaGrad's kernel
+    against ``rowwise_adagrad_plain``, the touched rows and their accumulators
+    within 4 ulps of the value and of the step (the mean square sums in
+    another order), twice the same bits, and every other row of the 13.57 GB
+    table, and its accumulator, keeping its bits. Both timed with CUDA events
+    beside their plain versions and the whole update (``sparse_table_update``);
+    the bounds by bytes: the dedup reads the ids and gradient rows and writes
+    the slots; the update reads the uids and the real slots' sums, reads and
+    writes the touched rows and accumulators. Returns the dedup's row and the
+    update's."""
+    table, ids, cfg = dlrm_table_and_ids()
+    (V, D), B = table.shape, ids.shape[0]
+    lr = float(cfg["learning_rate"])
+    gen = torch.Generator(device=DEVICE).manual_seed(DLRM_ROWS_SEED)
+    g = torch.randn((B, D), generator=gen, device=DEVICE)
+    accum0 = torch.rand(V, generator=gen, device=DEVICE)
+    uids, ugrads = sparse.dedup_rows(ids, g, V)
+    want = sparse.dedup_rows_plain(ids, g, V)
+    if not (torch.equal(uids, want[0]) and torch.equal(ugrads, want[1])):
+        raise AssertionError("dedup_rows (dlrm tables): kernel != plain version")
+    again = sparse.dedup_rows(ids, g, V)
+    if not (torch.equal(uids, again[0]) and torch.equal(ugrads, again[1])):
+        raise AssertionError("dedup_rows (dlrm tables): two calls differ")
+    del want, again
+    n = int((uids < V).sum())
+    rows = uids[:n]
+    table0, state = table.clone(), RowwiseAdagradState(accum=accum0.clone())
+
+    def update(fn):
+        """``fn`` from the initial table and accumulators; their touched rows after."""
+        table.index_copy_(0, rows, table0.index_select(0, rows))
+        state.accum.copy_(accum0)
+        fn(table, state, uids, ugrads, lr)
+        return table.index_select(0, rows), state.accum.index_select(0, rows)
+
+    got = update(sparse.rowwise_adagrad)
+    moved = (table != table0).any(dim=1) | (state.accum != accum0)
+    moved[rows] = False
+    if bool(moved.any()):
+        raise AssertionError("rowwise_adagrad (dlrm tables): a row no slot names moved")
+    del moved
+    if not all(torch.equal(a, b) for a, b in zip(got, update(sparse.rowwise_adagrad))):
+        raise AssertionError("rowwise_adagrad (dlrm tables): two calls differ")
+    want = update(sparse.rowwise_adagrad_plain)
+    steps = (want[0] - table0.index_select(0, rows), want[1] - accum0.index_select(0, rows))
+    for name, a, b, step in zip(("table", "accum"), got, want, steps):
+        if not bool(((a - b).abs() <= 4 * 2.0 ** -24 * (b.abs() + step.abs())).all()):
+            raise AssertionError(f"rowwise_adagrad (dlrm tables): {name} off by more than 4 ulps")
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    del got, want, steps, table0
+
+    def plain_update():
+        u, ug = sparse.dedup_rows_plain(ids, g, V)
+        sparse.rowwise_adagrad_plain(table, state, u, ug, lr)
+
+    shape = {"table": "dlrm tables", "vocab": V, "dim": D, "ids": B, "distinct": n,
+             "dtype": "float32", "id_dtype": str(ids.dtype).split(".")[1]}
+    none = {"library_ms": None, "library": "none: no PyTorch call computes it"}
+    row_bytes, id_bytes = D * 4, ids.element_size()
+    whole = {"update_ms": time_ms(lambda: sparse.sparse_table_update(table, state, ids, g, lr)),
+             "update_plain_ms": time_ms(plain_update)}
+    dedup_row = {"shape": shape, "exact": True, "max_abs_err": 0.0,
+                 "kernel_ms": time_ms(lambda: sparse.dedup_rows(ids, g, V)),
+                 "plain_ms": time_ms(lambda: sparse.dedup_rows_plain(ids, g, V)), **none,
+                 **dict(zip(("bound_ms", "bound_by"),
+                            bound_of(0, 2 * B * (row_bytes + id_bytes)))), **whole}
+    adagrad_row = {"shape": shape, "max_abs_err": err,
+                   "kernel_ms": time_ms(lambda: sparse.rowwise_adagrad(table, state, uids, ugrads,
+                                                                       lr)),
+                   "plain_ms": time_ms(lambda: sparse.rowwise_adagrad_plain(table, state, uids,
+                                                                            ugrads, lr)), **none,
+                   **dict(zip(("bound_ms", "bound_by"),
+                              bound_of(0, B * id_bytes + n * row_bytes + 2 * n * (row_bytes + 4)))),
+                   **whole}
+    del table, ids, g, uids, ugrads, rows, state, accum0
+    torch.cuda.empty_cache()
+    return dedup_row, adagrad_row
 
 
 def check_sum_order(name: str, got: torch.Tensor, ids: torch.Tensor, g: torch.Tensor, V: int):
@@ -2674,11 +2775,22 @@ def sparse_tables(cfg, ds: MovieLens100K) -> dict:
 
 
 def mode_counts(cfg, ds: MovieLens100K, lookups: int, sparse: bool, catalog_tiles: int = 0):
-    """The lookup pair's launches of a minibatch run: ``lookups`` gathers a
-    step (``onehot_grad`` as many, the sparse step none), and the catalog's."""
+    """The kernels' launches of a minibatch run: ``lookups`` gathers a step
+    (``onehot_grad`` as many, the sparse step none), and the catalog's. The
+    sparse step updates each table through the row kernels: the dedup in two
+    launches (one for a table of one column, a bias), and row-wise AdaGrad in
+    one where it is the optimizer (lazy Adam's update is plain)."""
     steps = mode_steps(cfg, ds)
-    return {"gather_rows": lookups * (steps + catalog_tiles),
-            "onehot_grad": 0 if sparse else lookups * steps}
+    want = {"gather_rows": lookups * (steps + catalog_tiles),
+            "onehot_grad": 0 if sparse else lookups * steps, "dedup_rows": 0,
+            "rowwise_adagrad": 0}
+    if sparse:
+        named = dict(build_model(cfg, ds).named_parameters())
+        widths = [named[path].shape[1] for path in sparse_tables(cfg, ds).values()]
+        want["dedup_rows"] = steps * sum(1 if D == 1 else 2 for D in widths)
+        if cfg.sparse_optimizer == "rowwise_adagrad":
+            want["rowwise_adagrad"] = steps * len(widths)
+    return want
 
 
 def run_mode_experiments(phase: str, runs: dict, ds: MovieLens100K) -> dict:
@@ -2733,7 +2845,8 @@ def run_minibatch(ds: MovieLens100K) -> dict:
 
 def check_sentinel(ids: torch.Tensor, V: int, D: int, gen: torch.Generator) -> dict:
     """The row optimizers' padding slots on the card (``train/sparse.py``:
-    ``dedup_rows``' CUDA sum and ``_write_slots``), which all read row V - 1.
+    the dedup kernel's, which lazy Adam's ``_write_slots`` reads as row V - 1
+    and the row-wise AdaGrad kernel skips).
     SENTINEL_STEPS steps of ``sparse_table_update`` with random row gradients
     into a random [V, D] table, with lazy Adam and with row-wise AdaGrad: the
     first on ``ids`` with row V - 1 among them (repeated, beside the padding
@@ -3565,6 +3678,10 @@ def main() -> int:
         # the lookup at the dlrm-dcnv2-train cell's shape: its tables in HBM
         rows["gather_rows"].append(check_dlrm_gather())
         emit({"phase": "kernel_check", "kernel": "gather_rows", **rows["gather_rows"][-1]})
+        # the row update at the same cell's step: the dedup and row-wise AdaGrad
+        for name, row in zip(("dedup_rows", "rowwise_adagrad"), check_dlrm_row_update()):
+            rows[name].append(row)
+            emit({"phase": "kernel_check", "kernel": name, **row})
         # classic CF's top-k: the top 20 unrated items of every user, and
         # UserCF's 10 neighbours of every user
         for U_, I_, k in ((ds.num_users, ds.num_items, CF_TOP_N),

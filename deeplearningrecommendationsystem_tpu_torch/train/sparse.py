@@ -15,15 +15,17 @@ references.
   JAX package writes it (not ``torch.optim.SparseAdam``, which places
   ``eps`` after the bias corrections are folded into the step size).
 
-Plain tensor code, as the JAX package leaves it to XLA, and sync-free: every
-shape is ``[B]`` whatever the number of distinct ids, so a step is queued
-without waiting for the device. ``torch.unique`` would wait (its output size
-is dynamic); the ids are grouped by a stable sort, boundary flags and a
-cumulative sum instead. Duplicate gradients are summed by an op that is
-deterministic on each device: ``index_put_(accumulate=True)`` on CUDA (a
-sort-based kernel; ``index_add_`` there adds with atomics in a varying
-order), ``index_add_`` on the CPU (serial, in row order; ``index_put_`` there
-adds with atomics across threads). A run gives the same bits every time.
+On the CPU, and for any dtype the kernels do not take, plain tensor code, as
+the JAX package leaves it to XLA (``dedup_rows_plain``,
+``rowwise_adagrad_plain``). It is sync-free: every shape is ``[B]`` whatever
+the number of distinct ids, so a step is queued without waiting for the
+device. ``torch.unique`` would wait (its output size is dynamic); the ids are
+grouped by a stable sort, boundary flags and a cumulative sum instead.
+Duplicate gradients are summed by an op that is deterministic on each device:
+``index_put_(accumulate=True)`` on CUDA (a sort-based kernel; ``index_add_``
+there adds with atomics in a varying order), ``index_add_`` on the CPU
+(serial, in row order; ``index_put_`` there adds with atomics across
+threads). A run gives the same bits every time.
 
 JAX turns the padding slots into no-ops with ``mode="fill"`` gathers and
 ``mode="drop"`` scatters. Torch has neither: a padding slot here reads the
@@ -31,6 +33,18 @@ last table row and writes, to the same row as the last real slot, that
 slot's own new values, so the write of every slot lands on a touched row with
 the value JAX writes there and every other row, row ``V - 1`` included, keeps
 its bits (:func:`_write_slots`).
+
+CUDA float32 rows (ids int32 or int64, ``vocab + 1 < 2**31``) take kernels
+written by hand instead (``ops/cuda/sparse_rows.py`` over
+``csrc/sparse_rows.cu``): the dedup sorts the ids once as int32 keys and sums
+each run of equal ids in one block, in the order ``index_put_`` adds them (for
+rows of one column, the order of its stride-1 kernel), so its ``uids`` and
+``ugrads`` are the plain path's bit for bit; row-wise AdaGrad
+updates each real slot's row and accumulator in place, each in one warp, and
+skips the padding slots, so no row but the touched ones is written. Its mean
+square sums in another order than ``torch.mean``, a few ulps. Both repeat
+their bits run after run. ``lazy_adam`` takes the kernel's dedup and its
+plain update.
 
 The states are dataclasses of tensors, as in JAX; ``runtime/checkpoint.py``
 saves them as plain dicts of their fields. Their ``init`` allocates on the card
@@ -45,13 +59,26 @@ from typing import Tuple
 import torch
 
 from deeplearningrecommendationsystem_tpu_torch.device import resolve_device
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import sparse_rows as _cuda
 from deeplearningrecommendationsystem_tpu_torch.runtime.profiler import count, is_recording
+
+
+def _on_kernels(ids: torch.Tensor, vocab: int, *rows: torch.Tensor) -> bool:
+    """Whether the kernels take a call: ``rows`` on the card (the first one
+    decides; the launcher checks the rest) and float32, int32 or int64 ids,
+    all contiguous, and a sentinel ``vocab`` that an int32 key holds. Anything
+    else takes the plain version."""
+    return (rows[0].device.type == "cuda" and ids.dtype in _cuda.ID_DTYPES
+            and ids.is_contiguous() and vocab <= _cuda.MAX_VOCAB
+            and all(r.dtype in _cuda.ROW_DTYPES and r.is_contiguous() for r in rows))
 
 
 def dedup_rows(
     ids: torch.Tensor, row_grads: torch.Tensor, vocab: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Merge duplicate ids in a batch of per-example row gradients.
+    """Merge duplicate ids in a batch of per-example row gradients: the
+    kernel (``ops/cuda/sparse_rows.py``) where :func:`_on_kernels` says so,
+    else :func:`dedup_rows_plain`; the same bits either way.
 
     Args:
       ids: ``[B]`` int ids into a ``[vocab, D]`` table (may repeat).
@@ -63,8 +90,19 @@ def dedup_rows(
       then ``vocab`` in every slot left over, with zero gradient rows there;
       ``unique_grads[j]`` is the sum of ``row_grads[i]`` over all ``i`` with
       ``ids[i] == unique_ids[j]`` (on the CPU added in row order, as XLA's
-      scatter-add on the CPU adds them).
+      scatter-add on the CPU adds them; on the card in the order of
+      ``index_put_``: the rows of an id in their order in the batch, or for
+      rows of one column in the order of its stride-1 kernel).
     """
+    if _on_kernels(ids, vocab, row_grads):
+        return _cuda.dedup_rows(ids, row_grads, vocab)
+    return dedup_rows_plain(ids, row_grads, vocab)
+
+
+def dedup_rows_plain(
+    ids: torch.Tensor, row_grads: torch.Tensor, vocab: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`dedup_rows`."""
     B = ids.shape[0]
     sorted_ids, order = torch.sort(ids, stable=True)
     first = torch.ones(B, dtype=torch.bool, device=ids.device)
@@ -131,8 +169,25 @@ def rowwise_adagrad(
 
     The accumulator is the running mean-square of each row's gradient over
     the embedding dim -- one scalar per row, so the state is ``vocab`` floats
-    instead of Adam's ``2 * vocab * D``.
+    instead of Adam's ``2 * vocab * D``. The kernel
+    (``ops/cuda/sparse_rows.py``) where :func:`_on_kernels` says so, else
+    :func:`rowwise_adagrad_plain`.
     """
+    if _on_kernels(uids, table.shape[0], table, state.accum, ugrads):
+        _cuda.rowwise_adagrad(table, state.accum, uids, ugrads, lr, eps)
+        return table, state
+    return rowwise_adagrad_plain(table, state, uids, ugrads, lr, eps)
+
+
+def rowwise_adagrad_plain(
+    table: torch.Tensor,
+    state: RowwiseAdagradState,
+    uids: torch.Tensor,
+    ugrads: torch.Tensor,
+    lr: float,
+    eps: float = 1e-10,
+) -> Tuple[torch.Tensor, RowwiseAdagradState]:
+    """Plain version of :func:`rowwise_adagrad`."""
     slots = _write_slots(uids, table.shape[0])
     rows = slots[0]
     g2 = torch.mean(torch.square(ugrads), dim=-1)  # [B]
@@ -213,7 +268,9 @@ def sparse_table_update(
     **kw,
 ):
     """Dedup a batch's per-example row gradients, then apply the optimizer of
-    ``state``'s type (in place). ``ids`` may repeat. While recording, the
+    ``state``'s type (in place). ``ids`` may repeat. ``dedup_rows`` and the
+    optimizer are looked up in this module at each call, so a replacement set
+    on the module (a test's, or a benchmark's planted fault) is what runs. While recording, the
     counter ``train.rows_touched`` adds the distinct rows updated (on the
     device: no step waits for it)."""
     uids, ugrads = dedup_rows(ids, row_grads, table.shape[0])

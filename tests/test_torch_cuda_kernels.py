@@ -2,7 +2,8 @@
 serving top-k kernels, the embedding gather and its backward, the fused MF
 trainer, the fused LR trainers (wide and compact), the AFM attention pool
 (forward and backward), the fused DIN head (forward and backward, float32 and
-bfloat16) and the DIN attention pool. Every test here needs an NVIDIA GPU with
+bfloat16), the DIN attention pool, and the row-sparse update's dedup and
+row-wise AdaGrad (``train/sparse.py``). Every test here needs an NVIDIA GPU with
 nvcc and skips elsewhere; run them on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -36,8 +37,10 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_g
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lre
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mfe
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as cuda_topk
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import sparse_rows as cuda_sparse
 from deeplearningrecommendationsystem_tpu_torch.ops.embedding import gather_rows
 from deeplearningrecommendationsystem_tpu_torch.ops.linear import mlp_init
+from deeplearningrecommendationsystem_tpu_torch.train import sparse
 
 pytestmark = pytest.mark.cuda
 
@@ -1201,3 +1204,178 @@ def test_din_composition_route_launches_no_din_kernel(cuda, att_units, fc_units,
         want_scores = cpu.score_catalog(ServingContext(torch.zeros((37, 1)), torch.zeros((200, 1)),
                                                        history=hist[:37]))
     _close(scores.cpu(), want_scores, 1e-5)
+
+
+# ---- the row-sparse update: the dedup's segment sums and row-wise AdaGrad
+
+SPARSE_V, SPARSE_B, SPARSE_LR = 1000, 4096, 0.05
+# how the batch's ids are drawn: repeating (a tenth of the rows); one id taking
+# half the batch (a long run, read ahead through L2); a tenth of them the
+# sentinel V (another rank's ids on an EP mesh); every id the sentinel (every
+# slot after the first is padding, and the update changes nothing); row V - 1
+# among the ids, and kept out of them
+SPARSE_IDS = ["repeated", "half_one_id", "sentinel", "all_sentinel", "last_row", "no_last_row"]
+
+
+def _sparse_ids(pattern, id_dtype, cuda, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    V, B = SPARSE_V, SPARSE_B
+    ids = torch.randint(0, V - 1, (B,), generator=g, device=cuda)  # row V - 1 left out
+    if pattern == "repeated":
+        ids = ids % (V // 10)
+    elif pattern == "half_one_id":
+        ids[torch.randperm(B, generator=g, device=cuda)[: B // 2]] = 7
+    elif pattern == "sentinel":
+        ids[::10] = V
+    elif pattern == "all_sentinel":
+        ids.fill_(V)
+    elif pattern == "last_row":
+        ids[::3] = V - 1
+    return ids.to(id_dtype)
+
+
+def _sparse_step(pattern, id_dtype, D, cuda, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed + D)
+    ids = _sparse_ids(pattern, id_dtype, cuda, seed)
+    grads = torch.randn((SPARSE_B, D), generator=g, device=cuda)
+    table = torch.randn((SPARSE_V, D), generator=g, device=cuda)
+    accum = torch.rand(SPARSE_V, generator=g, device=cuda)
+    return ids, grads, table, accum
+
+
+def _adagrad(fn, table0, accum0, uids, ugrads):
+    table, state = table0.clone(), sparse.RowwiseAdagradState(accum=accum0.clone())
+    fn(table, state, uids, ugrads, SPARSE_LR)
+    torch.cuda.synchronize()
+    return table, state.accum
+
+
+def _within_ulps(got, want, step):
+    """Within 4 float32 ulps of the value and of the step taken: the mean
+    square sums in another order than torch.mean's, so the accumulator, and
+    through it the step, may differ in the last bits."""
+    return bool(((got - want).abs() <= 4 * 2.0 ** -24 * (want.abs() + step.abs())).all())
+
+
+# the widths the sparse models use, and a bias table's and an odd one (loads of
+# one and of two floats)
+@pytest.mark.parametrize("D", [1, 6, 16, 64, 128, 256])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("pattern", SPARSE_IDS)
+def test_sparse_row_update_matches_plain(cuda, pattern, id_dtype, D):
+    """The dedup kernel is its plain version (index_put_ on the card) bit for
+    bit; AdaGrad's table and accumulator within a few ulps of the plain
+    update's, every row no real slot names keeping its bits; each repeats its
+    bits, the dedup in two launches a call (long runs, short runs; one for
+    rows of one column, summed in the order of index_put_'s stride-1
+    kernel), AdaGrad in one."""
+    ids, grads, table0, accum0 = _sparse_step(pattern, id_dtype, D, cuda)
+    before = cuda_sparse.dedup_rows.launches, cuda_sparse.rowwise_adagrad.launches
+    uids, ugrads = sparse.dedup_rows(ids, grads, SPARSE_V)
+    torch.cuda.synchronize()
+    assert cuda_sparse.dedup_rows.launches == before[0] + (1 if D == 1 else 2)
+    want = sparse.dedup_rows_plain(ids, grads, SPARSE_V)
+    assert uids.dtype == want[0].dtype == id_dtype
+    assert torch.equal(uids, want[0]) and torch.equal(ugrads, want[1])
+    again = sparse.dedup_rows(ids, grads, SPARSE_V)
+    assert torch.equal(again[0], uids) and torch.equal(again[1], ugrads)
+
+    table, accum = _adagrad(sparse.rowwise_adagrad, table0, accum0, uids, ugrads)
+    assert cuda_sparse.rowwise_adagrad.launches == before[1] + 1
+    want_table, want_accum = _adagrad(sparse.rowwise_adagrad_plain, table0, accum0, uids, ugrads)
+    assert _within_ulps(table, want_table, want_table - table0)
+    assert _within_ulps(accum, want_accum, want_accum - accum0)
+    touched = torch.zeros(SPARSE_V, dtype=torch.bool, device=cuda)
+    touched[uids[uids < SPARSE_V].long()] = True
+    assert torch.equal(table[~touched], table0[~touched])
+    assert torch.equal(accum[~touched], accum0[~touched])
+    assert bool((table[touched] != table0[touched]).any(dim=1).all())
+    assert bool(touched[SPARSE_V - 1]) == (pattern == "last_row")
+    if pattern == "all_sentinel":
+        assert not touched.any() and torch.equal(table, table0)
+    again = _adagrad(sparse.rowwise_adagrad, table0, accum0, uids, ugrads)
+    assert torch.equal(again[0], table) and torch.equal(again[1], accum)
+
+
+@pytest.mark.parametrize("name", ["rowwise_adagrad", "lazy_adam"])
+def test_sparse_table_update_on_the_card(cuda, monkeypatch, name):
+    """Three steps of ``sparse_table_update`` on the kernels against the same
+    steps on the plain versions, on the card: lazy Adam (the kernel's dedup,
+    its plain update) bit for bit, row-wise AdaGrad within a few ulps."""
+    steps = [_sparse_step("sentinel", torch.int64, 64, cuda, seed) for seed in range(3)]
+    table0 = steps[0][2]
+
+    def run(on_kernels):
+        """The table and state after the steps, and each one's sum over the
+        steps of |value| + |change|: what a few ulps a step add up to."""
+        monkeypatch.setattr(sparse, "_on_kernels", on_kernels)
+        table = table0.clone()
+        state = (sparse.RowwiseAdagradState.init(SPARSE_V, device=cuda) if name == "rowwise_adagrad"
+                 else sparse.LazyAdamState.init(SPARSE_V, 64, device=cuda))
+        leaves = (table, state.accum) if name == "rowwise_adagrad" else (table,)
+        scale = [torch.zeros_like(t) for t in leaves]
+        for ids, grads, _, _ in steps:
+            before = [t.clone() for t in leaves]
+            sparse.sparse_table_update(table, state, ids, grads, SPARSE_LR)
+            for s, b, a in zip(scale, before, leaves):
+                s += a.abs() + (a - b).abs()
+        torch.cuda.synchronize()
+        return table, state, scale
+
+    on_kernels = sparse._on_kernels
+    before = cuda_sparse.dedup_rows.launches
+    table, state, _ = run(on_kernels)
+    assert cuda_sparse.dedup_rows.launches == before + 6
+    want_table, want_state, scale = run(lambda *a: False)
+    if name == "lazy_adam":
+        assert torch.equal(table, want_table) and torch.equal(state.mv, want_state.mv)
+    else:
+        # 4 ulps a step of each step's value and change, as a single step is held
+        assert bool(((table - want_table).abs() <= 4 * 2.0 ** -24 * scale[0]).all())
+        assert bool(((state.accum - want_state.accum).abs() <= 4 * 2.0 ** -24 * scale[1]).all())
+
+
+@pytest.mark.parametrize("B", [0, 1, 2, 3])
+def test_sparse_row_update_of_a_few_ids(cuda, B):
+    """An empty batch launches nothing and changes nothing; one, two and three
+    ids (one repeated) are the plain versions' as above."""
+    before = cuda_sparse.dedup_rows.launches, cuda_sparse.rowwise_adagrad.launches
+    ids = torch.tensor([5, 2, 5][:B], dtype=torch.int64, device=cuda)
+    grads = torch.randn((B, 16), device=cuda)
+    uids, ugrads = sparse.dedup_rows(ids, grads, SPARSE_V)
+    want = sparse.dedup_rows_plain(ids, grads, SPARSE_V)
+    assert uids.shape == (B,) and ugrads.shape == (B, 16)
+    assert torch.equal(uids, want[0]) and torch.equal(ugrads, want[1])
+    table0 = torch.randn((SPARSE_V, 16), device=cuda)
+    accum0 = torch.rand(SPARSE_V, device=cuda)
+    table, accum = _adagrad(sparse.rowwise_adagrad, table0, accum0, uids, ugrads)
+    want_table, want_accum = _adagrad(sparse.rowwise_adagrad_plain, table0, accum0, uids, ugrads)
+    assert _within_ulps(table, want_table, want_table - table0)
+    assert _within_ulps(accum, want_accum, want_accum - accum0)
+    moved = (table != table0).any(dim=1).nonzero().flatten().tolist()
+    assert moved == sorted(set(ids.tolist()))
+    launched = (2, 1) if B else (0, 0)
+    assert (cuda_sparse.dedup_rows.launches - before[0],
+            cuda_sparse.rowwise_adagrad.launches - before[1]) == launched
+
+
+def test_sparse_rows_launchers_check_their_inputs(cuda):
+    ids = torch.zeros(8, dtype=torch.int64, device=cuda)
+    grads, table = torch.zeros((8, 16), device=cuda), torch.zeros((SPARSE_V, 16), device=cuda)
+    accum = torch.zeros(SPARSE_V, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_sparse.dedup_rows(ids, grads.bfloat16(), SPARSE_V)
+    with pytest.raises(TypeError):
+        cuda_sparse.dedup_rows(ids.float(), grads, SPARSE_V)
+    with pytest.raises(ValueError, match="differ in rows"):
+        cuda_sparse.dedup_rows(ids[:4], grads, SPARSE_V)
+    with pytest.raises(ValueError, match="vocab"):
+        cuda_sparse.dedup_rows(ids, grads, 2**31 - 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_sparse.dedup_rows(ids, grads.t().contiguous().t(), SPARSE_V)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda_sparse.rowwise_adagrad(table, accum[:-1], ids, grads, SPARSE_LR, 1e-10)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda_sparse.rowwise_adagrad(table, accum, ids, grads[:, :8].contiguous(), SPARSE_LR, 1e-10)
+    with pytest.raises(TypeError):
+        cuda_sparse.rowwise_adagrad(table.double(), accum, ids, grads, SPARSE_LR, 1e-10)

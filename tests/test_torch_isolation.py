@@ -19,6 +19,10 @@
 * The minibatch trainers look ids up through the gather and onehot_grad
   wrappers; the sparse trainer gathers its table rows through the gather
   wrapper and never forms a table gradient (no onehot_grad).
+* The row-sparse update (``train/sparse.py``'s ``dedup_rows`` and
+  ``rowwise_adagrad``) hands CUDA float32 rows to its kernel launchers
+  (``ops/cuda/sparse_rows.py``) and never to the plain version; the launchers
+  refuse CPU tensors.
 * Classic CF (UserCF, ItemCF, GDCF) takes every top-k through the
   ``topk_scores`` wrapper, never through ``stable_top_k`` or a library
   top-k; on a CUDA tensor that is the kernel.
@@ -83,6 +87,7 @@ from deeplearningrecommendationsystem_tpu_torch.ops.cuda import gather as cuda_g
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import lr_epoch as cuda_lr_epoch
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import mf_epoch as cuda_mf_epoch
 from deeplearningrecommendationsystem_tpu_torch.ops.cuda import serving_topk as cuda_topk
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import sparse_rows as cuda_sparse_rows
 from deeplearningrecommendationsystem_tpu_torch.parallel import collectives
 from deeplearningrecommendationsystem_tpu_torch.runtime import distributed
 from deeplearningrecommendationsystem_tpu_torch.runtime.checkpoint import CheckpointManager
@@ -156,6 +161,7 @@ def test_port_files_are_found():
             "deeplearningrecommendationsystem_tpu_torch/data/stream.py",
             "deeplearningrecommendationsystem_tpu_torch/train/minibatch.py",
             "deeplearningrecommendationsystem_tpu_torch/train/sparse.py",
+            "deeplearningrecommendationsystem_tpu_torch/ops/cuda/sparse_rows.py",
             "deeplearningrecommendationsystem_tpu_torch/train/sparse_trainer.py",
             "deeplearningrecommendationsystem_tpu_torch/cf/neighborhood.py",
             "deeplearningrecommendationsystem_tpu_torch/cf/gdcf.py",
@@ -472,9 +478,93 @@ def test_train_wrapper_sources_have_no_fallback(module):
         plain = [c for c in _calls(fn) if c.endswith("_plain")]
         assert plain == [f"{name}_plain"] == [c for c in _calls(branch) if c.endswith("_plain")]
     for launchers in (cuda_gather, cuda_mf_epoch, cuda_lr_epoch, cuda_afm, cuda_din_head,
-                      cuda_din_attention):
+                      cuda_din_attention, cuda_sparse_rows):
         text = pathlib.Path(launchers.__file__).read_text()
         assert "_plain" not in text and "try:" not in text
+
+
+# ---- the row-sparse update's kernels: the dedup and row-wise AdaGrad
+
+def _fake_cuda_rows(*shape, dtype=torch.float32):
+    """A CUDA tensor where there is no card, as ``train/sparse.py`` reads it
+    before it hands it on: device, dtype, shape and contiguity."""
+    return types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype,
+                                 shape=torch.Size(shape), is_contiguous=lambda: True)
+
+
+SPARSE_KERNELS = {
+    # the function of train/sparse.py, its arguments given a tensor maker and a
+    # row width
+    "dedup_rows": lambda make, D: (make(6, dtype=torch.int64), make(6, D), 9),
+    "rowwise_adagrad": lambda make, D: (make(9, D), types.SimpleNamespace(accum=make(9)),
+                                        make(6, dtype=torch.int64), make(6, D), 0.1, 1e-10),
+}
+
+
+def _cpu_sparse_args(name):
+    if name == "dedup_rows":
+        return torch.tensor([3, 1, 3, 9, 0, 1]), torch.randn(6, 4), 9
+    from deeplearningrecommendationsystem_tpu_torch.train import sparse
+
+    return (torch.randn(9, 4), RowwiseAdagradState.init(9, device="cpu"),
+            *sparse.dedup_rows_plain(torch.tensor([3, 1, 3, 9, 0, 1]), torch.randn(6, 4), 9),
+            0.1, 1e-10)
+
+
+# a bias table's one column, and a few
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("name", list(SPARSE_KERNELS))
+def test_sparse_cuda_rows_go_to_the_launcher(monkeypatch, name, D):
+    from deeplearningrecommendationsystem_tpu_torch.train import sparse
+
+    calls = []
+    monkeypatch.setattr(sparse, f"{name}_plain", _never)
+    monkeypatch.setattr(cuda_sparse_rows, name, lambda *a: calls.append(a) or ("launched", a))
+    args = SPARSE_KERNELS[name](_fake_cuda_rows, D)
+    out = getattr(sparse, name)(*args)
+    assert len(calls) == 1
+    if name == "dedup_rows":
+        assert out == ("launched", args)
+    else:  # the launcher takes the state's accumulator and updates in place
+        table, state, uids, ugrads, lr, eps = args
+        assert calls[0] == (table, state.accum, uids, ugrads, lr, eps)
+        assert out == (table, state)
+
+
+@pytest.mark.parametrize("name", list(SPARSE_KERNELS))
+def test_sparse_cpu_rows_take_the_plain_version(monkeypatch, name):
+    from deeplearningrecommendationsystem_tpu_torch.train import sparse
+
+    monkeypatch.setattr(cuda_sparse_rows, name, _never)
+    assert getattr(sparse, name)(*_cpu_sparse_args(name)) is not None
+
+
+@pytest.mark.parametrize("name", list(SPARSE_KERNELS))
+def test_sparse_launchers_reject_cpu_tensors(name):
+    args = _cpu_sparse_args(name)
+    if name == "rowwise_adagrad":  # the launcher takes the accumulator, not the state
+        args = (args[0], args[1].accum, *args[2:])
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(cuda_sparse_rows, name)(*args)
+
+
+def test_sparse_source_has_no_fallback():
+    """``dedup_rows`` and ``rowwise_adagrad``: no ``try``; the launcher is
+    called once, inside ``if _on_kernels(...)``, and the plain version after
+    it, outside."""
+    from deeplearningrecommendationsystem_tpu_torch.train import sparse
+
+    tree = ast.parse(pathlib.Path(sparse.__file__).read_text())
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    for name in SPARSE_KERNELS:
+        fn = funcs[name]
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+        (branch,) = [n for n in fn.body if isinstance(n, ast.If)]
+        assert _calls(branch.test) == ["_on_kernels"]
+        launched = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                    and isinstance(n.func, ast.Attribute) and n.func.attr == name]
+        assert len(launched) == 1 and launched[0] in list(ast.walk(branch))
+        assert f"{name}_plain" in _calls(fn) and f"{name}_plain" not in _calls(branch)
 
 
 def test_gather_rows_goes_through_the_kernel_pair(monkeypatch):

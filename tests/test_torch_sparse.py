@@ -14,6 +14,13 @@ inputs.
   optimizers: losses rtol 1e-5, tables, dense params and states atol 1e-5.
 * A mesh that is no DeviceMesh, or an unknown strategy, raises; a model
   without the protocol raises.
+* CPU tensors take the plain versions (``dedup_rows_plain``,
+  ``rowwise_adagrad_plain``), never the kernels' launchers; only CUDA float32
+  rows with int32 or int64 ids and a sentinel an int32 key holds take the
+  kernels; ``sparse_table_update`` runs whatever ``dedup_rows`` and optimizer
+  the module holds at the call (a planted fault replaces them by name). The
+  kernels against the plain versions on the card:
+  ``tests/test_torch_cuda_kernels.py``, which imports no JAX.
 """
 
 import types
@@ -46,6 +53,7 @@ from deeplearningrecommendationsystem_tpu_torch.train import (
     merge_tables,
     pop_tables,
 )
+from deeplearningrecommendationsystem_tpu_torch.ops.cuda import sparse_rows as cuda_sparse_rows
 from deeplearningrecommendationsystem_tpu_torch.train import minibatch
 from deeplearningrecommendationsystem_tpu_torch.train import sparse
 from jax_order import jax_order
@@ -162,6 +170,113 @@ def test_all_padding_slots_change_nothing(name):
     for k, v in vars(state).items():
         if v.dim():
             torch.testing.assert_close(v, before[k], rtol=0, atol=0)
+
+
+def _never(*args, **kwargs):
+    raise AssertionError("a CPU tensor reached a kernel launcher")
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("name", list(OPTIMIZERS))
+def test_cpu_tensors_take_the_plain_versions(monkeypatch, name, id_dtype):
+    """On the CPU the dedup and both optimizers are the plain versions bit
+    for bit, through ``sparse_table_update`` too, and no launcher is called."""
+    monkeypatch.setattr(cuda_sparse_rows, "dedup_rows", _never)
+    monkeypatch.setattr(cuda_sparse_rows, "rowwise_adagrad", _never)
+    ids, g = _steps(7, 1)[0]
+    ids, g = torch.from_numpy(ids).to(id_dtype), torch.from_numpy(g)
+    got = sparse.dedup_rows(ids, g, V)
+    want = sparse.dedup_rows_plain(ids, g, V)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0].dtype == id_dtype
+    table0 = torch.from_numpy(np.random.default_rng(8).standard_normal((V, D)).astype(np.float32))
+    plain = (sparse.rowwise_adagrad_plain if name == "rowwise_adagrad" else sparse.lazy_adam)
+    results = []
+    for step in ("update", "plain", "sparse_table_update"):
+        table, state = table0.clone(), _init(name, table0)[0]
+        if step == "update":
+            getattr(sparse, name)(table, state, *got, 0.05)
+        elif step == "plain":
+            plain(table, state, *want, 0.05)
+        else:
+            sparse.sparse_table_update(table, state, ids, g, 0.05)
+        results.append([table, *vars(state).values()])
+    for other in results[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(results[0], other))
+
+
+# (rows device, rows dtype, ids dtype, vocab) -> whether the kernels take it
+ROUTES = [("cuda", torch.float32, torch.int64, V, True),
+          ("cuda", torch.float32, torch.int32, V, True),
+          ("cuda", torch.float32, torch.int64, 2**31 - 2, True),
+          ("cuda", torch.float32, torch.int64, 2**31 - 1, False),  # the sentinel needs an int32 key
+          ("cuda", torch.bfloat16, torch.int64, V, False),
+          ("cuda", torch.float64, torch.int64, V, False),
+          ("cuda", torch.float32, torch.int16, V, False),
+          ("cpu", torch.float32, torch.int64, V, False)]
+
+
+@pytest.mark.parametrize("device,dtype,id_dtype,vocab,taken", ROUTES)
+def test_which_rows_take_the_kernels(device, dtype, id_dtype, vocab, taken):
+    def fake(dt, contiguous=True):
+        return types.SimpleNamespace(device=torch.device(device), dtype=dt,
+                                     is_contiguous=lambda: contiguous)
+
+    assert sparse._on_kernels(fake(id_dtype), vocab, fake(dtype)) is taken
+    assert sparse._on_kernels(fake(id_dtype), vocab, fake(torch.float32), fake(dtype)) is taken
+    assert sparse._on_kernels(fake(id_dtype), vocab, fake(dtype, contiguous=False)) is False
+    assert sparse._on_kernels(fake(id_dtype, contiguous=False), vocab, fake(dtype)) is False
+
+
+@pytest.mark.parametrize("name", ["dedup_rows", "rowwise_adagrad", "lazy_adam"])
+def test_sparse_table_update_runs_the_module_s_functions(monkeypatch, name):
+    """``sparse_table_update`` looks ``dedup_rows`` and the optimizer up in the
+    module at each call: a replacement set there by name (as the benchmark's
+    fault ``accumulator_unchanged`` replaces ``rowwise_adagrad``) is what runs,
+    with the step's arguments, and what it returns is the update's result."""
+    calls = []
+    orig = getattr(sparse, name)
+
+    def recorded(*args, **kwargs):
+        calls.append(len(args))
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(sparse, name, recorded)
+    optimizer = "lazy_adam" if name == "lazy_adam" else "rowwise_adagrad"
+    table0 = np.random.default_rng(9).standard_normal((V, D)).astype(np.float32)
+    table, state = torch.from_numpy(table0.copy()), _init(optimizer, table0)[0]
+    ids, g = _steps(9, 1)[0]
+    out = sparse.sparse_table_update(table, state, torch.from_numpy(ids), torch.from_numpy(g),
+                                     0.05)
+    assert calls == [3 if name == "dedup_rows" else 5]
+    assert out[0] is table and out[1] is state
+    assert not np.array_equal(table.numpy(), table0)
+
+
+def test_a_replaced_optimizer_is_what_the_trainer_runs(monkeypatch):
+    """The benchmark's fault: row-wise AdaGrad whose accumulator is never
+    written back, put in by name, changes what ``sparse_table_update``
+    leaves in the state and the table."""
+    def unchanged(table, state, uids, ugrads, lr, eps=1e-10):
+        kept = state.accum.clone()
+        out = orig(table, state, uids, ugrads, lr, eps)
+        state.accum.copy_(kept)
+        return out
+
+    table0 = np.random.default_rng(10).standard_normal((V, D)).astype(np.float32)
+    steps = _steps(10, 2)
+    runs = []
+    orig = sparse.rowwise_adagrad
+    for fault in (False, True):
+        if fault:
+            monkeypatch.setattr(sparse, "rowwise_adagrad", unchanged)
+        table, state = torch.from_numpy(table0.copy()), _init("rowwise_adagrad", table0)[0]
+        for ids, g in steps:
+            sparse.sparse_table_update(table, state, torch.from_numpy(ids), torch.from_numpy(g),
+                                       0.05)
+        runs.append((table, state.accum))
+    assert runs[0][1].any() and not runs[1][1].any()
+    assert not torch.equal(runs[0][0], runs[1][0])
 
 
 def test_unknown_state_raises():
